@@ -66,14 +66,20 @@ def bitset_to_mask(bits, u):
     return ((bits[..., word_idx] >> shift) & 1) != 0
 
 
-def eye_bits(u, words, device=None):
-    """(U, W) constant: EYE[i] = bitset with only bit i."""
+@functools.lru_cache(maxsize=64)
+def _eye_bits(u: int, words: int, device) -> torch.Tensor:
     idx = np.arange(u)
     col = np.arange(words)
     eye = np.where(col[None, :] == (idx[:, None] // WORD),
                    np.uint32(1) << (idx[:, None] % WORD).astype(np.uint32),
                    np.uint32(0)).astype(np.uint32)
     return torch.from_numpy(eye.view(np.int32)).to(device)
+
+
+def eye_bits(u, words, device=None):
+    """(U, W) constant: EYE[i] = bitset with only bit i. Cached per size
+    and device; callers must not write to it."""
+    return _eye_bits(u, words, torch.device(device or "cpu"))
 
 
 def mask_to_bitset(mask, words):
@@ -130,6 +136,9 @@ def single_bit_index_rows(rows):
 # ===========================================================================
 
 BACKENDS = ("pivot", "rcd", "revised", "hybrid")
+# Backends that precompute a branch set B at call entry ('rcd' re-selects
+# per visit instead, so it carries nothing a steal could split).
+PIVOT_BACKENDS = ("pivot", "revised", "hybrid")
 # What this port runs so far; 'rcd' and 'hybrid' wait for ROADMAP Queue 1
 # item 5.
 PORTED_BACKENDS = ("pivot", "revised")
@@ -141,6 +150,25 @@ class EngineConfig:
     backend: str = "pivot"          # one of PORTED_BACKENDS
     out_cap: int = 0                # >0: enumerate into a fixed buffer
     max_iters: int = 1 << 30
+    # Persistent-engine lane work stealing (DESIGN.md §2.6 STEAL): when the
+    # root queue is drained and a lane idles, it adopts half of a live
+    # lane's shallowest splittable branch set. Pure scheduling — counters
+    # and enumerated sets are bit-identical either way.
+    steal: bool = True
+    # Steal victim policy: 'branchiest' picks the lane whose donation slot
+    # has the largest remaining branch set, 'deepest' the deepest lane.
+    steal_victim: str = "branchiest"
+    # Stack windowing: >0 walks up to K frame-steps per trip over a
+    # window of stack frames. Eligible configs (pivot backend, dynamic
+    # reduction off, counting only) use the fused `dfs_step_window`
+    # kernels; other persistent configs window the ordinary dfs_step.
+    # 0 = off. Pure scheduling — counters/sets bit-identical.
+    window_steps: int = 0
+    # Engine-step window depth in frames. 0 = auto: the kernel path uses
+    # `bitset_ops.ops.WINDOW_FRAMES`, the engine-step path the full stack
+    # (no re-centering, no boundary stops). A kernel-eligible config stays
+    # kernel-eligible only at 0 or WINDOW_FRAMES.
+    window_frames: int = 0
 
 
 # ===========================================================================
@@ -227,16 +255,52 @@ class FrameStack(NamedTuple):
     def push(self, ar, d, frame: Frame) -> "FrameStack":
         return self.write(ar, d, **frame._asdict())
 
+    def window(self, base, size: int) -> "FrameStack":
+        """Per-root copy of `size` consecutive slots from slot base[i]:
+        (R, size, ...) buffers (the reference's vmapped
+        dynamic_slice_in_dim; callers keep base within [0, D - size])."""
+        return FrameStack(*(slot_window(f, base, size) for f in self))
+
+    def put_window(self, base, win: "FrameStack") -> "FrameStack":
+        """Write a `window` back at the same per-root base, in place."""
+        for f, w in zip(self, win):
+            put_slot_window(f, base, w)
+        return self
+
+
+def slot_window(buf, base, size: int):
+    """(R, size, ...) copy of `size` consecutive slots of an (R, D, ...)
+    buffer from slot base[i] of root i."""
+    return buf.gather(1, _window_index(base, size, buf))
+
+
+def put_slot_window(buf, base, win):
+    """Write a `slot_window` back at the same per-root base, in place."""
+    buf.scatter_(1, _window_index(base, win.shape[1], buf), win)
+    return buf
+
+
+def _window_index(base, size, buf):
+    idx = base.long().unsqueeze(-1) + torch.arange(size, device=base.device)
+    if buf.dim() == 2:
+        return idx
+    return idx.unsqueeze(-1).expand(-1, -1, buf.shape[2])
+
 
 # ===========================================================================
 # Counter/enumeration carry
 # ===========================================================================
 
-def carry_init(cfg: EngineConfig, roots: int, words: int, device):
+def carry_init(cfg: EngineConfig, roots: int, words: int, device,
+               track_root: bool = False):
     """Per-root counters (R,) int32 and, when enumerating, per-root
     clique buffers with one spare row at index out_cap that absorbs the
     writes the reference drops (`mode="drop"`); it is sliced off at the
-    end."""
+    end.
+
+    `track_root` (persistent lanes, which interleave roots): every
+    enumerated clique also records `cur_root`, the queue slot the lane
+    is walking, in `out_root`."""
     def z(*shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype, device=device)
     carry = dict(cliques=z(roots), calls=z(roots), branches=z(roots),
@@ -246,6 +310,8 @@ def carry_init(cfg: EngineConfig, roots: int, words: int, device):
         carry.update(out_rows=z(roots, cap + 1, words),
                      out_sizes=z(roots, cap + 1), out_n=z(roots),
                      overflow=z(roots, dtype=torch.bool))
+        if track_root:
+            carry.update(cur_root=z(roots), out_root=z(roots, cap + 1))
     return carry
 
 
@@ -261,6 +327,8 @@ def report_single(carry, cfg, bits, size, enable):
         ar = torch.arange(bits.shape[0], device=bits.device)
         carry["out_rows"][ar, pos] = bits
         carry["out_sizes"][ar, pos] = size
+        if "out_root" in carry:
+            carry["out_root"][ar, pos] = carry["cur_root"]
         carry["overflow"] = carry["overflow"] | (enable & (out_n >= cap))
         carry["out_n"] = torch.clamp(out_n + cnt, max=cap)
     return carry
@@ -283,6 +351,9 @@ def report_multi(carry, cfg, rows, sizes, mask):
         # wins there does not matter
         carry["out_rows"][ar, pos] = rows
         carry["out_sizes"][ar, pos] = sizes
+        if "out_root" in carry:
+            carry["out_root"][ar, pos] = carry["cur_root"].unsqueeze(-1) \
+                .expand_as(pos)
         carry["overflow"] = (carry["overflow"]
                              | (mask & (offs >= cap)).any(-1))
         carry["out_n"] = torch.clamp(out_n + cnt, max=cap)

@@ -17,7 +17,8 @@ nowhere else, so a run can show that it went through the kernels.
 
 Shapes: rows (..., K, W) int32 bit words, masks (..., W), valid (..., K)
 bool, with the same leading root-batch dims; the kernels see them
-flattened to (R, K, W).
+flattened to (R, K, W). The window walks take per-lane windows
+(..., T, W) beside (..., U, W) adjacency and (..., XC, W) X0 rows.
 """
 from __future__ import annotations
 
@@ -30,7 +31,16 @@ from repro_torch.kernels.bitset_ops.words import (and_rows,  # noqa: F401
                                                   popcount, popcount_words)
 
 LAUNCHES: Dict[str, int] = {"frame_step": 0, "and_popcount_rows": 0,
-                            "and_popcount_argmax": 0}
+                            "and_popcount_argmax": 0, "dfs_step_window": 0,
+                            "dfs_step_window_lanes": 0}
+
+# Stack frames the engine keeps resident per window walk. The kernel takes
+# any T; the engine passes this one, so its window spills and hits are the
+# reference's.
+WINDOW_FRAMES = 8
+# Dynamic shared memory one block may use on an H100 (227 KB), less the
+# kernel's static reduction scratch.
+WINDOW_SMEM_MAX = 232448 - 1024
 
 
 def reset_launches() -> None:
@@ -151,3 +161,75 @@ def frame_step(rows: torch.Tensor, p: torch.Tensor, xp: torch.Tensor,
             partner.data_ptr(), r, k, w, _stream()))
         LAUNCHES["frame_step"] += 1
     return childp, childxp, deg, partner
+
+
+def _window_walk(name: str, a, x_rows, alive0, winP, winB, winXp, winRb,
+                 winrsz, dloc, steps: int):
+    """Validate and launch one window walk over every lane (the leading
+    dims of the windows, flattened)."""
+    if winP.dim() < 2:
+        raise ValueError(f"{name}: windows must be (..., T, W)")
+    lead = tuple(winP.shape[:-2])
+    T, W = winP.shape[-2:]
+    U, XC = a.shape[-2], x_rows.shape[-2]
+    want = {"a": (a, lead + (U, W)), "x_rows": (x_rows, lead + (XC, W)),
+            "alive0": (alive0, lead + (XC,)), "winP": (winP, lead + (T, W)),
+            "winB": (winB, lead + (T, W)), "winXp": (winXp, lead + (T, W)),
+            "winRb": (winRb, lead + (T, W)), "winrsz": (winrsz, lead + (T,)),
+            "dloc": (dloc, lead)}
+    for arg, (t, shape) in want.items():
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: {arg} must be contiguous int32 "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+    if min(T, W, U, XC) == 0 or steps < 0:
+        raise ValueError(f"{name}: empty window, rows or negative steps")
+    smem = 4 * (4 * T * W + 3 * W + T)
+    if smem > WINDOW_SMEM_MAX:
+        raise ValueError(f"{name}: a ({T}, {W}) window needs {smem} bytes "
+                         f"of shared memory, above {WINDOW_SMEM_MAX}")
+    outs = tuple(torch.empty_like(t) for t in (winP, winB, winXp, winRb,
+                                                 winrsz))
+    ctl = torch.empty(lead + (8,), dtype=torch.int32, device=a.device)
+    n = 1
+    for d in lead:
+        n *= d
+    if n:
+        _raise_on(name, build.load().bitset_dfs_step_window(
+            *(t.data_ptr() for t in (a, x_rows, alive0, winP, winB, winXp,
+                                     winRb, winrsz, dloc) + outs + (ctl,)),
+            n, U, XC, T, W, steps, _stream()))
+        LAUNCHES[name] += 1
+    return outs + (ctl,)
+
+
+def dfs_step_window(a, x_rows, alive0, winP, winB, winXp, winRb, winrsz,
+                    dloc, steps: int):
+    """Up to `steps` fused pivot-BK frame-steps over a resident T-frame
+    stack window (dynamic reduction off, counting only), for one root or
+    a batch of roots: a (..., U, W), x_rows (..., XC, W), alive0
+    (..., XC) int32 0/1, windows (..., T, W), winrsz (..., T), dloc
+    (...). Returns the updated windows plus ctl (..., 8) int32 =
+    [dloc', calls, branches, sum_px, cliques, steps_done, 0, 0]. Stops
+    on window underflow (dloc' = −1) or overflow (a branch step at the
+    top slot); a root with dloc < 0 is a no-op. See
+    ref.dfs_step_window_lanes for the full contract."""
+    if _on_cpu(a, x_rows, alive0, winP, winB, winXp, winRb, winrsz, dloc):
+        return ref.dfs_step_window(a, x_rows, alive0, winP, winB, winXp,
+                                   winRb, winrsz, dloc, steps)
+    return _window_walk("dfs_step_window", a, x_rows, alive0, winP, winB,
+                        winXp, winRb, winrsz, dloc, steps)
+
+
+def dfs_step_window_lanes(a, x_rows, alive0, winP, winB, winXp, winRb,
+                          winrsz, dloc, steps: int):
+    """The persistent engine's lane-batched window walk: the contract of
+    `dfs_step_window` over exactly one lane axis, a (L, U, W), windows
+    (L, T, W), dloc (L,), ctl (L, 8)."""
+    if winP.dim() != 3:
+        raise ValueError("dfs_step_window_lanes: windows must be (L, T, W)")
+    if _on_cpu(a, x_rows, alive0, winP, winB, winXp, winRb, winrsz, dloc):
+        return ref.dfs_step_window_lanes(a, x_rows, alive0, winP, winB,
+                                         winXp, winRb, winrsz, dloc, steps)
+    return _window_walk("dfs_step_window_lanes", a, x_rows, alive0, winP,
+                        winB, winXp, winRb, winrsz, dloc, steps)

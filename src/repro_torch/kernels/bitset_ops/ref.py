@@ -16,10 +16,15 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.bitset_ops.words import (WORD, and_rows,  # noqa: F401
                                                   popcount, popcount_words)
+
+# one-hot word of each bit position (bit 31 is INT_MIN)
+_ONEHOT = torch.from_numpy(
+    (np.uint32(1) << np.arange(WORD, dtype=np.uint32)).view(np.int32))
 
 
 def and_popcount_rows(rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -70,3 +75,135 @@ def frame_step(rows: torch.Tensor, p: torch.Tensor, xp: torch.Tensor,
                              device=rows.device)
     partner = torch.where(anded != 0, wi + pos, 0).sum(-1, dtype=torch.int32)
     return childp, childxp, deg, partner
+
+
+def dfs_step_window_lanes(a: torch.Tensor, x_rows: torch.Tensor,
+                          alive0: torch.Tensor, winP: torch.Tensor,
+                          winB: torch.Tensor, winXp: torch.Tensor,
+                          winRb: torch.Tensor, winrsz: torch.Tensor,
+                          dloc: torch.Tensor, steps: int):
+    """Up to `steps` masked BK frame-steps per lane over a T-frame stack
+    window (pivot backend, dynamic reduction off, counting only).
+
+    a: (L, U, W) and x_rows: (L, XC, W) int32 words; alive0: (L, XC)
+    0/1 root X0 alive mask; winP/winB/winXp/winRb: (L, T, W); winrsz:
+    (L, T); dloc: (L,) window-local depth, < 0 for a dead lane. Returns
+    the updated windows (new tensors; the inputs are not touched) and
+    ctl (L, 8) int32 = [dloc', calls, branches, sum_px, cliques,
+    steps_done, 0, 0].
+
+    The per-frame X0 alive set does not ride in the window: it is a
+    closed form of the frame's Rb, `alive[x] = alive0[x] ∧ Rb ⊆ N(x)`.
+    A lane stops when it pops below the window (dloc' = −1) or when a
+    branch step would push past the top slot (dloc' = T−1 with branches
+    left); a dead lane returns unchanged with zero deltas. Lanes are
+    independent: each step runs on every lane with its effects masked by
+    that lane's own `act`, which is exact because a lane that does not
+    act in a step is done for good."""
+    L, T, W = winP.shape
+    U, XC = a.shape[1], x_rows.shape[1]
+    dev = a.device
+    wP, wB, wXp, wRb = (t.clone() for t in (winP, winB, winXp, winRb))
+    wrsz = winrsz.to(torch.int32).clone()
+    lane = torch.arange(L, device=dev)
+    iota_w = torch.arange(W, dtype=torch.int32, device=dev)
+    iota_u = torch.arange(U, device=dev)
+    onehot = _ONEHOT.to(dev)
+    alive0 = alive0 != 0
+    dl = dloc.to(torch.int32).clone()
+    done = torch.zeros(L, dtype=torch.bool, device=dev)
+    z = torch.zeros(L, dtype=torch.int32, device=dev)
+    it, calls, branches, spx, clq = z.clone(), z.clone(), z.clone(), \
+        z.clone(), z.clone()
+    for _ in range(steps):
+        if bool(done.all()):
+            break
+        d = dl.clamp(0, T - 1).long()
+        fP, fB, fXp = wP[lane, d], wB[lane, d], wXp[lane, d]
+        fRb, frsz = wRb[lane, d], wrsz[lane, d]
+        has_branch = (fB != 0).any(-1)
+        blocked = has_branch & (dl >= T - 1)
+        act = ~done & ~blocked & (dl >= 0)
+        done = done | blocked | (dl < 0)
+
+        # lowest set bit of B, clamped to U−1 (an empty B gives U−1)
+        pos = popcount((fB & -fB) - 1)
+        first = torch.where(fB != 0, WORD * iota_w + pos, 1 << 30).amin(-1)
+        w = first.clamp(0, U - 1).long()
+        wbit = torch.where(iota_w == (w // WORD).unsqueeze(-1),
+                           onehot[w % WORD].unsqueeze(-1), 0)
+        wrow = a[lane, w]
+        childP = fP & wrow
+        childXp = fXp & wrow
+        childRb = fRb | wbit
+        deg = and_popcount_rows(a, childP)                    # (L, U)
+        pcx = and_popcount_rows(x_rows, childP)               # (L, XC)
+        pc_rb = popcount_words(childRb)
+        alive = alive0 & (and_popcount_rows(x_rows, childRb)
+                          == pc_rb.unsqueeze(-1))
+
+        en = act & has_branch
+        en_i = en.to(torch.int32)
+        branches = branches + en_i
+        calls = calls + en_i
+        pc_p = popcount_words(childP)
+        pc_x = popcount_words(childXp)
+        nal = alive.sum(-1, dtype=torch.int32)
+        spx = spx + (pc_p + pc_x + nal) * en_i
+        p_empty = pc_p == 0
+        x_empty = (nal == 0) & (pc_x == 0)
+        crsz = frsz + 1
+        clq = clq + (p_empty & x_empty & (crsz >= 2) & en).to(torch.int32)
+        push = ~p_empty & en
+
+        # pivot over P ∪ X: first argmax of the pool's degrees against the
+        # first argmax of the alive X0 rows'; the X row wins only if higher
+        pool = (((childP | childXp)[:, iota_u // WORD]
+                 >> (iota_u % WORD).to(torch.int32)) & 1) != 0
+        su_s = torch.where(pool, deg, -1)
+        best_u = su_s.argmax(-1)
+        su = su_s.gather(-1, best_u.unsqueeze(-1)).squeeze(-1)
+        sx_s = torch.where(alive, pcx, -1)
+        best_x = sx_s.argmax(-1)
+        sx = sx_s.gather(-1, best_x.unsqueeze(-1)).squeeze(-1)
+        use_x = (sx > su).unsqueeze(-1)
+        pivot_row = torch.where(use_x, x_rows[lane, best_x], a[lane, best_u])
+        childB = childP & ~pivot_row
+
+        # current frame: P \ w, X ∪ w, B \ w (identity when not branching)
+        e = en.unsqueeze(-1)
+        wP[lane, d] = torch.where(e, fP & ~wbit, fP)
+        wXp[lane, d] = torch.where(e, fXp | wbit, fXp)
+        wB[lane, d] = torch.where(e, fB & ~wbit, fB)
+        # child frame at d+1, written only when descended into
+        cd = (d + 1).clamp(0, T - 1)
+        p = push.unsqueeze(-1)
+        wP[lane, cd] = torch.where(p, childP, wP[lane, cd])
+        wB[lane, cd] = torch.where(p, childB, wB[lane, cd])
+        wXp[lane, cd] = torch.where(p, childXp, wXp[lane, cd])
+        wRb[lane, cd] = torch.where(p, childRb, wRb[lane, cd])
+        wrsz[lane, cd] = torch.where(push, crsz, wrsz[lane, cd])
+
+        dl = torch.where(act, torch.where(has_branch,
+                                          torch.where(push, dl + 1, dl),
+                                          dl - 1), dl)
+        it = it + act.to(torch.int32)
+    ctl = torch.stack([dl, calls, branches, spx, clq, it, z, z], -1)
+    return wP, wB, wXp, wRb, wrsz, ctl
+
+
+def dfs_step_window(a, x_rows, alive0, winP, winB, winXp, winRb, winrsz,
+                    dloc, steps: int):
+    """`dfs_step_window_lanes` with any leading batch dims, none included:
+    a (..., U, W), windows (..., T, W), winrsz (..., T), dloc (...) and
+    ctl (..., 8). The single-root form is the 2-D call."""
+    lead = tuple(winP.shape[:-2])
+
+    def flat(t, tail):
+        return t.reshape((-1,) + tuple(t.shape[t.dim() - tail:]))
+
+    outs = dfs_step_window_lanes(
+        flat(a, 2), flat(x_rows, 2), flat(alive0, 1), flat(winP, 2),
+        flat(winB, 2), flat(winXp, 2), flat(winRb, 2), flat(winrsz, 1),
+        dloc.reshape(-1), steps)
+    return tuple(o.reshape(lead + tuple(o.shape[1:])) for o in outs)

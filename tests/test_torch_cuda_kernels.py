@@ -1,4 +1,5 @@
-"""PyTorch port on the card: the CUDA kernels against their plain versions.
+"""PyTorch port on the card: the CUDA kernels against their plain versions,
+and the engines on the card against the same runs on the CPU.
 
 Every test here needs a CUDA device and nvcc (the kernels have no CPU
 mode); without a card they skip. The file imports neither JAX nor the
@@ -71,3 +72,73 @@ def test_cuda_run_matches_cpu_run(cuda_device, dynamic_red):
     for k in ("cliques", "calls", "branches", "sum_px", "iters_exhausted"):
         assert getattr(on_card, k) == getattr(on_cpu, k)
     assert set(on_card.enumerated) == set(on_cpu.enumerated)
+
+
+# (L, U, XC, T, W, steps): one and several lanes, W = 3, XC = 1, a window
+# deeper than the engine's, K = 1 and K = 64
+WINDOW_SHAPES = [(1, 32, 1, 8, 1, 16), (6, 64, 40, 8, 2, 1),
+                 (5, 96, 300, 8, 3, 64), (4, 128, 128, 12, 4, 16),
+                 (64, 32, 2048, 8, 1, 16)]
+
+
+def _window_inputs(L, U, XC, T, W, seed, dev):
+    rng = np.random.default_rng(seed)
+
+    def bits(shape, density):
+        b = rng.random(shape + (32,)) < density
+        w = np.packbits(b, axis=-1, bitorder="little").view(np.uint32)
+        return torch.from_numpy(w.reshape(shape).view(np.int32)).to(dev)
+
+    a = bits((L, U, W), 0.4)
+    x_rows = bits((L, XC, W), 0.5)
+    alive0 = torch.from_numpy(
+        (rng.random((L, XC)) < 0.8).astype(np.int32)).to(dev)
+    wins = [bits((L, T, W), d) for d in (0.5, 0.3, 0.2, 0.05)]
+    wins[1][:, :, :] &= wins[0]                        # B ⊆ P
+    rsz = torch.from_numpy(rng.integers(1, 6, (L, T)).astype(np.int32)).to(dev)
+    dloc = torch.from_numpy(rng.integers(-1, T, L).astype(np.int32)).to(dev)
+    dloc[0] = T - 1                                    # blocked at once
+    if L > 2:
+        dloc[1] = -1                                   # dead lane
+        wins[1][2] = 0                                 # empty B: w clamps
+        dloc[2] = 0
+    return [a, x_rows, alive0] + wins + [rsz, dloc]
+
+
+@pytest.mark.parametrize("L,U,XC,T,W,steps", WINDOW_SHAPES)
+def test_cuda_window_kernel_matches_plain_version(cuda_device, L, U, XC, T,
+                                                  W, steps):
+    args = _window_inputs(L, U, XC, T, W, L + U + W, cuda_device)
+    before = dict(ops.LAUNCHES)
+    got = ops.dfs_step_window_lanes(*args, steps=steps)
+    want = ref.dfs_step_window_lanes(*args, steps=steps)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    one = ops.dfs_step_window(*(t[-1] for t in args), steps=steps)
+    for g, w_ in zip(one, want):
+        assert torch.equal(g, w_[-1])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dfs_step_window_lanes"] == \
+        before["dfs_step_window_lanes"] + 1
+    assert ops.LAUNCHES["dfs_step_window"] == before["dfs_step_window"] + 1
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(dynamic_red=False, window_steps=16),
+    dict(window_steps=4, enumerate_cliques=True)],
+    ids=["plain", "fused-window", "engine-window-enum"])
+def test_cuda_persistent_matches_cpu_run(cuda_device, kw):
+    """The lane engine on the card against the same run on the CPU: the
+    schedule is deterministic, so the stats must agree too."""
+    g = gen.erdos_renyi(70, 0.6, seed=1)        # two spans, many steals
+    kw = dict(kw, engine="persistent", bucket_sizes=(32, 64), lanes=16)
+    on_card = run(g, device=cuda_device, **kw)
+    on_cpu = run(g, device="cpu", **kw)
+    for k in ("cliques", "calls", "branches", "sum_px", "iters_exhausted"):
+        assert getattr(on_card, k) == getattr(on_cpu, k)
+    for k in ("iters", "live_iters", "lane_iters", "steals", "entry_terms",
+              "window_spills", "window_hits", "spans"):
+        assert on_card.stats[k] == on_cpu.stats[k], k
+    assert on_card.stats["steals"] > 0
+    if kw.get("enumerate_cliques"):
+        assert set(on_card.enumerated) == set(on_cpu.enumerated)

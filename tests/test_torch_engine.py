@@ -319,10 +319,8 @@ def test_moon_moser_enumeration_matches_oracle():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(engine="persistent"), NotImplementedError),
-    (dict(engine="auto"), NotImplementedError),
-    (dict(window_steps=8), NotImplementedError),
     (dict(backend="hybrid"), NotImplementedError),
+    (dict(engine="persistent", backend="hybrid"), NotImplementedError),
     (dict(backend="rcd"), NotImplementedError),
     (dict(engine="bogus"), ValueError),
     (dict(backend="bogus"), ValueError),
