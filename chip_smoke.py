@@ -10,19 +10,23 @@ csrc/` and then, printing one JSON line per phase:
 1. device: the card, its driver and power limit, and the kernels' build;
 2. kernels: each CUDA kernel held bit-exact against its plain PyTorch
    version on the same CUDA tensors, at edge shapes and at the shapes of
-   the Graph500 scale-12 buckets (the window walk on the windows the
-   persistent and per-root engines launch it with), with CUDA-event
-   times;
-3. small graphs: `run(g)` on the card with enumeration, against the
-   port's oracles (exact clique sets) and the reference's pivot counters;
+   the Graph500 scale-12 buckets (the hybrid census over A stacked on the
+   X0 rows, the rcd sweep of P against ~X0 rows stacked on ~A, the window
+   walk on the windows the persistent and per-root engines launch it
+   with), with CUDA-event times;
+3. small graphs: `run(g)` on the card with enumeration for the 'pivot',
+   'hybrid' and 'rcd' backends, against the port's oracles (exact clique
+   sets) and the reference's pivot and hybrid counters;
 4. device peel: the degree-0/1 peel on the card against its host mirror;
-5. the slice: `run(kronecker(11, 16, seed=0))` with `run()` defaults
-   (the per-root engine) on the card, against the reference's counters;
-6. the persistent paths on `kronecker(12, 16, seed=0)`: the lane engine
-   (`engine="persistent"`), its fused window walk (`window_steps=16`,
-   dynamic reduction off), the per-root window walk, and
-   `engine="auto"`, each against the reference's counters and, for the
-   lane engine, its scheduling stats;
+5. the scale-11 paths on `kronecker(11, 16, seed=0)`: the per-root slice
+   (`run()` defaults), the pivot lanes (`engine="persistent"`),
+   `engine="auto"`, `backend="hybrid"` and `backend="rcd"` per root; and
+   the rcd lanes on `kronecker(10, 16, seed=0)`; each against the
+   reference's counters and, for the lanes, its scheduling stats;
+6. the scale-12 paths on `kronecker(12, 16, seed=0)`: the hybrid lanes
+   (`backend="hybrid", engine="persistent"`), the lanes' fused window walk
+   (`window_steps=16`, dynamic reduction off) and the per-root window
+   walk, against the reference's counters and stats;
 7. step and trip profiles: where a per-root step's and a persistent
    trip's time goes (host against device).
 
@@ -35,6 +39,7 @@ nothing of JAX or of the reference package `repro`.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -56,6 +61,8 @@ REPLACES = {
     "frame_step": "src/repro/kernels/bitset_ops/kernel.py:167",
     "and_popcount_rows": "src/repro/kernels/bitset_ops/kernel.py:67",
     "and_popcount_argmax": "src/repro/kernels/bitset_ops/kernel.py:103",
+    "clique_counts": "src/repro/kernels/bitset_ops/kernel.py:225",
+    "and_popcount_many": "src/repro/kernels/bitset_ops/kernel.py:277",
     "dfs_step_window": "src/repro/kernels/bitset_ops/kernel.py:559",
     "dfs_step_window_lanes": "src/repro/kernels/bitset_ops/kernel.py:613",
 }
@@ -69,18 +76,48 @@ REPLACES = {
 #     r.branches, r.sum_px, r.pre_reported)"
 SLICE11_EXPECT = dict(cliques=122_478, calls=113_416, branches=112_187,
                       sum_px=683_947, pre_reported=1_031)
+# On scale 11, engine="persistent" and engine="auto" give the same
+# counters; the lanes' scheduling stats of engine="persistent" (r.stats):
+#   r = run(kronecker(11, 16, seed=0), engine="persistent")
+PERSISTENT11_STATS = dict(iters=4_001, live_iters=167_737,
+                          lane_iters=256_064, steals=2_557, entry_terms=219,
+                          window_spills=0, window_hits=0, spans=2)
+# The 'hybrid' and 'rcd' backends on scale 11 (dynamic reduction on), per
+# root and on the persistent lanes:
+#   r = run(kronecker(11, 16, seed=0), backend="hybrid"); print(r.cliques,
+#     r.calls, r.branches, r.sum_px, r.pre_reported)
+HYBRID11_EXPECT = dict(cliques=122_478, calls=113_525, branches=112_296,
+                       sum_px=687_144, pre_reported=1_031)
+#   the same with backend="rcd"
+RCD11_EXPECT = dict(cliques=122_478, calls=129_425, branches=128_196,
+                    sum_px=862_088, pre_reported=1_031)
+# The rcd lanes run on scale 10: they never steal, so their drain tail is
+# long (10,052 trips on scale 11), and the whole script stays nearer its
+# 10-minute target. Counters and stats of
+#   r = run(kronecker(10, 16, seed=0), backend="rcd", engine="persistent");
+#   print(r.cliques, r.calls, r.branches, r.sum_px, r.pre_reported, r.stats)
+RCD10_EXPECT = dict(cliques=24_462, calls=25_421, branches=24_758,
+                    sum_px=174_094, pre_reported=408)
+RCD10_STATS = dict(iters=2_017, live_iters=34_532, lane_iters=100_136,
+                   steals=0, entry_terms=144, window_spills=0, window_hits=0,
+                   spans=2)
 # kronecker(12, 16, seed=0) with dynamic reduction on: the per-root
-# defaults, engine="persistent" and engine="auto" give the same counters
+# defaults, engine="persistent", engine="auto" and the 'hybrid' lanes give
+# the same counters
 SLICE_EXPECT = dict(cliques=807_367, calls=733_591, branches=731_284,
                     sum_px=4_290_765, pre_reported=2_558)
 # ... and with dynamic_red=False, window_steps=16 (persistent or per-root)
 WINDOW_EXPECT = dict(cliques=807_367, calls=1_905_948, branches=1_903_641,
                      sum_px=5_534_728, pre_reported=2_558)
-# The reference's scheduling stats of run(..., engine="persistent") on
-# scale 12: with the defaults, and with dynamic_red=False, window_steps=16
-PERSISTENT_STATS = dict(iters=22_700, live_iters=1_085_843,
-                        lane_iters=1_350_245, steals=11_564, entry_terms=474,
-                        window_spills=0, window_hits=0, spans=3)
+# The reference's scheduling stats on scale 12 of
+#   r = run(kronecker(12, 16, seed=0), backend="hybrid",
+#           engine="persistent"); print(r.stats)
+# (the pivot counters, SLICE_EXPECT, on another schedule than the pivot
+# lanes': 23,646 trips against 22,700), and of engine="persistent" with
+# dynamic_red=False, window_steps=16
+HYBRID_STATS = dict(iters=23_646, live_iters=1_083_300,
+                    lane_iters=1_404_253, steals=12_981, entry_terms=490,
+                    window_spills=0, window_hits=0, spans=3)
 WINDOW_STATS = dict(iters=5_071, live_iters=3_008_993, lane_iters=4_758_576,
                     steals=16_737, entry_terms=0, window_spills=117_930,
                     window_hits=139_058, spans=3)
@@ -88,10 +125,15 @@ WINDOW_STATS = dict(iters=5_071, live_iters=3_008_993, lane_iters=4_758_576,
 # (benchmarks/table3_ablation.py --branching: bucket_sizes (32, 64, 128,
 # 256)), as (cliques, calls, branches, sum_px).
 BRANCHING_EXPECT = {
-    ("ba_web", True): (13725, 339, 64, 1550),
-    ("ba_web", False): (13725, 1248, 973, 2396),
-    ("caveman_comm", True): (488, 538, 111, 2004),
-    ("caveman_comm", False): (488, 1299, 872, 3703),
+    ("pivot", "ba_web", True): (13725, 339, 64, 1550),
+    ("pivot", "ba_web", False): (13725, 1248, 973, 2396),
+    ("pivot", "caveman_comm", True): (488, 538, 111, 2004),
+    ("pivot", "caveman_comm", False): (488, 1299, 872, 3703),
+    # ... and its hybrid rows
+    ("hybrid", "ba_web", True): (13725, 339, 64, 1550),
+    ("hybrid", "ba_web", False): (13725, 1041, 766, 2286),
+    ("hybrid", "caveman_comm", True): (488, 538, 111, 2004),
+    ("hybrid", "caveman_comm", False): (488, 718, 291, 2790),
 }
 
 
@@ -154,7 +196,14 @@ def kernel_cost(name, rows, mask):
     each input read once, each output written once."""
     R, K, W = (1,) * (3 - rows.dim()) + tuple(rows.shape)
     words = R * K * W
-    if name == "and_popcount_rows":
+    if name == "clique_counts":
+        nbytes = 4 * (words + R * W) + 2 * R * K + 8 * R
+        ops = 3 * words + 4 * R * K           # + 2 compares, and, add
+    elif name == "and_popcount_many":
+        M = mask.shape[-2]                    # mask: the (R, M, W) masks
+        nbytes = 4 * (R * (M + K) * W + R * M * K)
+        ops = 3 * R * M * K * W
+    elif name == "and_popcount_rows":
         nbytes = 4 * (words + R * W + R * K)
         ops = 3 * words                       # and, popcount, add
     elif name == "and_popcount_argmax":
@@ -169,6 +218,10 @@ def kernel_cost(name, rows, mask):
 def run_kernel(name, rows, mask, extra, impl):
     if name == "and_popcount_rows":
         return (impl.and_popcount_rows(rows, mask),)
+    if name == "clique_counts":
+        return impl.clique_counts(rows, mask, extra[0], extra[1])
+    if name == "and_popcount_many":
+        return (impl.and_popcount_many(rows, mask),)
     if name == "and_popcount_argmax":
         return impl.and_popcount_argmax(rows, mask, extra[0])
     return impl.frame_step(rows, mask, extra[0], extra[1])
@@ -195,8 +248,8 @@ def compare(name, rows, mask, extra, timed=False):
     from repro_torch.kernels.bitset_ops import ops, ref
     err = exact(name, run_kernel(name, rows, mask, extra, ops),
                 run_kernel(name, rows, mask, extra, ref), rows.shape)
-    out = dict(name=name, shape=list(rows.shape), max_abs_err=err,
-               tolerance=0)
+    out = dict(name=name, shape=list(rows.shape),
+               mask_shape=list(mask.shape), max_abs_err=err, tolerance=0)
     if timed:
         nbytes, nops = kernel_cost(name, rows, mask)
         ms, call_ms = cuda_ms(lambda: run_kernel(name, rows, mask, extra,
@@ -215,7 +268,7 @@ def compare(name, rows, mask, extra, timed=False):
 
 def edge_cases(dev):
     """Random words with the top bit set often, K off the 256-thread
-    block, W = 1/4/32, tied scores, all-invalid roots."""
+    block, W = 1/4/32/40, tied scores, all-invalid roots."""
     import numpy as np
     import torch
     from repro_torch.kernels.bitset_ops import ops
@@ -230,7 +283,7 @@ def edge_cases(dev):
 
     n = 0
     for r, k, w in [(1, 1, 1), (3, 255, 4), (2, 257, 32), (5, 1000, 1),
-                    (4, 513, 4), (1, 2048, 2)]:
+                    (4, 513, 4), (1, 2048, 2), (3, 70, 40)]:
         rows, mask, xp, wrow = words(r, k, w), words(r, w), words(r, w), \
             words(r, w)
         valid = torch.from_numpy(rng.random((r, k)) < 0.6).to(dev)
@@ -248,14 +301,52 @@ def edge_cases(dev):
         idx, best = ops.and_popcount_argmax(rows, mask, valid)
         check(int(idx[0]) == 0 and int(best[0]) == -1,
               "all-invalid root must give (0, -1)")
+        n += census_edge_cases(words, rng, dev, r, k, w)
     return n
+
+
+def census_edge_cases(words, rng, dev, r, k, w):
+    """clique_counts with an empty P, a P of one bit, rows that hold P or
+    miss one of its bits, and all-false selectors; and_popcount_many with
+    K = 1 against many masks, M = 1 and the general K."""
+    import torch
+    rows, mask = words(r, k, w), words(r, w)
+    mask[0] = 0                                          # empty P
+    if r > 1:
+        mask[1] = 0
+        mask[1, -1] = 1                                  # one bit
+    pick = torch.from_numpy(rng.random((r, k))).to(dev)
+    rows = torch.where((pick < 0.3).unsqueeze(-1), rows | mask.unsqueeze(1),
+                       rows)
+    # the lowest bit of P alone: the lowest of its first nonzero word
+    first = (mask != 0).to(torch.int32).argmax(-1, keepdim=True)
+    word = mask.gather(-1, first)
+    low = torch.zeros_like(mask).scatter(-1, first, word & -word)
+    rows = torch.where(((pick >= 0.3) & (pick < 0.6)).unsqueeze(-1),
+                       mask.unsqueeze(1) ^ low.unsqueeze(1), rows)
+    in_p = torch.from_numpy(rng.random((r, k)) < 0.5).to(dev)
+    in_x = torch.from_numpy(rng.random((r, k)) < 0.5).to(dev)
+    in_x[-1] = False                                     # all-false
+    none = torch.zeros_like(in_p)
+    masks = words(r, 2 * k + 3, w)
+    for name, rr, mm, extra in [
+            ("clique_counts", rows, mask, (in_p, in_x)),
+            ("clique_counts", rows, mask, (none, none)),
+            ("and_popcount_many", rows[:, :1].contiguous(), ~rows, ()),
+            ("and_popcount_many", rows, masks, ()),
+            ("and_popcount_many", rows, masks[:, :1].contiguous(), ())]:
+        compare(name, rr, mm, extra)
+    return 5
 
 
 def bucket_cases(prep, dev):
     """Each Graph500 bucket's own rows, with masks drawn from its p0 — the
-    shapes the slice's main path hands every kernel."""
+    shapes the slice's main path hands every kernel: the hybrid census
+    over A stacked on the X0 rows (U + XC rows), and the rcd maximality
+    sweep of P (K = 1) against ~X0 rows stacked on ~A (M = XC + U)."""
     import numpy as np
     import torch
+    from repro_torch.core.engine import frames as fr
     from repro_torch.core.engine.loop import bucket_tensors
     rng = np.random.default_rng(1)
     lines = []
@@ -269,11 +360,19 @@ def bucket_cases(prep, dev):
         Xp = p0 & ~keep
         wrow = a[:, 0].contiguous()
         not_x = ~x_rows
+        U = a.shape[1]
+        census = torch.cat([a, x_rows], 1)
+        in_p = torch.cat([fr.bitset_to_mask(P, U),
+                          torch.zeros_like(x_alive0)], -1)
+        in_x = torch.cat([fr.bitset_to_mask(Xp, U), x_alive0], -1)
+        not_nbrs = torch.cat([not_x, ~a], 1)
         for name, rows, mask, extra in [
                 ("frame_step", a, P, (Xp, wrow)),
                 ("and_popcount_rows", a, P, ()),
                 ("and_popcount_rows", not_x, P, ()),
-                ("and_popcount_argmax", x_rows, P, (x_alive0,))]:
+                ("and_popcount_argmax", x_rows, P, (x_alive0,)),
+                ("clique_counts", census, P, (in_p, in_x)),
+                ("and_popcount_many", P.unsqueeze(1), not_nbrs, ())]:
             line = compare(name, rows, mask, extra, timed=True)
             line.update(phase="kernels", bucket_u=b.u_pad, bucket_xc=b.x_pad,
                         roots=b.num_roots)
@@ -443,22 +542,25 @@ def small_graphs(dev):
     for name, g in graphs.items():
         truth = set(oracle.bk_pivot(g))
         check(truth == set(oracle.rmce(g)), f"{name}: oracles disagree")
-        for dr in (True, False):
+        for backend, dr in itertools.product(("pivot", "hybrid", "rcd"),
+                                             (True, False)):
             t0 = time.perf_counter()
-            res = run(g, dynamic_red=dr, enumerate_cliques=True,
+            res = run(g, backend=backend, dynamic_red=dr,
+                      enumerate_cliques=True,
                       bucket_sizes=(32, 64, 128, 256), device=dev)
             secs = time.perf_counter() - t0
             got = (res.cliques, res.calls, res.branches, res.sum_px)
+            what = f"{name} backend={backend} dynamic_red={dr}"
             check(not res.overflow and not res.iters_exhausted,
-                  f"{name}: overflow/truncated")
+                  f"{what}: overflow/truncated")
             check(len(res.enumerated) == res.cliques
                   and set(res.enumerated) == truth,
-                  f"{name} dynamic_red={dr}: clique set differs from oracle")
-            want = BRANCHING_EXPECT.get((name, dr))
+                  f"{what}: clique set differs from oracle")
+            want = BRANCHING_EXPECT.get((backend, name, dr))
             check(want is None or got == want,
-                  f"{name} dynamic_red={dr}: {got} != reference {want}")
-            emit(dict(phase="small_graph", graph=name, dynamic_red=dr,
-                      cliques=res.cliques, calls=res.calls,
+                  f"{what}: {got} != reference {want}")
+            emit(dict(phase="small_graph", graph=name, backend=backend,
+                      dynamic_red=dr, cliques=res.cliques, calls=res.calls,
                       branches=res.branches, sum_px=res.sum_px,
                       oracle_cliques=len(truth),
                       reference_counters=want, seconds=secs))
@@ -512,7 +614,7 @@ def drive(dev, g, phase, graph, expect, kernels, stats=None, **kw):
                 launches=launches)
     st = res.stats
     if "iters" in st:                         # the persistent lanes
-        line.update({k: st[k] for k in PERSISTENT_STATS},
+        line.update({k: st[k] for k in WINDOW_STATS},
                     span_seconds=st["span_seconds"],
                     ms_per_trip=1e3 * sum(st["span_seconds"])
                     / max(st["iters"], 1),
@@ -532,21 +634,44 @@ def drive(dev, g, phase, graph, expect, kernels, stats=None, **kw):
     return launches
 
 
-def the_slice(dev, g):
-    return drive(dev, g, "slice", "kron:scale=11,ef=16,seed=0",
-                 SLICE11_EXPECT, ("frame_step", "and_popcount_rows",
-                                  "and_popcount_argmax"))
+ROW_KERNELS = ("frame_step", "and_popcount_rows", "and_popcount_argmax")
+HYBRID_KERNELS = ROW_KERNELS + ("clique_counts",)
+RCD_KERNELS = ("frame_step", "and_popcount_rows", "and_popcount_many")
 
 
-def persistent_paths(dev, g):
-    """The lane engine, its fused window walk, the per-root window walk
-    and `auto` on the scale-12 graph; returns each path's launches."""
-    graph = "kron:scale=12,ef=16,seed=0"
-    row_kernels = ("frame_step", "and_popcount_rows", "and_popcount_argmax")
+def scale11_paths(dev, g):
+    """The per-root slice, the pivot lanes, `auto`, and the 'hybrid' and
+    'rcd' backends per root on the scale-11 graph, then the 'rcd' lanes
+    on scale 10; returns each path's launches."""
+    from repro_torch.graph.generators import kronecker
+    graph = "kron:scale=11,ef=16,seed=0"
     out = {}
-    out["persistent"] = drive(dev, g, "persistent", graph, SLICE_EXPECT,
-                              row_kernels, PERSISTENT_STATS,
+    out["slice"] = drive(dev, g, "slice", graph, SLICE11_EXPECT, ROW_KERNELS)
+    out["persistent"] = drive(dev, g, "persistent", graph, SLICE11_EXPECT,
+                              ROW_KERNELS, PERSISTENT11_STATS,
                               engine="persistent")
+    out["auto"] = drive(dev, g, "auto", graph, SLICE11_EXPECT, ROW_KERNELS,
+                        engine="auto")
+    out["hybrid_perroot"] = drive(dev, g, "hybrid_perroot", graph,
+                                  HYBRID11_EXPECT, HYBRID_KERNELS,
+                                  backend="hybrid")
+    out["rcd_perroot"] = drive(dev, g, "rcd_perroot", graph, RCD11_EXPECT,
+                               RCD_KERNELS, backend="rcd")
+    out["rcd_persistent"] = drive(
+        dev, kronecker(10, 16, seed=0), "rcd_persistent",
+        "kron:scale=10,ef=16,seed=0", RCD10_EXPECT, RCD_KERNELS, RCD10_STATS,
+        backend="rcd", engine="persistent")
+    return out
+
+
+def scale12_paths(dev, g):
+    """The 'hybrid' lanes and the fused window walks (lanes and per root)
+    on the scale-12 graph; returns each path's launches."""
+    graph = "kron:scale=12,ef=16,seed=0"
+    out = {}
+    out["hybrid_persistent"] = drive(
+        dev, g, "hybrid_persistent", graph, SLICE_EXPECT, HYBRID_KERNELS,
+        HYBRID_STATS, backend="hybrid", engine="persistent")
     out["persistent_window"] = drive(
         dev, g, "persistent_window", graph, WINDOW_EXPECT,
         ("dfs_step_window_lanes",), WINDOW_STATS, engine="persistent",
@@ -554,8 +679,6 @@ def persistent_paths(dev, g):
     out["perroot_window"] = drive(
         dev, g, "perroot_window", graph, WINDOW_EXPECT, ("dfs_step_window",),
         dynamic_red=False, window_steps=16)
-    out["auto"] = drive(dev, g, "auto", graph, SLICE_EXPECT, row_kernels,
-                        engine="auto")
     return out
 
 
@@ -604,10 +727,11 @@ def step_profile(dev, prep, u=64, steps=64):
 
 
 def trip_profile(dev, prep, u=64, trips=64):
-    """`step_profile` for the three new paths on the U=64 bucket: the
-    first `trips` trips of the persistent lanes (min(64, roots) lanes)
-    with the default and the fused-window config, and of the per-root
-    window walk (cut at 16·trips frame-steps per root)."""
+    """`step_profile` for the lane and window paths on the U=64 bucket:
+    the first `trips` trips of the persistent lanes (min(64, roots)
+    lanes) with the default config, the 'hybrid' and 'rcd' backends and
+    the fused-window config, and of the per-root window walk (cut at
+    16·trips frame-steps per root)."""
     from repro_torch.core.engine import frames as fr
     from repro_torch.core.engine.loop import (bucket_tensors, run_bucket,
                                               run_bucket_persistent)
@@ -618,6 +742,12 @@ def trip_profile(dev, prep, u=64, trips=64):
     for path, run_once in (
             ("persistent", lambda: run_bucket_persistent(
                 *args, fr.EngineConfig(max_iters=trips), lanes=lanes)),
+            ("hybrid_persistent", lambda: run_bucket_persistent(
+                *args, fr.EngineConfig(backend="hybrid", max_iters=trips),
+                lanes=lanes)),
+            ("rcd_persistent", lambda: run_bucket_persistent(
+                *args, fr.EngineConfig(backend="rcd", max_iters=trips),
+                lanes=lanes)),
             ("persistent_window", lambda: run_bucket_persistent(
                 *args, fr.EngineConfig(max_iters=trips, **win),
                 lanes=lanes)),
@@ -667,16 +797,21 @@ def main() -> int:
     small_graphs(dev)
     device_peel(dev, {"kron:scale=12,ef=16": g12,
                       "kron:scale=14,ef=16": kronecker(14, 16, seed=0)})
-    launches = the_slice(dev, kronecker(11, 16, seed=0))
+    paths = scale11_paths(dev, kronecker(11, 16, seed=0))
     step_profile(dev, prep)
-    paths = persistent_paths(dev, g12)
+    paths.update(scale12_paths(dev, g12))
     trip_profile(dev, prep)
 
     # kernel table: each kernel at the bucket shape the main path launches
     # it most often (the U=64 bucket: most steps and trips), the row
     # kernels in their adjacency-row form; launches over the path that
     # carries the kernel (the per-root slice for the row kernels, the
-    # fused-window runs for the window walks)
+    # hybrid lanes for the census, the rcd lanes for the many-mask sweep,
+    # the fused-window runs for the window walks)
+    launches = dict(paths["slice"])
+    launches["clique_counts"] = paths["hybrid_persistent"]["clique_counts"]
+    launches["and_popcount_many"] = \
+        paths["rcd_persistent"]["and_popcount_many"]
     launches["dfs_step_window_lanes"] = \
         paths["persistent_window"]["dfs_step_window_lanes"]
     launches["dfs_step_window"] = paths["perroot_window"]["dfs_step_window"]
@@ -693,7 +828,8 @@ def main() -> int:
                             if ln["name"] == name),
             ms=line["ms"], plain_ms=line["plain_ms"],
             bound_ms=line["bound_ms"], bound_by=line["bound_by"],
-            library_ms=None, shape=line["shape"]))
+            library_ms=None, shape=line["shape"],
+            mask_shape=line.get("mask_shape")))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start,
               path_launches=paths,
               note="library_ms is null: no single PyTorch call computes "

@@ -17,8 +17,7 @@ All bitset set algebra dispatches through
 tensor, plain PyTorch on a CPU tensor).
 """
 from repro_torch.core.engine.frames import (BACKENDS,  # noqa: F401
-                                            PORTED_BACKENDS, EngineConfig,
-                                            Frame, FrameStack)
+                                            EngineConfig, Frame, FrameStack)
 from repro_torch.core.engine.loop import (MCEResult,  # noqa: F401
                                           choose_engine, dfs_step,
                                           enter_call, root_cost_skew, run,

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -137,17 +137,16 @@ def single_bit_index_rows(rows):
 
 BACKENDS = ("pivot", "rcd", "revised", "hybrid")
 # Backends that precompute a branch set B at call entry ('rcd' re-selects
-# per visit instead, so it carries nothing a steal could split).
+# per visit instead, so it carries nothing a steal could split); 'hybrid'
+# is pivot-family with a per-node vertex-branching override plus early
+# termination (DESIGN.md §2.7).
 PIVOT_BACKENDS = ("pivot", "revised", "hybrid")
-# What this port runs so far; 'rcd' and 'hybrid' wait for ROADMAP Queue 1
-# item 5.
-PORTED_BACKENDS = ("pivot", "revised")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     dynamic_red: bool = True
-    backend: str = "pivot"          # one of PORTED_BACKENDS
+    backend: str = "pivot"          # one of BACKENDS
     out_cap: int = 0                # >0: enumerate into a fixed buffer
     max_iters: int = 1 << 30
     # Persistent-engine lane work stealing (DESIGN.md §2.6 STEAL): when the
@@ -182,6 +181,12 @@ class RootContext(NamedTuple):
     not_x_rows: torch.Tensor  # (R, XC, W) ~x_rows, hoisted out of the loop
     eye: torch.Tensor        # (U, W) one-hot bitsets over the universe
     ar: torch.Tensor         # (R,) root index, for per-root gathers
+    # The stacked rows of the two per-call sweeps, hoisted like not_x_rows
+    # (None for the backends that do not sweep them): A on the X0 rows,
+    # (R, U + XC, W), for the 'hybrid' census; ~X0 rows on ~A,
+    # (R, XC + U, W), for the 'rcd' maximality check.
+    ax_rows: Optional[torch.Tensor] = None
+    not_xa_rows: Optional[torch.Tensor] = None
 
     @property
     def u(self) -> int:
@@ -200,12 +205,20 @@ class RootContext(NamedTuple):
         return max(-(-self.xc // WORD), 1)
 
 
-def make_context(a, x_rows) -> RootContext:
+def make_context(a, x_rows, backend: str = "pivot") -> RootContext:
     # ~x_rows is the same on every step (the Lemma-8 X-subset test); eager
-    # torch would not hoist it, and it is the bucket's largest tensor
-    return RootContext(A=a, x_rows=x_rows, not_x_rows=~x_rows,
-                       eye=eye_bits(a.shape[1], a.shape[2], a.device),
-                       ar=torch.arange(a.shape[0], device=a.device))
+    # torch would not hoist it, and it is the bucket's largest tensor. The
+    # stacked rows of `backend`'s per-call sweep are hoisted the same way:
+    # the reference concatenates them on every call.
+    not_x = ~x_rows
+    return RootContext(
+        A=a, x_rows=x_rows, not_x_rows=not_x,
+        eye=eye_bits(a.shape[1], a.shape[2], a.device),
+        ar=torch.arange(a.shape[0], device=a.device),
+        ax_rows=(torch.cat([a, x_rows], 1) if backend == "hybrid"
+                 else None),
+        not_xa_rows=(torch.cat([not_x, ~a], 1) if backend == "rcd"
+                     else None))
 
 
 class Frame(NamedTuple):

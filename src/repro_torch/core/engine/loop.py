@@ -81,9 +81,21 @@ def enter_call(carry, cfg, ctx: fr.RootContext, P, Xp, xal, rsz, Rb,
                              p_empty & x_empty & (rsz >= 2) & enable)
     push = ~p_empty & enable
 
-    # ---- branch set (pivot backends) ----
-    B = piv.branch_set(cfg, ctx, P, Xp, xal, rf,
-                       deg=None if pre is None else pre[0])
+    # ---- hybrid early termination + X-domination pruning (§2.7) ----
+    if cfg.backend == "hybrid":
+        # P a clique -> report R ∪ P and pop; P dominated by a forbidden
+        # vertex -> pop silently. The report is gated by `enable`, so the
+        # persistent refill and lane steps get the live-mask gating too.
+        carry, stop = piv.hybrid_early_term(carry, cfg, ctx, P, Xp, xal,
+                                            Rb, rsz, enable)
+        push = push & ~stop
+
+    # ---- branch set (pivot backends; rcd recomputes per visit) ----
+    if cfg.backend in fr.PIVOT_BACKENDS:
+        B = piv.branch_set(cfg, ctx, P, Xp, xal, rf,
+                           deg=None if pre is None else pre[0])
+    else:
+        B = torch.zeros_like(P)
     return carry, push, Frame(P=P, B=B, Xp=Xp, Rb=Rb, rsz=rsz, xal=xal)
 
 
@@ -106,11 +118,23 @@ def dfs_step(cfg, ctx: fr.RootContext, depth, stack, carry, live):
     d = depth.clamp(min=0)
     f = stack.read(ar, d)
 
-    has_branch = fr.any_bit(f.B) & live
-    # on an all-zero B, first_bit_index gives 32 (past U when U == 32):
-    # jax clamps that gather, torch raises and a kernel would read out of
-    # bounds — clamp; every use is masked by has_branch
-    w = fr.first_bit_index(f.B).clamp(max=ctx.u - 1)
+    pivot_family = cfg.backend in fr.PIVOT_BACKENDS
+    if pivot_family:
+        has_branch = fr.any_bit(f.B) & live
+        # on an all-zero B, first_bit_index gives 32 (past U when U == 32):
+        # jax clamps that gather, torch raises and a kernel would read out
+        # of bounds — clamp; every use is masked by has_branch
+        w = fr.first_bit_index(f.B).clamp(max=ctx.u - 1)
+    else:
+        # rcd: clique test decides report-and-pop vs min-degree branch
+        hb, w = piv.rcd_select(ctx, f.P)
+        has_branch = hb & live
+        w = w.long()
+
+    # ---- pop path: rcd maximality check + report (gated) ----
+    if cfg.backend == "rcd":
+        carry = piv.rcd_maximality_report(carry, cfg, ctx, f.P, f.Xp, f.xal,
+                                          f.Rb, f.rsz, has_branch | ~live)
 
     # ---- branch path: always computed, side-effects gated ----
     wbit = ctx.eye[w]
@@ -127,11 +151,13 @@ def dfs_step(cfg, ctx: fr.RootContext, depth, stack, carry, live):
                                     childxal, f.rsz + 1, f.Rb | wbit,
                                     enable=has_branch, pre=(deg, partner))
     # update current frame (dead slot on the pop path — no gating):
-    # P \ w, X ∪ w, B \ w
+    # P \ w, X ∪ w, B \ w (rcd carries no B)
     hb = has_branch.unsqueeze(-1)
-    stack.write(ar, d, P=torch.where(hb, f.P & ~wbit, f.P),
-                Xp=torch.where(hb, f.Xp | wbit, f.Xp),
-                B=torch.where(hb, f.B & ~wbit, f.B))
+    cur = dict(P=torch.where(hb, f.P & ~wbit, f.P),
+               Xp=torch.where(hb, f.Xp | wbit, f.Xp))
+    if pivot_family:
+        cur["B"] = torch.where(hb, f.B & ~wbit, f.B)
+    stack.write(ar, d, **cur)
     # write child frame (slot depth+1 is dead unless pushed)
     nd = d + 1
     stack.push(ar, nd, child)
@@ -170,7 +196,7 @@ def run_root_windowed(a, p0, x_rows, x_alive0, rsz0, cfg: EngineConfig):
     R, U, W = a.shape
     T = bitops.WINDOW_FRAMES
     dev = a.device
-    ctx = fr.make_context(a, x_rows)
+    ctx = fr.make_context(a, x_rows, cfg.backend)
     zeros = torch.zeros((R, W), dtype=torch.int32, device=dev)
     carry = fr.carry_init(cfg, R, W, dev)
     carry, push0, frame0 = enter_call(
@@ -230,7 +256,7 @@ def run_bucket(a, p0, x_rows, x_alive0, rsz0, cfg: EngineConfig):
     if _window_eligible(cfg):
         return run_root_windowed(a, p0, x_rows, x_alive0, rsz0, cfg)
     R, U, W = a.shape
-    ctx = fr.make_context(a, x_rows)
+    ctx = fr.make_context(a, x_rows, cfg.backend)
     dev = a.device
     xal0 = fr.mask_to_bitset(x_alive0, ctx.xc_words)
     zeros = torch.zeros((R, W), dtype=torch.int32, device=dev)
@@ -330,15 +356,6 @@ def _persistent_state0(cfg: EngineConfig, lanes: int, U: int, words: int,
                             track_root=bool(cfg.out_cap)))
 
 
-def _lane_context(A, x_rows):
-    """Root context of whichever roots the lanes hold now: derived anew
-    whenever a lane's root changes (refill, steal, consume), so the
-    hoisted ~x_rows is never stale."""
-    return fr.RootContext(A=A, x_rows=x_rows, not_x_rows=~x_rows,
-                          eye=fr.eye_bits(A.shape[1], A.shape[2], A.device),
-                          ar=torch.arange(A.shape[0], device=A.device))
-
-
 def _bcast(mask, t):
     """(L,) mask shaped to broadcast against an (L, ...) tensor."""
     return mask.view((-1,) + (1,) * (t.dim() - 1))
@@ -412,7 +429,8 @@ def _persistent_segment(a, p0, x_rows, x_alive0, rsz0, root_base: int,
             carry["cur_root"] = torch.where(claim, root_base + idx,
                                             carry["cur_root"]).to(torch.int32)
         carry, push, f0 = enter_call(
-            carry, cfg, _lane_context(a_new, xr_new), p0[idx], zeros_lw,
+            carry, cfg, fr.make_context(a_new, xr_new, cfg.backend), p0[idx],
+            zeros_lw,
             fr.mask_to_bitset(x_alive0[idx], xc_words),
             rsz0[idx].to(torch.int32), zeros_lw, enable=claim)
         # merge the fresh root frame into stack slot 0 where claimed
@@ -588,9 +606,9 @@ def _persistent_segment(a, p0, x_rows, x_alive0, rsz0, root_base: int,
                 # restoring the top slot for parked lanes suffices.
                 parked = wdep >= WT - 1
                 top = [buf[:, WT - 1].clone() for buf in wstk]
-            ndep, wstk, carry = dfs_step(cfg, _lane_context(al, xrl),
-                                         wdep.clamp(0, WT - 2), wstk, carry,
-                                         live=lv)
+            ndep, wstk, carry = dfs_step(
+                cfg, fr.make_context(al, xrl, cfg.backend),
+                wdep.clamp(0, WT - 2), wstk, carry, live=lv)
             if not full_win:
                 for buf, old in zip(wstk, top):
                     buf[:, WT - 1] = torch.where(_bcast(parked, old), old,
@@ -634,7 +652,7 @@ def _persistent_segment(a, p0, x_rows, x_alive0, rsz0, root_base: int,
                                    device=dev)
             c1, spush, sf0 = enter_call(
                 fr.carry_init(cfg, S, words, dev), cfg,
-                _lane_context(sa, sxr), p0[s_cl], zeros_sw,
+                fr.make_context(sa, sxr, cfg.backend), p0[s_cl], zeros_sw,
                 fr.mask_to_bitset(x_alive0[s_cl], xc_words),
                 rsz0[s_cl].to(torch.int32), zeros_sw, enable=s_ok)
             sdel = torch.stack([c1["calls"], c1["branches"], c1["sum_px"],
@@ -777,8 +795,8 @@ def _persistent_segment(a, p0, x_rows, x_alive0, rsz0, root_base: int,
             live_mask = s.depth >= 0
             s.ls += live_mask.sum()
             s.depth, s.stack, s.carry = dfs_step(
-                cfg, _lane_context(s.al, s.xrl), s.depth, s.stack, s.carry,
-                live=live_mask)
+                cfg, fr.make_context(s.al, s.xrl, cfg.backend), s.depth,
+                s.stack, s.carry, live=live_mask)
         s.it += 1
     return s
 
@@ -1021,8 +1039,9 @@ def run(g: CSRGraph, *, global_red: bool = True, dynamic_red: bool = True,
     the root-cost skew (`choose_engine`). `window_steps > 0` walks up to K
     frame-steps per trip over stack windows.
 
-    `device=None` runs on "cuda" and raises when there is none. The 'rcd'
-    and 'hybrid' backends are not ported yet (ROADMAP Queue 1 item 5).
+    `backend` is any of `BACKENDS` ('pivot', 'rcd', 'revised',
+    'hybrid'), on every engine. `device=None` runs on "cuda" and raises
+    when there is none.
 
     `stats` holds `prep_seconds` and one entry per bucket (shape, roots,
     engine; per-root and auto runs also its steps and seconds); a
@@ -1034,9 +1053,6 @@ def run(g: CSRGraph, *, global_red: bool = True, dynamic_red: bool = True,
     if backend not in fr.BACKENDS:
         raise ValueError(f"unknown backend {backend!r} "
                          f"(expected one of {fr.BACKENDS})")
-    if backend not in fr.PORTED_BACKENDS:
-        raise NotImplementedError(f"backend {backend!r} is not ported yet "
-                                  f"(ROADMAP Queue 1 item 5)")
     dev = resolve_device(device)
     t0 = time.perf_counter()
     prep = prepare(g, global_red=global_red, x_red=x_red,

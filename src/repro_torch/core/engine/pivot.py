@@ -1,11 +1,14 @@
 """Pivot/branch-selection strategies behind one interface (DESIGN.md §2.4).
 
-Backends ported so far:
+Backends:
   'pivot'   — Tomita max-|N(u) ∩ P| pivot over P ∪ X (universe + X0 rows)
   'revised' — same but the pool is restricted to P (paper's revised BK)
-
-'rcd' and 'hybrid' are not ported yet (ROADMAP Queue 1 item 5); `run`
-refuses them.
+  'rcd'     — top-down clique test + min-degree branching, selected per
+              visit (no branch set is precomputed at call entry)
+  'hybrid'  — 'pivot' plus the per-node checks of Wang et al. (PAPERS.md):
+              early termination / X-domination pruning at call entry
+              (`hybrid_early_term`) and a density-triggered switch to
+              vertex branching (B = P) on near-clique nodes
 
 Every score sweep is a fused AND+popcount(+argmax) dispatch through
 `bitset_ops.ops`; nothing here touches `ref` or the kernels directly.
@@ -18,9 +21,19 @@ import torch
 from repro_torch.core.engine import frames as fr
 from repro_torch.kernels.bitset_ops import ops as bitops
 
+# 'hybrid' branch selection: switch from pivot- to vertex-branching (B = P)
+# when the induced density 2|E[P]| / (|P|·(|P|−1)) reaches this threshold —
+# near-clique nodes early-terminate in their children, so the pivot sweep's
+# pruning buys nothing there (DESIGN.md §2.7). The reference's default, the
+# one value its run() uses.
+HYBRID_DENSITY = 0.9
+
 
 def branch_set(cfg, ctx: fr.RootContext, P, Xp, xal, red, deg=None):
-    """Branch set B = P \\ N(pivot) for the 'pivot'/'revised' backends.
+    """Branch set B for the 'pivot'/'revised'/'hybrid' backends.
+
+    B = P \\ N(pivot), except that 'hybrid' overrides to vertex branching
+    (B = P) on nodes whose induced density reaches HYBRID_DENSITY.
 
     `red` is the ReducedFrame from dynamic_reduce (None when dynamic
     reduction is off); its degP2/n_full replace the third AND+popcount
@@ -29,11 +42,9 @@ def branch_set(cfg, ctx: fr.RootContext, P, Xp, xal, red, deg=None):
     (the fused frame-step degree vector over this very P) plays the same
     role — where + argmax over it matches and_popcount_argmax's scores
     and tie-breaking exactly. With neither (root entry without dynamic
-    reduction) the fused pivot-select kernel scores the universe."""
-    if cfg.backend not in fr.PORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {cfg.backend!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 5)")
+    reduction) the fused pivot-select kernel scores the universe, or, for
+    'hybrid', whose density test needs the whole degree vector, one
+    AND+popcount sweep of A."""
     in_p = fr.bitset_to_mask(P, ctx.u)
     if cfg.backend == "revised":
         pool = in_p
@@ -47,6 +58,8 @@ def branch_set(cfg, ctx: fr.RootContext, P, Xp, xal, red, deg=None):
         deg_vec = red.degP2 - red.n_full.unsqueeze(-1)
     elif deg is not None:
         deg_vec = deg
+    elif cfg.backend == "hybrid":
+        deg_vec = bitops.and_popcount_rows(ctx.A, P)
     else:
         deg_vec = None
     if deg_vec is not None:
@@ -60,4 +73,85 @@ def branch_set(cfg, ctx: fr.RootContext, P, Xp, xal, red, deg=None):
     use_x = (sx > su).unsqueeze(-1)
     pivot_row = torch.where(use_x, ctx.x_rows[ctx.ar, best_x.long()],
                             ctx.A[ctx.ar, best_u.long()])
-    return P & ~pivot_row
+    B = P & ~pivot_row
+    if cfg.backend == "hybrid":
+        # per-node branch selection (Wang et al.): on a near-clique P the
+        # pivot prunes almost nothing while its children early-terminate
+        # at once, so branch on every vertex (B = P). Σ_{v∈P} deg_P(v) =
+        # 2|E[P]|, so the trigger is sum_deg ≥ HYBRID_DENSITY·|P|·(|P|−1),
+        # in the reference's float32 expression and order (counts stay
+        # below 2^24, exact in float32). |P| is its member count: P holds
+        # universe vertices only, bits 0..U-1.
+        psize = in_p.sum(-1, dtype=torch.int32)
+        sum_deg = torch.where(in_p, deg_vec, 0).sum(-1)
+        dense = (sum_deg.to(torch.float32)
+                 >= HYBRID_DENSITY * psize.to(torch.float32)
+                 * (psize - 1).to(torch.float32))
+        B = torch.where(dense.unsqueeze(-1), P, B)
+    return B
+
+
+def hybrid_early_term(carry, cfg, ctx: fr.RootContext, P, Xp, xal, Rb, rsz,
+                      enable):
+    """'hybrid' call-entry checks (Wang et al., PAPERS.md): one fused
+    census over the stacked adjacency + X0 rows (`ctx.ax_rows`) decides,
+    per root,
+
+    * early termination — P induces a clique (every member is adjacent to
+      the |P|−1 others), so R ∪ P is the subtree's ONLY maximal candidate:
+      report it (unless dominated) and pop without recursing;
+    * X-domination pruning — some forbidden x dominates P (P ⊆ N(x)), so
+      every candidate R ∪ S with S ⊆ P below this node is extendable by x:
+      pop silently.
+
+    Returns (carry, stop), stop (R,) bool: True means don't push the
+    frame. The report is gated by `enable`, so the persistent engine's
+    refill claims and live-masked lane steps inherit the same gating as
+    every other carry write."""
+    in_p = fr.bitset_to_mask(P, ctx.u)
+    psize = in_p.sum(-1, dtype=torch.int32)
+    in_x = torch.cat([fr.bitset_to_mask(Xp, ctx.u),
+                      fr.bitset_to_mask(xal, ctx.xc)], -1)
+    # the X0 rows are no P members: in_p is padded with False over them
+    n_full, n_dom = bitops.clique_counts(
+        ctx.ax_rows, P, torch.nn.functional.pad(in_p, (0, ctx.xc)), in_x)
+    is_clique = (n_full == psize) & (psize > 0)
+    dominated = n_dom > 0
+    size = rsz + psize
+    carry = fr.report_single(carry, cfg, Rb | P, size,
+                             is_clique & ~dominated & (size >= 2) & enable)
+    # psize == 0 makes domination vacuous (pc == 0 == |P| for every alive
+    # x), but the empty-P frame is never pushed anyway — keep stop False
+    # there so the leaf report stays the single authority.
+    return carry, is_clique | (dominated & (psize > 0))
+
+
+def rcd_select(ctx: fr.RootContext, P):
+    """'rcd' per-visit branching: (has_branch, w), both (R,).
+
+    P is a clique iff every member has degree |P|−1 inside P; otherwise
+    branch on the first minimum-degree member (argmin returns the first
+    minimum, as jnp.argmin; non-members score the reference's 1 << 30)."""
+    degP = bitops.and_popcount_rows(ctx.A, P)
+    in_p = fr.bitset_to_mask(P, ctx.u)
+    psize = in_p.sum(-1, keepdim=True, dtype=torch.int32)
+    is_clique = (~in_p | (degP == psize - 1)).all(-1)
+    w = torch.where(in_p, degP, 1 << 30).argmin(-1)
+    return ~is_clique, w.to(torch.int32)
+
+
+def rcd_maximality_report(carry, cfg, ctx: fr.RootContext, P, Xp, xal, Rb,
+                          rsz, has_branch):
+    """'rcd' pop-path report: R ∪ P if no forbidden vertex dominates P.
+
+    x blocks iff P ⊆ N(x) ⟺ popcount(P & ~N(x)) == 0 — one batched-mask
+    dispatch of P against the stacked ~X0 rows + ~universe adjacency
+    (`ctx.not_xa_rows`, paper Alg 3)."""
+    sub = bitops.and_popcount_many(P.unsqueeze(-2),
+                                   ctx.not_xa_rows)[..., 0]  # (R, XC + U)
+    in_x = torch.cat([fr.bitset_to_mask(xal, ctx.xc),
+                      fr.bitset_to_mask(Xp, ctx.u)], -1)
+    blocked = (in_x & (sub == 0)).any(-1)
+    size = rsz + fr.popcount(P)
+    ok = ~blocked & (size >= 2) & fr.any_bit(P) & ~has_branch
+    return fr.report_single(carry, cfg, Rb | P, size, ok)

@@ -80,9 +80,12 @@ def load() -> ctypes.CDLL:
     lib.bitset_and_popcount_rows.argtypes = [p, p, p, ll, i, i, p]
     lib.bitset_and_popcount_argmax.argtypes = [p, p, p, p, p, ll, i, i, p]
     lib.bitset_frame_step.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, p]
+    lib.bitset_clique_counts.argtypes = [p, p, p, p, p, p, ll, i, i, p]
+    lib.bitset_and_popcount_many.argtypes = [p, p, p, ll, i, i, i, p]
     lib.bitset_dfs_step_window.argtypes = [p] * 15 + [ll, i, i, i, i, i, p]
     for fn in (lib.bitset_and_popcount_rows, lib.bitset_and_popcount_argmax,
-               lib.bitset_frame_step, lib.bitset_dfs_step_window):
+               lib.bitset_frame_step, lib.bitset_clique_counts,
+               lib.bitset_and_popcount_many, lib.bitset_dfs_step_window):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) kernels for the bitset AND+popcount set algebra of the
-// Bron-Kerbosch engine (per-root and persistent lanes). Plain C entry points, loaded with ctypes
-// by repro_torch/kernels/bitset_ops/ops.py; each returns cudaGetLastError()
-// so the wrapper can raise on a refused launch.
+// Bron-Kerbosch engine (per-root and persistent lanes, every backend).
+// Plain C entry points, loaded with ctypes by
+// repro_torch/kernels/bitset_ops/ops.py; each returns cudaGetLastError() so
+// the wrapper can raise on a refused launch.
 //
 // Layout: a bitset row is W 32-bit words (bit i in word i / 32 at position
 // i % 32). PyTorch stores the words as int32; the kernels read them as
@@ -12,12 +13,13 @@
 // Counts accumulate in int with __popc. The TPU kernels summed popcounts
 // in float32 only because Mosaic has no integer-axis reductions.
 //
-// Bounds on an H100 SXM (3.35 TB/s HBM; the integer work of the three row
-// kernels is a few ALU ops per word, far below the card's integer rate, so
-// they are bound by bytes; the window walk re-reads its rows every step and
-// is bound by operations). None of them is made fast yet: coalesced warp-per-row loads for
-// W >= 4, shared-memory staging of the rows and fusing the engine's
-// per-step elementwise passes are later work.
+// Bounds on an H100 SXM (3.35 TB/s HBM; the integer work of the row
+// kernels, the census and the many-mask sweep is a few ALU ops per word,
+// far below the card's integer rate, so they are bound by bytes; the window
+// walk re-reads its rows every step and is bound by operations). None of
+// them is made fast yet: coalesced warp-per-row loads for W >= 4,
+// shared-memory staging of the rows and fusing the engine's per-step
+// elementwise passes are later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -417,6 +419,99 @@ dfs_step_window_kernel(const uint32_t* __restrict__ a,
   }
 }
 
+// ---------------------------------------------------------------------------
+// clique_counts: per root, with pc[k] = popcount(rows[k] & mask),
+// n_full = #{k : in_p[k] && pc[k] == |mask| - 1} and
+// n_dom  = #{k : in_x[k] && pc[k] == |mask|}.
+//
+// Replaces repro/kernels/bitset_ops/kernel.py::clique_counts
+// (_clique_counts_kernel, :207/:225), the 'hybrid' backend's call-entry
+// census over A stacked on the X0 rows. Bound: bytes, R*K*W*4 + 2*R*K
+// (selectors) + R*W*4 read and 8*R written. Design: one block per root,
+// striding over its K rows, one thread per row; the mask is staged once in
+// shared memory and |mask| is a block reduction of its words' popcounts.
+// Each thread counts its rows' two flags, and a second block reduction
+// writes the two counts: no atomics and no second pass (the TPU version
+// emitted per-row flags and summed them outside the kernel only to keep
+// its grid steps independent under vmap).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+clique_counts_kernel(const uint32_t* __restrict__ rows,
+                     const uint32_t* __restrict__ mask,
+                     const uint8_t* __restrict__ in_p,
+                     const uint8_t* __restrict__ in_x,
+                     int32_t* __restrict__ n_full,
+                     int32_t* __restrict__ n_dom, int K, int W) {
+  extern __shared__ uint32_t smask[];
+  __shared__ Acc scratch[33];
+  const int64_t r = blockIdx.x;
+  int msize = 0;
+  for (int w = threadIdx.x; w < W; w += blockDim.x) {
+    const uint32_t m = mask[r * W + w];
+    smask[w] = m;
+    msize += __popc(m);
+  }
+  // the reduction's barriers also publish smask
+  msize = block_reduce(Acc{kBig, msize, 0, 0, 0}, MinSum(),
+                       Acc{kBig, 0, 0, 0, 0}, scratch).b;
+  int full = 0, dom = 0;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const uint32_t* row = rows + (r * K + k) * static_cast<int64_t>(W);
+    int pc = 0;
+    for (int w = 0; w < W; ++w) pc += __popc(row[w] & smask[w]);
+    full += in_p[r * K + k] && pc == msize - 1;
+    dom += in_x[r * K + k] && pc == msize;
+  }
+  const Acc sums = block_reduce(Acc{kBig, full, dom, 0, 0}, MinSum(),
+                                Acc{kBig, 0, 0, 0, 0}, scratch);
+  if (threadIdx.x == 0) {
+    n_full[r] = sums.b;
+    n_dom[r] = sums.c;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// and_popcount_many: out[r, m, k] = popcount(rows[r, k] & masks[r, m]).
+//
+// Replaces repro/kernels/bitset_ops/kernel.py::and_popcount_many
+// (_and_popcount_many_kernel, :267/:277), the 'rcd' backend's pop-path
+// maximality check (rows = P with K = 1, masks = ~X0 rows stacked on ~A).
+// Bound: bytes, R*(M + K)*W*4 read and R*M*K*4 written. Design: one thread
+// per output element (m, k), looping over the W words; the root's K rows
+// are staged in shared memory when K*W words fit in kManySmemWords (always
+// at the engine's K = 1, where each thread then sweeps one mask row
+// against one staged word vector). Grid (R, up to 65535 element blocks),
+// each block striding over the root's M*K elements.
+// ---------------------------------------------------------------------------
+constexpr int kManySmemWords = 12 * 1024;  // 48 KB: no opt-in needed
+
+__global__ void __launch_bounds__(kThreads)
+and_popcount_many_kernel(const uint32_t* __restrict__ rows,
+                         const uint32_t* __restrict__ masks,
+                         int32_t* __restrict__ out, int K, int M, int W,
+                         bool staged) {
+  extern __shared__ uint32_t srows[];
+  const int64_t r = blockIdx.x;
+  const int64_t KW = static_cast<int64_t>(K) * W;
+  const uint32_t* grows = rows + r * KW;
+  if (staged) {
+    for (int64_t i = threadIdx.x; i < KW; i += blockDim.x) srows[i] = grows[i];
+    __syncthreads();
+  }
+  const uint32_t* rws = staged ? srows : grows;
+  const int64_t MK = static_cast<int64_t>(M) * K;
+  for (int64_t e = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
+       e < MK; e += static_cast<int64_t>(gridDim.y) * blockDim.x) {
+    const int64_t m = e / K;
+    const int k = static_cast<int>(e - m * K);
+    const uint32_t* mrow = masks + (r * M + m) * W;
+    const uint32_t* krow = rws + static_cast<int64_t>(k) * W;
+    int c = 0;
+    for (int w = 0; w < W; ++w) c += __popc(krow[w] & mrow[w]);
+    out[r * MK + e] = c;
+  }
+}
+
 // dynamic shared memory of one lane: the four window fields, the three
 // child sets and the T frame sizes
 inline size_t dfs_step_window_smem(int T, int W) {
@@ -464,6 +559,34 @@ int bitset_frame_step(const void* rows, const void* p, const void* xp,
       static_cast<const uint32_t*>(xp), static_cast<const uint32_t*>(wrow),
       static_cast<uint32_t*>(childp), static_cast<uint32_t*>(childxp),
       static_cast<int32_t*>(deg), static_cast<int32_t*>(partner), K, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bitset_clique_counts(const void* rows, const void* mask, const void* in_p,
+                         const void* in_x, void* n_full, void* n_dom,
+                         long long R, int K, int W, void* stream) {
+  clique_counts_kernel<<<static_cast<unsigned>(R), kThreads,
+                         W * sizeof(uint32_t),
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(rows), static_cast<const uint32_t*>(mask),
+      static_cast<const uint8_t*>(in_p), static_cast<const uint8_t*>(in_x),
+      static_cast<int32_t*>(n_full), static_cast<int32_t*>(n_dom), K, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bitset_and_popcount_many(const void* rows, const void* masks, void* out,
+                             long long R, int K, int M, int W, void* stream) {
+  const long long kw = static_cast<long long>(K) * W;
+  const bool staged = kw <= kManySmemWords;
+  const long long mk_blocks =
+      (static_cast<long long>(M) * K + kThreads - 1) / kThreads;
+  const dim3 grid(static_cast<unsigned>(R),
+                  static_cast<unsigned>(mk_blocks < 65535 ? mk_blocks : 65535));
+  and_popcount_many_kernel<<<grid, kThreads,
+                             staged ? kw * sizeof(uint32_t) : 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(rows), static_cast<const uint32_t*>(masks),
+      static_cast<int32_t*>(out), K, M, W, staged);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,7 +31,8 @@ from repro_torch.kernels.bitset_ops.words import (and_rows,  # noqa: F401
                                                   popcount, popcount_words)
 
 LAUNCHES: Dict[str, int] = {"frame_step": 0, "and_popcount_rows": 0,
-                            "and_popcount_argmax": 0, "dfs_step_window": 0,
+                            "and_popcount_argmax": 0, "clique_counts": 0,
+                            "and_popcount_many": 0, "dfs_step_window": 0,
                             "dfs_step_window_lanes": 0}
 
 # Stack frames the engine keeps resident per window walk. The kernel takes
@@ -161,6 +162,54 @@ def frame_step(rows: torch.Tensor, p: torch.Tensor, xp: torch.Tensor,
             partner.data_ptr(), r, k, w, _stream()))
         LAUNCHES["frame_step"] += 1
     return childp, childxp, deg, partner
+
+
+def clique_counts(rows: torch.Tensor, mask: torch.Tensor, in_p: torch.Tensor,
+                  in_x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused early-termination census of the 'hybrid' backend: (n_full,
+    n_dom), both int32 (...,), the in_p rows with popcount(row & mask) ==
+    |mask| − 1 and the in_x rows with popcount(row & mask) == |mask|.
+    rows (..., K, W), mask (..., W), in_p/in_x (..., K) bool."""
+    if _on_cpu(rows, mask, in_p, in_x):
+        return ref.clique_counts(rows, mask, in_p, in_x)
+    lead, r, k, w = _check("clique_counts", rows, mask, in_p, in_x)
+    _check_mask("clique_counts", mask, lead, w)
+    for sel in (in_p, in_x):
+        if sel.dtype != torch.bool or tuple(sel.shape) != lead + (k,):
+            raise ValueError(f"clique_counts: in_p/in_x must be bool "
+                             f"{lead + (k,)}")
+    n_full = torch.empty(lead, dtype=torch.int32, device=rows.device)
+    n_dom = torch.empty(lead, dtype=torch.int32, device=rows.device)
+    if r:
+        _raise_on("clique_counts", build.load().bitset_clique_counts(
+            rows.data_ptr(), mask.data_ptr(), in_p.data_ptr(),
+            in_x.data_ptr(), n_full.data_ptr(), n_dom.data_ptr(), r, k, w,
+            _stream()))
+        LAUNCHES["clique_counts"] += 1
+    return n_full, n_dom
+
+
+def and_popcount_many(rows: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """out[..., m, k] = popcount(rows[..., k, :] & masks[..., m, :]) as
+    int32: one row matrix (..., K, W) against a batch of masks (..., M, W)
+    (the 'rcd' X-subset maximality test, with rows = P and K = 1)."""
+    if _on_cpu(rows, masks):
+        return ref.and_popcount_many(rows, masks)
+    lead, r, k, w = _check("and_popcount_many", rows, masks)
+    if (masks.dtype != torch.int32 or masks.dim() != rows.dim()
+            or tuple(masks.shape[:-2]) != lead or masks.shape[-1] != w
+            or masks.shape[-2] == 0):
+        raise ValueError(f"and_popcount_many: masks must be int32 "
+                         f"{lead + ('M >= 1', w)}, got {masks.dtype} "
+                         f"{tuple(masks.shape)}")
+    m = masks.shape[-2]
+    out = torch.empty(lead + (m, k), dtype=torch.int32, device=rows.device)
+    if r:
+        _raise_on("and_popcount_many", build.load().bitset_and_popcount_many(
+            rows.data_ptr(), masks.data_ptr(), out.data_ptr(), r, k, m, w,
+            _stream()))
+        LAUNCHES["and_popcount_many"] += 1
+    return out
 
 
 def _window_walk(name: str, a, x_rows, alive0, winP, winB, winXp, winRb,

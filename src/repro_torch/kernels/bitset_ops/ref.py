@@ -53,6 +53,34 @@ def and_popcount_argmax(rows: torch.Tensor, mask: torch.Tensor,
     return idx.to(torch.int32), best
 
 
+def clique_counts(rows: torch.Tensor, mask: torch.Tensor, in_p: torch.Tensor,
+                  in_x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused early-termination census of the 'hybrid' backend.
+
+    rows: (..., K, W) int32, mask: (..., W) int32 (the candidate set P),
+    in_p/in_x: (..., K) bool row selectors -> (n_full, n_dom), both
+    (...,) int32, with pc[k] = popcount(rows[k] & mask):
+      n_full = #{k : in_p[k] ∧ pc[k] == popcount(mask) − 1}
+      n_dom  = #{k : in_x[k] ∧ pc[k] == popcount(mask)}
+    With rows = adjacency stacked on X0 rows, P induces a clique iff
+    n_full == |P|, and some forbidden vertex dominates P iff n_dom > 0."""
+    pc = and_popcount_rows(rows, mask)
+    msize = popcount_words(mask).unsqueeze(-1)
+    n_full = (in_p & (pc == msize - 1)).sum(-1, dtype=torch.int32)
+    n_dom = (in_x & (pc == msize)).sum(-1, dtype=torch.int32)
+    return n_full, n_dom
+
+
+def and_popcount_many(rows: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """One row matrix against a batch of masks.
+
+    rows: (..., K, W) int32, masks: (..., M, W) int32 -> (..., M, K)
+    int32 with out[m, k] = popcount(rows[k] & masks[m]): the X-subset
+    maximality test `P ⊆ N(x)` for every forbidden row x is
+    `and_popcount_many(P[..., None, :], ~x_rows)[..., 0] == 0`."""
+    return popcount_words(rows.unsqueeze(-3) & masks.unsqueeze(-2))
+
+
 def frame_step(rows: torch.Tensor, p: torch.Tensor, xp: torch.Tensor,
                wrow: torch.Tensor):
     """Fused BK frame step: child-set construction + degree/partner sweep.

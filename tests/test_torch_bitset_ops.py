@@ -19,6 +19,9 @@ from repro.kernels.bitset_ops import kernel as jkernel
 from repro.kernels.bitset_ops import ref as jref
 from repro_torch.kernels.bitset_ops import build, ops, ref, words
 
+pytest_plugins = ["torch_jax_executables"]
+
+
 EDGE_WORDS = np.array([0, 1, 0x80000000, 0xFFFFFFFF, 0x7FFFFFFF,
                        0x80000001, 0x55555555, 0xAAAAAAAA], dtype=np.uint32)
 
@@ -141,6 +144,11 @@ def test_cpu_dispatch_takes_the_plain_version_without_counting():
     for g, w in zip(ops.frame_step(rows, mask, mask, mask),
                     ref.frame_step(rows, mask, mask, mask)):
         assert torch.equal(g, w)
+    for g, w in zip(ops.clique_counts(rows, mask, valid, valid),
+                    ref.clique_counts(rows, mask, valid, valid)):
+        assert torch.equal(g, w)
+    assert torch.equal(ops.and_popcount_many(rows[:, :1], rows),
+                       ref.and_popcount_many(rows[:, :1], rows))
     assert set(ops.LAUNCHES.values()) == {0}
 
 
@@ -153,6 +161,11 @@ def test_dispatch_refuses_other_devices():
         ops.and_popcount_rows(rows, mask)
     with pytest.raises(ValueError):
         ops.frame_step(rows, mask, mask, mask)
+    sel = torch.zeros(1, 4, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        ops.clique_counts(rows, mask, sel, sel)
+    with pytest.raises(ValueError):
+        ops.and_popcount_many(rows, rows)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -166,7 +179,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_kernel_source_note_and_entry_points():
     src = build.SOURCE.read_text()
-    for name in ("and_popcount_rows", "and_popcount_argmax", "frame_step"):
+    for name in ("and_popcount_rows", "and_popcount_argmax", "frame_step",
+                 "clique_counts", "and_popcount_many"):
         assert f"repro/kernels/bitset_ops/kernel.py::{name}" in src
         assert f"int bitset_{name}(" in src
     assert "__popc" in src and "Bound: bytes" in src

@@ -14,6 +14,7 @@ import torch
 from repro_torch.core.engine import run
 from repro_torch.graph import generators as gen
 from repro_torch.kernels.bitset_ops import ops, ref
+from torch_census_inputs import census_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -60,6 +61,50 @@ def test_cuda_kernels_match_plain_versions(cuda_device, r, k, w):
     assert (ops.LAUNCHES["and_popcount_argmax"]
             == before["and_popcount_argmax"] + 2)
     assert ops.LAUNCHES["frame_step"] == before["frame_step"] + 1
+
+
+@pytest.mark.parametrize("r,k,w", SHAPES)
+def test_cuda_census_and_many_match_plain_versions(cuda_device, r, k, w):
+    """clique_counts and and_popcount_many against their plain versions:
+    an empty and a one-bit mask, all-false selectors, K = 1 against many
+    masks (the rcd shape), M = 1, and K, M off the 256-thread block."""
+    rows, mask, in_p, in_x = (
+        torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x)
+        .to(cuda_device) for x in census_inputs(r, k, w, k + w))
+    before = dict(ops.LAUNCHES)
+    got = ops.clique_counts(rows, mask, in_p, in_x)
+    want = ref.clique_counts(rows, mask, in_p, in_x)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    masks = _words((r, 3 * k + 1, w), k, cuda_device)
+    for rr, mm in ((rows, masks), (rows[:, :1].contiguous(), masks),
+                   (rows, masks[:, :1].contiguous())):
+        assert torch.equal(ops.and_popcount_many(rr, mm),
+                           ref.and_popcount_many(rr, mm))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["clique_counts"] == before["clique_counts"] + 1
+    assert ops.LAUNCHES["and_popcount_many"] == \
+        before["and_popcount_many"] + 3
+
+
+@pytest.mark.parametrize("backend", ["hybrid", "rcd"])
+@pytest.mark.parametrize("engine", ["perroot", "persistent"])
+def test_cuda_backend_run_matches_cpu_run(cuda_device, backend, engine):
+    g = gen.caveman(12, 7, 0.2, seed=3)
+    kw = dict(backend=backend, engine=engine, enumerate_cliques=True,
+              bucket_sizes=(32, 64), lanes=8)
+    ops.reset_launches()
+    on_card = run(g, device=cuda_device, **kw)
+    launched = dict(ops.LAUNCHES)
+    on_cpu = run(g, device="cpu", **kw)
+    for k in ("cliques", "calls", "branches", "sum_px", "iters_exhausted"):
+        assert getattr(on_card, k) == getattr(on_cpu, k)
+    assert set(on_card.enumerated) == set(on_cpu.enumerated)
+    if engine == "persistent":
+        for k in ("iters", "live_iters", "steals", "entry_terms"):
+            assert on_card.stats[k] == on_cpu.stats[k], k
+    assert launched["clique_counts" if backend == "hybrid"
+                    else "and_popcount_many"] > 0
 
 
 @pytest.mark.parametrize("dynamic_red", [True, False])

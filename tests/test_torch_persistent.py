@@ -29,6 +29,8 @@ from repro_torch.graph import csr as tcsr
 
 from test_persistent_engine import GRAPHS, plant_hub, skewed_graph
 
+pytest_plugins = ["torch_jax_executables"]
+
 CPU = "cpu"
 COUNTERS = ("cliques", "calls", "branches", "sum_px")
 STATS = ("iters", "live_iters", "claimed", "steals", "entry_terms",
@@ -83,6 +85,26 @@ BUCKET_CASES = [
     ("hub-maxiters", _hub, 8, dict(max_iters=5)),
     ("hub-kernel-maxiters", _hub, 8,
      dict(dynamic_red=False, window_steps=16, max_iters=3)),
+    # the 'hybrid' and 'rcd' backends: plain lanes, engine-step windows
+    # (full depth with in-trip steals, and bounded), enumeration, steal
+    # off (rcd never steals) and truncation
+    ("hub-hybrid", _hub, 8, dict(backend="hybrid")),
+    ("caveman-hybrid-nodyn", GRAPHS["caveman"], 7,
+     dict(backend="hybrid", dynamic_red=False)),
+    ("hub-hybrid-nosteal", _hub, 8, dict(backend="hybrid", steal=False)),
+    ("hub-hybrid-win4", _hub, 8, dict(backend="hybrid", window_steps=4)),
+    ("hub-hybrid-win16-frames4-nodyn", _hub, 8,
+     dict(backend="hybrid", dynamic_red=False, window_steps=16,
+          window_frames=4)),
+    ("hub-hybrid-enum-win4", _hub, 8,
+     dict(backend="hybrid", out_cap=2048, window_steps=4)),
+    ("hub-hybrid-maxiters", _hub, 8, dict(backend="hybrid", max_iters=5)),
+    ("hub-rcd", _hub, 8, dict(backend="rcd")),
+    ("ba-rcd-nodyn", GRAPHS["ba"], 7, dict(backend="rcd", dynamic_red=False)),
+    ("hub-rcd-win4", _hub, 8, dict(backend="rcd", window_steps=4)),
+    ("hub-rcd-enum-win4-frames4", _hub, 8,
+     dict(backend="rcd", out_cap=2048, window_steps=4, window_frames=4)),
+    ("hub-rcd-maxiters", _hub, 8, dict(backend="rcd", max_iters=5)),
 ]
 
 
@@ -99,6 +121,8 @@ def test_run_bucket_persistent_matches_reference(graph, lanes, cfg):
         *interop.bucket_from_reference(arrays, CPU).values(),
         EngineConfig(**cfg), lanes=lanes))
     _assert_same(got, want, cfg)
+    if cfg.get("backend") == "rcd":
+        assert int(got["steals"]) == 0
     if cfg.get("max_iters"):
         assert got["truncated"] and got["iters"] == cfg["max_iters"]
     else:

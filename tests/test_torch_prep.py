@@ -25,6 +25,9 @@ from repro_torch.core.engine import PrepStream, prepare
 from repro_torch.graph import generators as tgen
 from repro_torch.graph import order as torder
 
+pytest_plugins = ["torch_jax_executables"]
+
+
 GRAPHS = [
     ("er", "erdos_renyi", (120, 0.12), dict(seed=1)),
     ("ba", "barabasi_albert", (300, 6), dict(seed=2)),

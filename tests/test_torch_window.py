@@ -23,6 +23,9 @@ from repro_torch.core.engine import frames as fr
 from repro_torch.core.engine import loop
 from repro_torch.kernels.bitset_ops import ops
 
+pytest_plugins = ["torch_jax_executables"]
+
+
 CPU = "cpu"
 
 
