@@ -1,19 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the MCE engine on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the MCE engine and the
+substrate kernels.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
-It builds the Hopper kernels from `src/repro_torch/kernels/bitset_ops/
-csrc/` and then, printing one JSON line per phase:
+It builds the Hopper kernels of every kernel package from
+`src/repro_torch/kernels/<name>/csrc/` (one nvcc per source, all started
+together) and then, printing one JSON line per phase:
 
-1. device: the card, its driver and power limit, and the kernels' build;
-2. kernels: each CUDA kernel held bit-exact against its plain PyTorch
-   version on the same CUDA tensors, at edge shapes and at the shapes of
-   the Graph500 scale-12 buckets (the hybrid census over A stacked on the
-   X0 rows, the rcd sweep of P against ~X0 rows stacked on ~A, the window
-   walk on the windows the persistent and per-root engines launch it
-   with), with CUDA-event times;
+1. device: the card, its software versions and power limit, and each
+   library's build (nvcc seconds, registers and spills per kernel);
+2. kernels: each bitset CUDA kernel held bit-exact against its plain
+   PyTorch version on the same CUDA tensors, at edge shapes and at the
+   shapes of the Graph500 scale-12 buckets (the hybrid census over A
+   stacked on the X0 rows, the rcd sweep of P against ~X0 rows stacked on
+   ~A, the window walk on the windows the persistent and per-root engines
+   launch it with), with CUDA-event times;
+2b. substrate_kernels: `has_common_neighbor`, `embedding_bag_sum`,
+   `dense_spmm` and `flash_attention` against their plain versions at the
+   reference tests' edge shapes and at full width (scale 12's edges, the
+   two-tower bags, the molecule cell, qwen3-14b's attention at train_4k),
+   each entry point (`edge_common_neighbor`, `embedding_bag`,
+   `densify_edges` + `dense_spmm`, `mha`) driven once with its launch
+   count read, and the scale-12 triangle test against the host Lemma-4
+   mask; with CUDA-event times beside the bound and one PyTorch call;
 3. small graphs: `run(g)` on the card with enumeration for the 'pivot',
    'hybrid' and 'rcd' backends, against the port's oracles (exact clique
    sets) and the reference's pivot and hybrid counters;
@@ -34,8 +45,8 @@ Each path runs with the kernels' launch counts set to 0 just before it
 and read just after, and fails if a kernel of that path was not launched.
 
 Every check raises on failure (exit code 1). The last two lines are the
-kernel table as JSON and `{"ok": true, "device": {...}}`. It imports
-nothing of JAX or of the reference package `repro`.
+kernel table (all eleven kernels) as JSON and `{"ok": true, "device":
+{...}}`. It imports nothing of JAX or of the reference package `repro`.
 """
 from __future__ import annotations
 
@@ -51,10 +62,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
-# Integer ALU work (AND, popcount, add) has no row in the data sheet's peak
-# table; its float32 non-tensor rate, 67 TFLOP/s, stands in as the
-# operations bound. The bytes bound is the larger for every kernel at the
-# slice's shapes.
+# The data sheet's float32 rate off the tensor cores, 67 TFLOP/s: the
+# operations bound of the float32 kernels (dense_spmm, the bag sums), and
+# the stand-in for integer ALU work (AND, popcount, add, compare), which
+# has no row in the peak table. bfloat16 attention uses BF16_OPS_PER_S.
 OPS_PER_S = 67e12
 SOURCE = "src/repro_torch/kernels/bitset_ops/csrc/bitset_ops.cu"
 REPLACES = {
@@ -526,6 +537,354 @@ def window_slice_cases(dev, prep):
     return lines
 
 # --------------------------------------------------------------------------
+# phase 2b: the substrate kernels against their plain versions
+# --------------------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 dense tensor-core rate
+# kernel -> (package, its CUDA source, the TPU kernel it replaces)
+SUBSTRATE = {
+    "has_common_neighbor": (
+        "common_neighbor",
+        "src/repro_torch/kernels/common_neighbor/csrc/common_neighbor.cu",
+        "src/repro/kernels/common_neighbor/kernel.py:30"),
+    "embedding_bag_sum": (
+        "embedding_bag",
+        "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
+        "src/repro/kernels/embedding_bag/kernel.py:47"),
+    "dense_spmm": (
+        "segment_spmm",
+        "src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu",
+        "src/repro/kernels/segment_spmm/kernel.py:32"),
+    "flash_attention": (
+        "flash_attention",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:82"),
+}
+
+
+def substrate_modules(name):
+    """(ops, ref) of a substrate kernel's package."""
+    import importlib
+    pkg = f"repro_torch.kernels.{SUBSTRATE[name][0]}"
+    return (importlib.import_module(f"{pkg}.ops"),
+            importlib.import_module(f"{pkg}.ref"))
+
+
+def bound(nbytes, nops, ops_per_s=OPS_PER_S):
+    """(bound ms, what bounds it): the larger of bytes over the memory
+    rate and operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def substrate_compare(name, call, args, rtol, atol, shape, cost=None,
+                      library=None, plain_reps=(21, 10)):
+    """Kernel (`call(ops, *args)`) against its plain version (`call(ref,
+    *args)`) on the same CUDA tensors: equal for a bool output, else
+    |got - want| <= atol + rtol * |want| everywhere and ||got - want|| <=
+    rtol * ||want|| over the whole output, so that a fault confined to
+    outputs smaller than atol still fails. With `cost` (bytes,
+    operations, peak rate) the kernel, the plain version and `library` (one
+    PyTorch call of the same function, or None) are timed."""
+    import torch
+    ops, ref = substrate_modules(name)
+    got, want = call(ops, *args), call(ref, *args)
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{name}: {got.dtype}{tuple(got.shape)} vs "
+          f"{want.dtype}{tuple(want.shape)}")
+    if got.dtype == torch.bool:
+        err = int((got != want).sum())
+        check(err == 0, f"{name} differs from its plain version on {err} "
+              f"rows at {shape}")
+    else:
+        g, w = got.float(), want.float()
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite at {shape}")
+        diff = (g - w).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        rel = float(diff.norm() / w.norm()) if float(w.norm()) else 0.0
+        check(bool((diff <= atol + rtol * w.abs()).all()) and rel <= rtol,
+              f"{name} differs from its plain version by {err} (relative "
+              f"norm {rel}) at {shape} (rtol {rtol}, atol {atol})")
+    out = dict(phase="substrate_kernels", name=name, shape=list(shape),
+               max_abs_err=err, rtol=rtol, atol=atol)
+    if got.dtype != torch.bool:
+        out.update(rel_norm_err=rel)
+    if cost is not None:
+        nbytes, nops, rate = cost
+        ms, call_ms = cuda_ms(lambda: call(ops, *args))
+        plain_ms, plain_call_ms = cuda_ms(lambda: call(ref, *args),
+                                          *plain_reps)
+        lib_ms = cuda_ms(library)[0] if library is not None else None
+        bound_ms, bound_by = bound(nbytes, nops, rate)
+        out.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                   plain_call_ms=plain_call_ms, library_ms=lib_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                   operations=nops)
+    emit(out)
+    return out
+
+
+def drive_entry(name, entry):
+    """One entry point of the substrate path, with its kernel's launch count
+    set to 0 just before and read just after; fails if it did not launch."""
+    import torch
+    ops, _ = substrate_modules(name)
+    ops.LAUNCHES.reset()
+    out = entry()
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES[name]
+    check(launches > 0, f"kernel {name} was not launched by its entry point")
+    return out, launches
+
+
+def common_neighbor_cases(dev, g12):
+    """The reference test's (E, D) shapes, rows past one staged tile, and
+    scale 12's edges: `edge_common_neighbor(pad_adjacency(g), g.edges())`
+    as a user calls it, held against the port's host Lemma-4 mask."""
+    import numpy as np
+    import torch
+    from repro_torch.core.global_reduction import _triangle_edge_mask
+    from repro_torch.kernels.common_neighbor import ops
+
+    def call(impl, au, av):
+        return impl.has_common_neighbor(au, av)
+    lines = []
+    for e, d in [(1, 4), (10, 8), (130, 16), (257, 5), (40, 1500)]:
+        rng = np.random.default_rng(e * 31 + d)
+        au, av = (torch.from_numpy(rng.integers(-1, 40 if d < 100 else 4 * d,
+                                                (e, d)).astype(np.int32))
+                  .to(dev) for _ in range(2))
+        lines.append(substrate_compare("has_common_neighbor", call, (au, av),
+                                       0, 0, (e, d)))
+    padded = ops.pad_adjacency(g12.indptr, g12.indices,
+                               int(g12.degrees().max()))
+    padded_t = torch.from_numpy(padded).to(dev)
+    edges = torch.from_numpy(g12.edges()).to(dev)
+    tri, launches = drive_entry("has_common_neighbor",
+                                lambda: ops.edge_common_neighbor(padded_t,
+                                                                 edges))
+    host = _triangle_edge_mask(g12)
+    check(np.array_equal(tri.cpu().numpy(), host),
+          "edge_common_neighbor differs from the host Lemma-4 mask")
+    au = padded_t[edges[:, 0].long()]
+    av = padded_t[edges[:, 1].long()]
+    e, d = au.shape
+    pairs = int(((au >= 0).sum(1) * (av >= 0).sum(1)).sum())
+    line = substrate_compare("has_common_neighbor", call, (au, av), 0, 0,
+                             (e, d), cost=(2 * e * d * 4 + e, pairs,
+                                           OPS_PER_S), plain_reps=(2, 1))
+    line.update(graph="kron:scale=12,ef=16,seed=0", launches=launches,
+                triangle_share=float(host.mean()), real_pairs=pairs)
+    emit(dict(phase="substrate_kernels", check="triangle_mask",
+              edges=len(host), equal=True, triangle_share=float(host.mean())))
+    return lines + [line]
+
+
+def embedding_bag_cases(dev):
+    """The reference test's (V, D, B, L) shapes with ids past the
+    vocabulary, then the two-tower bags at full width on the card: the
+    item-history bag (V = 2^24, D = 128, B = 65,536, L = 32, 8 GiB table)
+    through `embedding_bag` as a user calls it, and the tag bag (V =
+    100,000, D = 32, L = 8)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import ops
+
+    def call(impl, table, ids):
+        return impl.embedding_bag(table, ids, "sum")
+    lines = []
+    for v, d, b, l in [(64, 8, 16, 4), (512, 32, 100, 8), (1000, 16, 33, 12),
+                       (2048, 64, 256, 1), (500, 16, 64, 6), (300, 13, 40, 40)]:
+        rng = np.random.default_rng(v + d + b + l)
+        table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32))
+        ids = np.where(rng.random((b, l)) < 0.8, rng.integers(0, v, (b, l)),
+                       -1).astype(np.int32)
+        ids[0, 0] = v                                  # out of contract
+        lines.append(substrate_compare(
+            "embedding_bag_sum", call,
+            (table.to(dev), torch.from_numpy(ids).to(dev)), 1e-5, 1e-5,
+            (v, d, b, l)))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for v, d, l, main in [(1 << 24, 128, 32, True), (100_000, 32, 8, False)]:
+        b = 65_536
+        table = torch.randn(v, d, generator=gen, device=dev)
+        ids = torch.randint(0, v, (b, l), generator=gen, device=dev,
+                            dtype=torch.int32)
+        lens = torch.randint(1, l + 1, (b, 1), generator=gen, device=dev)
+        ids[torch.arange(l, device=dev)[None, :] >= lens] = -1
+        real = int((ids >= 0).sum())
+        safe, weight = ids.clamp(min=0), (ids >= 0).float()
+        line = substrate_compare(
+            "embedding_bag_sum", call, (table, ids), 1e-5, 1e-5, (v, d, b, l),
+            cost=(4 * (b * l + real * d + b * d), real * d, OPS_PER_S),
+            library=lambda: F.embedding_bag(safe, table, mode="sum",
+                                            per_sample_weights=weight),
+            plain_reps=(5, 3))
+        if main:
+            out, launches = drive_entry(
+                "embedding_bag_sum", lambda: ops.embedding_bag(table, ids))
+            check(out.shape == (b, d) and bool(torch.isfinite(out).all()),
+                  "embedding_bag: bad output")
+            line.update(launches=launches)
+        line.update(real_ids=real)
+        lines.append(line)
+        del table, ids, lens, safe, weight
+        torch.cuda.empty_cache()
+    return lines
+
+
+def dense_spmm_cases(dev):
+    """The reference test's (B, N, F) shapes and N past 32, then the
+    molecule cell (128 graphs of 30 nodes, 64 undirected edges each)
+    through `densify_edges` and `dense_spmm` as a user calls them, held
+    against the sparse `segment_spmm`, at F = 128 (MeshGraphNet's
+    d_hidden) and F = 32 (the cell's d_feat). Plain version and
+    `torch.bmm` in full float32 (TF32 off)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.segment_spmm import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def call(impl, adj, x):
+        return impl.dense_spmm(adj, x)
+    lines = []
+    for b, n, f in [(1, 8, 4), (8, 30, 16), (17, 12, 32), (3, 70, 40),
+                    (2, 100, 130)]:
+        rng = np.random.default_rng(b * n + f)
+        adj = (rng.random((b, n, n)) < 0.3).astype(np.float32)
+        x = rng.normal(size=(b, n, f)).astype(np.float32)
+        lines.append(substrate_compare(
+            "dense_spmm", call, (torch.from_numpy(adj).to(dev),
+                                 torch.from_numpy(x).to(dev)),
+            1e-5, 1e-5, (b, n, f)))
+    rng = np.random.default_rng(3)
+    graphs, npg, und = 128, 30, 64
+    pairs = np.stack([rng.choice(npg, 2, replace=False)
+                      for _ in range(graphs * und)])
+    gid = np.repeat(np.arange(graphs), und)
+    src = np.concatenate([pairs[:, 0], pairs[:, 1]]) + np.tile(gid, 2) * npg
+    dst = np.concatenate([pairs[:, 1], pairs[:, 0]]) + np.tile(gid, 2) * npg
+    src, dst, gid2 = (torch.from_numpy(a).to(dev)
+                      for a in (src, dst, np.tile(gid, 2)))
+    for f, main in [(128, True), (32, False)]:
+        x = torch.from_numpy(rng.normal(size=(graphs, npg, f)).astype(
+            np.float32)).to(dev)
+        adj = ops.densify_edges(src, dst, graphs * npg, gid2, graphs, npg)
+        line = substrate_compare(
+            "dense_spmm", call, (adj, x), 1e-5, 1e-5, (graphs, npg, f),
+            cost=(4 * (graphs * npg * npg + 2 * graphs * npg * f),
+                  2 * graphs * npg * npg * f, OPS_PER_S),
+            library=lambda: torch.bmm(adj, x))
+        if main:
+            out, launches = drive_entry("dense_spmm", lambda: ops.dense_spmm(
+                ops.densify_edges(src, dst, graphs * npg, gid2, graphs, npg),
+                x))
+            sparse = ops.segment_spmm(x.reshape(graphs * npg, f), src, dst,
+                                      graphs * npg)
+            check(bool(torch.allclose(out.reshape(graphs * npg, f), sparse,
+                                      rtol=1e-5, atol=1e-5)),
+                  "dense_spmm differs from segment_spmm on the molecules")
+            line.update(launches=launches)
+        line.update(tf32=torch.backends.cuda.matmul.allow_tf32)
+        lines.append(line)
+    return lines
+
+
+# bfloat16 attention against its plain version: both read the same bf16
+# inputs and compute in float32 (TF32 off), so they differ by the output's
+# rounding (one bf16 ulp, at most 2^-7 of the value) and summation order.
+# The typical output of a late causal row is about 0.03, so atol stays
+# well under it, and the relative-norm check fails a kernel that is wrong
+# only on the late rows.
+BF16_RTOL, BF16_ATOL = 1e-2, 1e-3
+
+
+def flash_attention_cases(dev):
+    """The reference test's (BH, Sq, Sk, D, causal) shapes in float32,
+    causal with Sq != Sk, bfloat16, then qwen3-14b's attention at
+    `train_4k` (40 query heads over 8 kv heads expanded in `repeat_kv`'s
+    order, D = 128, S = 4,096, batch 1, bfloat16, causal) through `mha` as
+    a user calls it."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def call(causal):
+        return lambda impl, q, k, v: impl.flash_attention(q, k, v,
+                                                          causal=causal)
+    lines = []
+    for bh, sq, sk, d, causal, dtype in [
+            (2, 128, 128, 64, True, np.float32),
+            (3, 100, 100, 32, True, np.float32),
+            (1, 256, 256, 128, False, np.float32),
+            (4, 64, 192, 64, False, np.float32),
+            (2, 33, 70, 16, False, np.float32),
+            (2, 33, 70, 16, True, np.float32),
+            (2, 150, 40, 48, True, np.float32),
+            (2, 128, 128, 64, True, "bf16")]:
+        rng = np.random.default_rng(bh * sq + d)
+        qkv = [torch.from_numpy(rng.normal(size=(bh, s, d)).astype(
+            np.float32)).to(dev) for s in (sq, sk, sk)]
+        rtol = atol = 2e-5
+        if dtype == "bf16":
+            qkv = [t.to(torch.bfloat16) for t in qkv]
+            rtol, atol = BF16_RTOL, BF16_ATOL
+        lines.append(substrate_compare(
+            "flash_attention", call(causal), qkv, rtol, atol,
+            (bh, sq, sk, d, causal, str(qkv[0].dtype))))
+    b, s, h, kv, d = 1, 4096, 40, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(b, s, kv, d, generator=gen, device=dev)
+            .to(torch.bfloat16)[:, :, :, None, :]
+            .expand(b, s, kv, h // kv, d).reshape(b, s, h, d)
+            for _ in range(2))
+    out, launches = drive_entry("flash_attention",
+                                lambda: ops.mha(q, k, v, causal=True))
+    check(out.shape == (b, s, h, d) and bool(torch.isfinite(out).all()),
+          "mha: bad output")
+    qf, kf, vf = (t.transpose(1, 2).reshape(b * h, s, d).contiguous()
+                  for t in (q, k, v))
+    pairs = s * (s + 1) // 2                      # top-left causal pairs
+    qh, kh, vh = (t.view(b, h, s, d) for t in (qf, kf, vf))
+    line = substrate_compare(
+        "flash_attention", call(True), (qf, kf, vf), BF16_RTOL, BF16_ATOL,
+        (b * h, s, s, d, True, "torch.bfloat16"),
+        cost=(4 * b * h * s * d * 2, 4 * b * h * pairs * d, BF16_OPS_PER_S),
+        library=lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                       is_causal=True),
+        plain_reps=(3, 2))
+    line.update(launches=launches, model="qwen3-14b", cell="train_4k")
+    lines.append(line)
+    del q, k, v, qf, kf, vf, qh, kh, vh, out
+    torch.cuda.empty_cache()
+    return lines
+
+
+def substrate_kernels(dev, g12):
+    """The four substrate kernels: each against its plain version at edge
+    shapes and at full width, its entry point driven once with its launch
+    count read. Returns the lines by kernel; frees the full-width tensors
+    (the 8 GiB table, the 2.7 GB score matrix) before the engine phases."""
+    import torch
+    t0 = time.perf_counter()
+    lines = {"has_common_neighbor": common_neighbor_cases(dev, g12),
+             "embedding_bag_sum": embedding_bag_cases(dev),
+             "dense_spmm": dense_spmm_cases(dev),
+             "flash_attention": flash_attention_cases(dev)}
+    torch.cuda.empty_cache()
+    emit(dict(phase="substrate_kernels_done",
+              cases={k: len(v) for k, v in lines.items()},
+              seconds=time.perf_counter() - t0))
+    return lines
+
+
+# --------------------------------------------------------------------------
 # phases 3-5
 # --------------------------------------------------------------------------
 
@@ -601,7 +960,7 @@ def drive(dev, g, phase, graph, expect, kernels, stats=None, **kw):
     kernel of the path launched."""
     from repro_torch.core.engine import run
     from repro_torch.kernels.bitset_ops import ops
-    ops.reset_launches()
+    ops.LAUNCHES.reset()
     t0 = time.perf_counter()
     res = run(g, device=dev, **kw)
     secs = time.perf_counter() - t0
@@ -763,6 +1122,24 @@ def trip_profile(dev, prep, u=64, trips=64):
                   kernels_per_trip=n_k / n,
                   device_idle_share=1.0 - busy / plain_wall))
 
+
+def build_libraries():
+    """Every kernel package's library, nvcc runs started together (one per
+    source); returns {package: library}."""
+    import importlib
+    from concurrent.futures import ThreadPoolExecutor
+    libs = {name: importlib.import_module(
+        f"repro_torch.kernels.{name}.ops").LIBRARY
+        for name in ("bitset_ops", "common_neighbor", "embedding_bag",
+                     "segment_spmm", "flash_attention")}
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(lib.build) for lib in libs.values()]:
+            fut.result()
+    for lib in libs.values():
+        lib.load()
+    return libs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -770,20 +1147,19 @@ def main() -> int:
         return 2
     from repro_torch.core.engine.prepare import prepare
     from repro_torch.graph.generators import kronecker
-    from repro_torch.kernels.bitset_ops import build
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     name_power = nvidia_smi("name,power.limit")
     t0 = time.perf_counter()
-    lib = build.build()
-    build.load()
+    libs = build_libraries()
     emit(dict(phase="device", name=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count(),
               driver=nvidia_smi("driver_version"), name_power=name_power,
               torch=torch.__version__, cuda=torch.version.cuda,
-              library=str(lib.relative_to(ROOT)),
-              nvcc_seconds=build.build_seconds,
+              libraries={n: str(lib.path().relative_to(ROOT))
+                         for n, lib in libs.items()},
+              nvcc_seconds={n: lib.build_seconds for n, lib in libs.items()},
               build_and_load_seconds=time.perf_counter() - t0))
 
     n_edge = edge_cases(dev) + window_edge_cases(dev)
@@ -793,6 +1169,7 @@ def main() -> int:
     emit(dict(phase="kernels_done", edge_cases=n_edge,
               bucket_cases=len(kernel_lines),
               seconds=time.perf_counter() - t_start))
+    substrate = substrate_kernels(dev, g12)
 
     small_graphs(dev)
     device_peel(dev, {"kron:scale=12,ef=16": g12,
@@ -830,10 +1207,23 @@ def main() -> int:
             bound_ms=line["bound_ms"], bound_by=line["bound_by"],
             library_ms=None, shape=line["shape"],
             mask_shape=line.get("mask_shape")))
+    # the substrate kernels at the full width their entry point ran at
+    # (one launch per entry-point call)
+    for name, (_, source, replaces) in SUBSTRATE.items():
+        line = next(ln for ln in substrate[name] if "launches" in ln)
+        table.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=line["launches"],
+            max_abs_err=max(ln["max_abs_err"] for ln in substrate[name]),
+            ms=line["ms"], plain_ms=line["plain_ms"],
+            bound_ms=line["bound_ms"], bound_by=line["bound_by"],
+            library_ms=line["library_ms"], shape=line["shape"]))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start,
               path_launches=paths,
-              note="library_ms is null: no single PyTorch call computes "
-                   "AND+popcount over bit words, nor a BK walk"))
+              note="library_ms is null for the bitset kernels and "
+                   "has_common_neighbor: no single PyTorch call computes "
+                   "AND+popcount over bit words, a BK walk, or a "
+                   "common-neighbour test"))
     print(name_power, flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,8 +9,9 @@ Dispatch is by the device of the tensors handed in, and by nothing else:
 
 * a CPU tensor takes the plain PyTorch version in `ref`;
 * a CUDA tensor launches the hand-written Hopper kernel from
-  `csrc/bitset_ops.cu` (built on first use by `build`), or raises. No CUDA
-  tensor ever reaches `ref`, and a failed build or launch is an error.
+  `csrc/bitset_ops.cu` (built on first use by `build.LIBRARY`), or
+  raises. No CUDA tensor ever reaches `ref`, and a failed build or launch
+  is an error.
 
 Each kernel wrapper adds one to `LAUNCHES[name]` where it launches, and
 nowhere else, so a run can show that it went through the kernels.
@@ -22,18 +23,20 @@ flattened to (R, K, W). The window walks take per-lane windows
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.bitset_ops import build, ref
+from repro_torch.kernels._build import Launches, on_cpu, raise_on, stream
+from repro_torch.kernels.bitset_ops import ref
+from repro_torch.kernels.bitset_ops.build import LIBRARY
 from repro_torch.kernels.bitset_ops.words import (and_rows,  # noqa: F401
                                                   popcount, popcount_words)
 
-LAUNCHES: Dict[str, int] = {"frame_step": 0, "and_popcount_rows": 0,
-                            "and_popcount_argmax": 0, "clique_counts": 0,
-                            "and_popcount_many": 0, "dfs_step_window": 0,
-                            "dfs_step_window_lanes": 0}
+LAUNCHES = Launches({"frame_step": 0, "and_popcount_rows": 0,
+                     "and_popcount_argmax": 0, "clique_counts": 0,
+                     "and_popcount_many": 0, "dfs_step_window": 0,
+                     "dfs_step_window_lanes": 0})
 
 # Stack frames the engine keeps resident per window walk. The kernel takes
 # any T; the engine passes this one, so its window spills and hits are the
@@ -42,21 +45,6 @@ WINDOW_FRAMES = 8
 # Dynamic shared memory one block may use on an H100 (227 KB), less the
 # kernel's static reduction scratch.
 WINDOW_SMEM_MAX = 232448 - 1024
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    devs = {t.device.type for t in tensors}
-    if devs == {"cpu"}:
-        return True
-    if devs == {"cuda"}:
-        return False
-    raise ValueError(f"bitset ops take CPU or CUDA tensors on one device, "
-                     f"got {sorted(devs)}")
 
 
 def _check(name: str, rows: torch.Tensor, *vecs: torch.Tensor):
@@ -86,26 +74,17 @@ def _check_mask(name, m, lead, w):
                          f"{m.dtype} {tuple(m.shape)}")
 
 
-def _raise_on(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def and_popcount_rows(rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """out[..., k] = popcount(rows[..., k, :] & mask[..., :]) as int32."""
-    if _on_cpu(rows, mask):
+    if on_cpu(rows, mask):
         return ref.and_popcount_rows(rows, mask)
     lead, r, k, w = _check("and_popcount_rows", rows, mask)
     _check_mask("and_popcount_rows", mask, lead, w)
     out = torch.empty(lead + (k,), dtype=torch.int32, device=rows.device)
     if r:
-        _raise_on("and_popcount_rows", build.load().bitset_and_popcount_rows(
+        raise_on("and_popcount_rows", LIBRARY.load().bitset_and_popcount_rows(
             rows.data_ptr(), mask.data_ptr(), out.data_ptr(), r, k, w,
-            _stream()))
+            stream()))
         LAUNCHES["and_popcount_rows"] += 1
     return out
 
@@ -119,7 +98,7 @@ def and_popcount_argmax(rows: torch.Tensor, mask: torch.Tensor,
     if valid is None:
         valid = torch.ones(rows.shape[:-1], dtype=torch.bool,
                            device=rows.device)
-    if _on_cpu(rows, mask, valid):
+    if on_cpu(rows, mask, valid):
         return ref.and_popcount_argmax(rows, mask, valid)
     lead, r, k, w = _check("and_popcount_argmax", rows, mask, valid)
     _check_mask("and_popcount_argmax", mask, lead, w)
@@ -129,10 +108,10 @@ def and_popcount_argmax(rows: torch.Tensor, mask: torch.Tensor,
     idx = torch.empty(lead, dtype=torch.int32, device=rows.device)
     best = torch.empty(lead, dtype=torch.int32, device=rows.device)
     if r:
-        _raise_on("and_popcount_argmax",
-                  build.load().bitset_and_popcount_argmax(
+        raise_on("and_popcount_argmax",
+                  LIBRARY.load().bitset_and_popcount_argmax(
                       rows.data_ptr(), mask.data_ptr(), valid.data_ptr(),
-                      idx.data_ptr(), best.data_ptr(), r, k, w, _stream()))
+                      idx.data_ptr(), best.data_ptr(), r, k, w, stream()))
         LAUNCHES["and_popcount_argmax"] += 1
     return idx, best
 
@@ -145,7 +124,7 @@ def frame_step(rows: torch.Tensor, p: torch.Tensor, xp: torch.Tensor,
     childp), partner[k] = the surviving bit index where deg[k] == 1 (the
     Lemma-7 partner; garbage elsewhere). One pass over the (K, W) rows
     replaces the engine's child-AND, degree sweep and partner extraction."""
-    if _on_cpu(rows, p, xp, wrow):
+    if on_cpu(rows, p, xp, wrow):
         return ref.frame_step(rows, p, xp, wrow)
     lead, r, k, w = _check("frame_step", rows, p, xp, wrow)
     for v in (p, xp, wrow):
@@ -156,10 +135,10 @@ def frame_step(rows: torch.Tensor, p: torch.Tensor, xp: torch.Tensor,
     deg = torch.empty(lead + (k,), dtype=torch.int32, device=dev)
     partner = torch.empty(lead + (k,), dtype=torch.int32, device=dev)
     if r:
-        _raise_on("frame_step", build.load().bitset_frame_step(
+        raise_on("frame_step", LIBRARY.load().bitset_frame_step(
             rows.data_ptr(), p.data_ptr(), xp.data_ptr(), wrow.data_ptr(),
             childp.data_ptr(), childxp.data_ptr(), deg.data_ptr(),
-            partner.data_ptr(), r, k, w, _stream()))
+            partner.data_ptr(), r, k, w, stream()))
         LAUNCHES["frame_step"] += 1
     return childp, childxp, deg, partner
 
@@ -170,7 +149,7 @@ def clique_counts(rows: torch.Tensor, mask: torch.Tensor, in_p: torch.Tensor,
     n_dom), both int32 (...,), the in_p rows with popcount(row & mask) ==
     |mask| − 1 and the in_x rows with popcount(row & mask) == |mask|.
     rows (..., K, W), mask (..., W), in_p/in_x (..., K) bool."""
-    if _on_cpu(rows, mask, in_p, in_x):
+    if on_cpu(rows, mask, in_p, in_x):
         return ref.clique_counts(rows, mask, in_p, in_x)
     lead, r, k, w = _check("clique_counts", rows, mask, in_p, in_x)
     _check_mask("clique_counts", mask, lead, w)
@@ -181,10 +160,10 @@ def clique_counts(rows: torch.Tensor, mask: torch.Tensor, in_p: torch.Tensor,
     n_full = torch.empty(lead, dtype=torch.int32, device=rows.device)
     n_dom = torch.empty(lead, dtype=torch.int32, device=rows.device)
     if r:
-        _raise_on("clique_counts", build.load().bitset_clique_counts(
+        raise_on("clique_counts", LIBRARY.load().bitset_clique_counts(
             rows.data_ptr(), mask.data_ptr(), in_p.data_ptr(),
             in_x.data_ptr(), n_full.data_ptr(), n_dom.data_ptr(), r, k, w,
-            _stream()))
+            stream()))
         LAUNCHES["clique_counts"] += 1
     return n_full, n_dom
 
@@ -193,7 +172,7 @@ def and_popcount_many(rows: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     """out[..., m, k] = popcount(rows[..., k, :] & masks[..., m, :]) as
     int32: one row matrix (..., K, W) against a batch of masks (..., M, W)
     (the 'rcd' X-subset maximality test, with rows = P and K = 1)."""
-    if _on_cpu(rows, masks):
+    if on_cpu(rows, masks):
         return ref.and_popcount_many(rows, masks)
     lead, r, k, w = _check("and_popcount_many", rows, masks)
     if (masks.dtype != torch.int32 or masks.dim() != rows.dim()
@@ -205,9 +184,9 @@ def and_popcount_many(rows: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     m = masks.shape[-2]
     out = torch.empty(lead + (m, k), dtype=torch.int32, device=rows.device)
     if r:
-        _raise_on("and_popcount_many", build.load().bitset_and_popcount_many(
+        raise_on("and_popcount_many", LIBRARY.load().bitset_and_popcount_many(
             rows.data_ptr(), masks.data_ptr(), out.data_ptr(), r, k, m, w,
-            _stream()))
+            stream()))
         LAUNCHES["and_popcount_many"] += 1
     return out
 
@@ -244,10 +223,10 @@ def _window_walk(name: str, a, x_rows, alive0, winP, winB, winXp, winRb,
     for d in lead:
         n *= d
     if n:
-        _raise_on(name, build.load().bitset_dfs_step_window(
+        raise_on(name, LIBRARY.load().bitset_dfs_step_window(
             *(t.data_ptr() for t in (a, x_rows, alive0, winP, winB, winXp,
                                      winRb, winrsz, dloc) + outs + (ctl,)),
-            n, U, XC, T, W, steps, _stream()))
+            n, U, XC, T, W, steps, stream()))
         LAUNCHES[name] += 1
     return outs + (ctl,)
 
@@ -263,7 +242,7 @@ def dfs_step_window(a, x_rows, alive0, winP, winB, winXp, winRb, winrsz,
     on window underflow (dloc' = −1) or overflow (a branch step at the
     top slot); a root with dloc < 0 is a no-op. See
     ref.dfs_step_window_lanes for the full contract."""
-    if _on_cpu(a, x_rows, alive0, winP, winB, winXp, winRb, winrsz, dloc):
+    if on_cpu(a, x_rows, alive0, winP, winB, winXp, winRb, winrsz, dloc):
         return ref.dfs_step_window(a, x_rows, alive0, winP, winB, winXp,
                                    winRb, winrsz, dloc, steps)
     return _window_walk("dfs_step_window", a, x_rows, alive0, winP, winB,
@@ -277,7 +256,7 @@ def dfs_step_window_lanes(a, x_rows, alive0, winP, winB, winXp, winRb,
     (L, T, W), dloc (L,), ctl (L, 8)."""
     if winP.dim() != 3:
         raise ValueError("dfs_step_window_lanes: windows must be (L, T, W)")
-    if _on_cpu(a, x_rows, alive0, winP, winB, winXp, winRb, winrsz, dloc):
+    if on_cpu(a, x_rows, alive0, winP, winB, winXp, winRb, winrsz, dloc):
         return ref.dfs_step_window_lanes(a, x_rows, alive0, winP, winB,
                                          winXp, winRb, winrsz, dloc, steps)
     return _window_walk("dfs_step_window_lanes", a, x_rows, alive0, winP,

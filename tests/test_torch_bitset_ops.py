@@ -17,6 +17,7 @@ import torch
 
 from repro.kernels.bitset_ops import kernel as jkernel
 from repro.kernels.bitset_ops import ref as jref
+from repro_torch.kernels import _build
 from repro_torch.kernels.bitset_ops import build, ops, ref, words
 
 pytest_plugins = ["torch_jax_executables"]
@@ -135,7 +136,7 @@ def test_frame_step_partner_is_the_single_bit():
 def test_cpu_dispatch_takes_the_plain_version_without_counting():
     rows, mask = _t(_words((2, 40, 2), 1)), _t(_words((2, 2), 2))
     valid = torch.ones(2, 40, dtype=torch.bool)
-    ops.reset_launches()
+    ops.LAUNCHES.reset()
     assert torch.equal(ops.and_popcount_rows(rows, mask),
                        ref.and_popcount_rows(rows, mask))
     for g, w in zip(ops.and_popcount_argmax(rows, mask, valid),
@@ -169,11 +170,11 @@ def test_dispatch_refuses_other_devices():
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
-    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
-    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build.LIBRARY, "build_dir", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        build.build()
+        build.LIBRARY.build()
     assert not list((tmp_path / "build").glob("*"))
 
 

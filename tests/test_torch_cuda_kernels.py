@@ -1,5 +1,9 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
-and the engines on the card against the same runs on the CPU.
+and the engines on the card against the same runs on the CPU. The
+substrate kernels (common_neighbor, embedding_bag, dense_spmm,
+flash_attention) are held against their plain versions at the reference
+tests' edge shapes and a few more (D past one staged tile, L past one
+warp, N > 32, Sq != Sk, bfloat16).
 
 Every test here needs a CUDA device and nvcc (the kernels have no CPU
 mode); without a card they skip. The file imports neither JAX nor the
@@ -13,7 +17,16 @@ import torch
 
 from repro_torch.core.engine import run
 from repro_torch.graph import generators as gen
+from repro_torch.core.global_reduction import _triangle_edge_mask
 from repro_torch.kernels.bitset_ops import ops, ref
+from repro_torch.kernels.common_neighbor import ops as cn_ops
+from repro_torch.kernels.common_neighbor import ref as cn_ref
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.embedding_bag import ref as eb_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.segment_spmm import ops as sp_ops
+from repro_torch.kernels.segment_spmm import ref as sp_ref
 from torch_census_inputs import census_inputs
 
 pytestmark = pytest.mark.cuda
@@ -93,7 +106,7 @@ def test_cuda_backend_run_matches_cpu_run(cuda_device, backend, engine):
     g = gen.caveman(12, 7, 0.2, seed=3)
     kw = dict(backend=backend, engine=engine, enumerate_cliques=True,
               bucket_sizes=(32, 64), lanes=8)
-    ops.reset_launches()
+    ops.LAUNCHES.reset()
     on_card = run(g, device=cuda_device, **kw)
     launched = dict(ops.LAUNCHES)
     on_cpu = run(g, device="cpu", **kw)
@@ -187,3 +200,184 @@ def test_cuda_persistent_matches_cpu_run(cuda_device, kw):
     assert on_card.stats["steals"] > 0
     if kw.get("enumerate_cliques"):
         assert set(on_card.enumerated) == set(on_cpu.enumerated)
+
+
+# --------------------------------------------------------------------------
+# substrate kernels
+# --------------------------------------------------------------------------
+
+# (E, D): the reference tests' shapes, then rows past one staged tile of
+# 1,024 entries (both rows long: two tiles, a hit in each or none)
+CN_SHAPES = [(1, 4), (10, 8), (130, 16), (257, 5), (40, 1500), (9, 3000)]
+
+
+@pytest.mark.parametrize("e,d", CN_SHAPES)
+def test_cuda_common_neighbor_matches_plain_version(cuda_device, e, d):
+    """Bit-exact, with -1 anywhere in a row, values drawn from a range the
+    size of D (hits in some rows, none in others), all-padding rows and
+    long rows with no common entry."""
+    rng = np.random.default_rng(e * 31 + d)
+    au = rng.integers(-1, 4 * d, (e, d)).astype(np.int32)
+    av = rng.integers(-1, 4 * d, (e, d)).astype(np.int32)
+    au[0] = -1                                   # no real entry
+    if e > 2:
+        au[1] = np.arange(d)                     # disjoint real rows
+        av[1] = np.arange(d, 2 * d)
+        av[2, rng.random(d) < 0.5] = -1
+    au, av = (torch.from_numpy(x).to(cuda_device) for x in (au, av))
+    before = cn_ops.LAUNCHES["has_common_neighbor"]
+    got = cn_ops.has_common_neighbor(au, av)
+    assert got.dtype == torch.bool
+    assert torch.equal(got, cn_ref.has_common_neighbor(au, av))
+    torch.cuda.synchronize()
+    assert cn_ops.LAUNCHES["has_common_neighbor"] == before + 1
+
+
+@pytest.mark.parametrize("graph", ["er", "ba", "caveman"])
+def test_cuda_edge_common_neighbor_is_the_triangle_mask(cuda_device, graph):
+    g = {"er": gen.erdos_renyi(300, 0.05, seed=2),
+         "ba": gen.barabasi_albert(400, 4, seed=3),
+         "caveman": gen.caveman(20, 6, 0.1, seed=4)}[graph]
+    padded = cn_ops.pad_adjacency(g.indptr, g.indices,
+                                  int(g.degrees().max()))
+    got = cn_ops.edge_common_neighbor(
+        torch.from_numpy(padded).to(cuda_device),
+        torch.from_numpy(g.edges()).to(cuda_device))
+    assert np.array_equal(got.cpu().numpy(), _triangle_edge_mask(g))
+
+
+# (V, D, B, L): the reference tests' shapes, its vocab-tile case, D off the
+# 16-byte load, D wider than one warp's loads, bags longer than 32
+EB_SHAPES = [(64, 8, 16, 4), (512, 32, 100, 8), (1000, 16, 33, 12),
+             (2048, 64, 256, 1), (500, 16, 64, 6), (300, 13, 40, 40),
+             (100, 200, 7, 70)]
+
+
+@pytest.mark.parametrize("v,d,b,l", EB_SHAPES)
+def test_cuda_embedding_bag_matches_plain_version(cuda_device, v, d, b, l):
+    """rtol = atol = 1e-5: sums of at most L float32 terms in another
+    order. ids past the vocabulary read its last row, as the plain
+    version does."""
+    rng = np.random.default_rng(v + d + b + l)
+    table = torch.from_numpy(
+        rng.normal(size=(v, d)).astype(np.float32)).to(cuda_device)
+    ids = np.where(rng.random((b, l)) < 0.8, rng.integers(0, v, (b, l)),
+                   -1).astype(np.int32)
+    ids[0, 0] = v                                # out of contract
+    ids[-1, -1] = np.iinfo(np.int32).max
+    ids[-1, 0] = -7                              # padding other than -1
+    ids = torch.from_numpy(ids).to(cuda_device)
+    before = eb_ops.LAUNCHES["embedding_bag_sum"]
+    for combiner in ("sum", "mean"):
+        got = eb_ops.embedding_bag(table, ids, combiner)
+        want = eb_ref.embedding_bag(table, ids, combiner)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    assert eb_ops.LAUNCHES["embedding_bag_sum"] == before + 2
+
+
+@pytest.fixture
+def full_fp32_matmul():
+    """The plain versions' einsum in full float32 (no TF32), as stated."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+# (B, N, F): the reference tests' shapes, then N past one 32-row tile
+SPMM_SHAPES = [(1, 8, 4), (8, 30, 16), (17, 12, 32), (3, 70, 40),
+               (2, 100, 130), (128, 30, 128)]
+
+
+@pytest.mark.parametrize("b,n,f", SPMM_SHAPES)
+def test_cuda_dense_spmm_matches_plain_version(cuda_device, full_fp32_matmul,
+                                               b, n, f):
+    """rtol = atol = 1e-5: sums of N float32 products in another order."""
+    rng = np.random.default_rng(b * n + f)
+    adj = torch.from_numpy(
+        (rng.random((b, n, n)) < 0.3).astype(np.float32)).to(cuda_device)
+    x = torch.from_numpy(
+        rng.normal(size=(b, n, f)).astype(np.float32)).to(cuda_device)
+    before = sp_ops.LAUNCHES["dense_spmm"]
+    torch.testing.assert_close(sp_ops.dense_spmm(adj, x),
+                               sp_ref.dense_spmm(adj, x),
+                               rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    assert sp_ops.LAUNCHES["dense_spmm"] == before + 1
+
+
+def test_cuda_densify_edges_matches_cpu(cuda_device):
+    rng = np.random.default_rng(5)
+    n_graphs, npg, per = 6, 9, 20
+    gid = np.repeat(np.arange(n_graphs), per)
+    src = gid * npg + rng.integers(0, npg, gid.size)
+    dst = gid * npg + rng.integers(0, npg, gid.size)
+    w = rng.random(gid.size).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (src, dst)]
+    cpu = sp_ops.densify_edges(*args, n_graphs * npg, torch.from_numpy(gid),
+                               n_graphs, npg, torch.from_numpy(w))
+    card = sp_ops.densify_edges(*(a.to(cuda_device) for a in args),
+                                n_graphs * npg,
+                                torch.from_numpy(gid).to(cuda_device),
+                                n_graphs, npg,
+                                torch.from_numpy(w).to(cuda_device))
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-6, atol=1e-6)
+
+
+# (BH, Sq, Sk, D, causal): the reference tests' shapes, then causal with
+# Sq != Sk both ways, D = 200 (the 256-column accumulator, D not a power of
+# two) and D = 256
+FA_SHAPES = [(2, 128, 128, 64, True), (3, 100, 100, 32, True),
+             (1, 256, 256, 128, False), (4, 64, 192, 64, False),
+             (2, 33, 70, 16, False), (2, 33, 70, 16, True),
+             (2, 150, 40, 48, True), (1, 90, 90, 200, True),
+             (1, 64, 100, 256, False)]
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal", FA_SHAPES)
+def test_cuda_flash_attention_matches_plain_version(
+        cuda_device, full_fp32_matmul, bh, sq, sk, d, causal):
+    """float32: rtol = atol = 2e-5, as the reference's kernel test."""
+    rng = np.random.default_rng(bh * sq + d)
+    q, k, v = (torch.from_numpy(rng.normal(size=(bh, s, d)).astype(
+        np.float32)).to(cuda_device) for s in (sq, sk, sk))
+    before = fa_ops.LAUNCHES["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(got, fa_ref.flash_attention(q, k, v,
+                                                           causal=causal),
+                               rtol=2e-5, atol=2e-5)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_bf16(cuda_device, full_fp32_matmul, causal):
+    """bfloat16 in and out, float32 inside on both sides: they differ by
+    the output's rounding (one bf16 ulp) and summation order, so rtol
+    1e-2 and atol 1e-3 (the typical late-row output is about 0.1 here),
+    and a relative norm under 1e-2 over the whole output."""
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 300, 128))).to(
+        cuda_device, torch.bfloat16) for _ in range(3))
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16
+    want = fa_ref.flash_attention(q, k, v, causal=causal).float()
+    torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-3)
+    assert float((got.float() - want).norm() / want.norm()) < 1e-2
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_cuda_mha_layout(cuda_device, full_fp32_matmul, b):
+    """(B, S, H, D) in and out; B = 1 included (a strided view to copy)."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, 64, 4, 32)).astype(
+        np.float32)).to(cuda_device) for _ in range(3))
+    out = fa_ops.mha(q, k, v, causal=True)
+    assert out.shape == (b, 64, 4, 32)
+    want = fa_ref.flash_attention(
+        q.transpose(1, 2).reshape(4 * b, 64, 32),
+        k.transpose(1, 2).reshape(4 * b, 64, 32),
+        v.transpose(1, 2).reshape(4 * b, 64, 32)).reshape(b, 4, 64, 32)
+    torch.testing.assert_close(out, want.transpose(1, 2), rtol=2e-5,
+                               atol=2e-5)

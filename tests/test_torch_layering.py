@@ -3,8 +3,12 @@
 * `repro_torch` and chip_smoke.py import neither JAX nor the reference
   package `repro` — checked on the source and in a fresh interpreter that
   runs the engine on the CPU;
-* the engine reaches the kernels only through `kernels.bitset_ops.ops`
-  (no module outside the kernel package imports `ref` or `build`);
+* every kernel package is reached only through its `ops` (no module
+  outside a kernel package imports its `ref`, `build` or `words`, and only
+  the kernel packages import the build helper `kernels._build`);
+* importing the kernel packages builds and loads nothing; every kernel
+  library refuses to build without nvcc; every CUDA source names the TPU
+  kernel it replaces, its bound and its C entry points;
 * with no CUDA device, `run(g)` raises instead of falling back, and
   chip_smoke.py exits non-zero without printing a result — also from a
   directory that holds chip_smoke.py alone.
@@ -22,7 +26,22 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-KERNEL_PKG = PKG / "kernels" / "bitset_ops"
+KERNELS = PKG / "kernels"
+# kernel package -> (its private modules, the reference kernel it ports
+# and that kernel's file:line)
+KERNEL_PACKAGES = {
+    "bitset_ops": ("ref", "build", "words"),
+    "common_neighbor": ("ref",),
+    "embedding_bag": ("ref",),
+    "segment_spmm": ("ref",),
+    "flash_attention": ("ref",),
+}
+PORTED = {
+    "common_neighbor": ("has_common_neighbor", 30),
+    "embedding_bag": ("embedding_bag_sum", 47),
+    "segment_spmm": ("dense_spmm", 32),
+    "flash_attention": ("flash_attention", 82),
+}
 
 
 def _imports(path: Path):
@@ -49,18 +68,92 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 
 def test_kernels_reached_only_through_ops():
-    """R1 of the reference's layering, for the port: `ref` and `build` are
-    private to the kernel package."""
+    """R1 of the reference's layering, for the port: a kernel package's
+    `ref` (and `build`, `words`) are private to it, and the build helper
+    to the kernel packages."""
     bad = []
     for p in PKG.rglob("*.py"):
-        if KERNEL_PKG in p.parents:
-            continue
         for ln, mod in _imports(p):
-            if mod in ("repro_torch.kernels.bitset_ops.ref",
-                       "repro_torch.kernels.bitset_ops.build",
-                       "repro_torch.kernels.bitset_ops.words"):
+            parts = mod.split(".")
+            if parts[:2] != ["repro_torch", "kernels"] or len(parts) < 3:
+                continue
+            if parts[2] == "_build":
+                if KERNELS not in p.parents:
+                    bad.append((str(p.relative_to(ROOT)), ln, mod))
+            elif len(parts) > 3 and parts[3] in KERNEL_PACKAGES.get(
+                    parts[2], ()) and KERNELS / parts[2] not in p.parents:
                 bad.append((str(p.relative_to(ROOT)), ln, mod))
     assert not bad
+
+
+def _libraries():
+    """Each kernel package on disk (a folder with an `ops.py`) -> the
+    library its `ops` launches."""
+    import importlib
+    return {p.name: importlib.import_module(
+        f"repro_torch.kernels.{p.name}.ops").LIBRARY
+        for p in sorted(KERNELS.iterdir()) if (p / "ops.py").exists()}
+
+
+def test_every_kernel_package_has_its_library():
+    assert sorted(_libraries()) == sorted(KERNEL_PACKAGES)
+    for name, lib in _libraries().items():
+        assert lib.source == KERNELS / name / "csrc" / f"{name}.cu"
+        assert lib.source.exists()
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_PACKAGES))
+def test_build_without_nvcc_raises(monkeypatch, tmp_path, name):
+    from repro_torch.kernels import _build
+    lib = _libraries()[name]
+    monkeypatch.setattr(_build.shutil, "which", lambda exe: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setattr(lib, "build_dir", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        lib.load()
+    assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_kernel_source_note_and_entry_points(name):
+    """Each CUDA source names the TPU kernel it replaces (file:line), what
+    bounds it on the H100, and defines every C entry point its wrapper
+    declares, each returning the launch's error."""
+    fn, line = PORTED[name]
+    lib = _libraries()[name]
+    src = lib.source.read_text()
+    assert f"repro/kernels/{name}/kernel.py::{fn}" in src
+    assert f"src/repro/kernels/{name}/kernel.py:{line}" in src
+    assert "Bound on an H100" in src and "Design:" in src
+    for entry in lib.signatures:
+        assert f"int {entry}(" in src
+    assert "cudaGetLastError()" in src
+
+
+def test_importing_the_kernels_builds_nothing():
+    """No nvcc and no library load at import (after torch's own, which
+    loads its libraries with ctypes): the CPU tests import every module."""
+    code = """
+import ctypes, json, subprocess
+import numpy, torch
+def refuse(*a, **k):
+    raise SystemExit("built or loaded at import")
+subprocess.run = subprocess.Popen = ctypes.CDLL = refuse
+import repro_torch.kernels as kernels
+from repro_torch.kernels import _build
+names = ["bitset_ops", "common_neighbor", "segment_spmm", "embedding_bag",
+         "flash_attention"]
+libs = [getattr(kernels, n).LIBRARY for n in names]
+print(json.dumps(dict(loaded=[l._lib is not None for l in libs],
+                      built=[l.build_seconds is not None for l in libs],
+                      exported=[hasattr(getattr(kernels, n), "LAUNCHES")
+                                for n in names])))
+"""
+    proc = _run_py(code)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == dict(loaded=[False] * 5, built=[False] * 5,
+                       exported=[True] * 5)
 
 
 def _run_py(code: str, cwd=ROOT, timeout=300):
