@@ -10,7 +10,7 @@ It builds the Hopper kernels of every kernel package from
 together) and then, printing one JSON line per phase:
 
 1. device: the card, its software versions and power limit, and each
-   library's build (nvcc seconds, registers and spills per kernel);
+   library's build (nvcc seconds);
 2. kernels: each bitset CUDA kernel held bit-exact against its plain
    PyTorch version on the same CUDA tensors, at edge shapes and at the
    shapes of the Graph500 scale-12 buckets (the hybrid census over A
@@ -24,7 +24,12 @@ together) and then, printing one JSON line per phase:
    each entry point (`edge_common_neighbor`, `embedding_bag`,
    `densify_edges` + `dense_spmm`, `mha`) driven once with its launch
    count read, and the scale-12 triangle test against the host Lemma-4
-   mask; with CUDA-event times beside the bound and one PyTorch call;
+   mask; with CUDA-event times beside the bound and one PyTorch call.
+   Attention in bf16 at D = 64/128 takes the tensor-core kernel (`mha`
+   at train_4k must launch it), bf16 at any other D and float32 the
+   CUDA-core kernel; at train_4k the CUDA-core kernel is held to the
+   plain version and timed beside it, and SDPA is held to the plain
+   version as information;
 3. small graphs: `run(g)` on the card with enumeration for the 'pivot',
    'hybrid' and 'rcd' backends, against the port's oracles (exact clique
    sets) and the reference's pivot and hybrid counters;
@@ -578,6 +583,18 @@ def bound(nbytes, nops, ops_per_s=OPS_PER_S):
                                        else "operations")
 
 
+def close(got, want, rtol, atol):
+    """(max error, relative norm, within): |got - want| <= atol + rtol *
+    |want| everywhere and ||got - want|| <= rtol * ||want|| over the whole
+    output."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    rel = float(diff.norm() / w.norm()) if float(w.norm()) else 0.0
+    return err, rel, bool((diff <= atol + rtol * w.abs()).all()) \
+        and rel <= rtol
+
+
 def substrate_compare(name, call, args, rtol, atol, shape, cost=None,
                       library=None, plain_reps=(21, 10)):
     """Kernel (`call(ops, *args)`) against its plain version (`call(ref,
@@ -599,14 +616,11 @@ def substrate_compare(name, call, args, rtol, atol, shape, cost=None,
         check(err == 0, f"{name} differs from its plain version on {err} "
               f"rows at {shape}")
     else:
-        g, w = got.float(), want.float()
-        check(bool(torch.isfinite(g).all()), f"{name}: non-finite at {shape}")
-        diff = (g - w).abs()
-        err = float(diff.max()) if diff.numel() else 0.0
-        rel = float(diff.norm() / w.norm()) if float(w.norm()) else 0.0
-        check(bool((diff <= atol + rtol * w.abs()).all()) and rel <= rtol,
-              f"{name} differs from its plain version by {err} (relative "
-              f"norm {rel}) at {shape} (rtol {rtol}, atol {atol})")
+        check(bool(torch.isfinite(got).all()),
+              f"{name}: non-finite at {shape}")
+        err, rel, ok = close(got, want, rtol, atol)
+        check(ok, f"{name} differs from its plain version by {err} "
+              f"(relative norm {rel}) at {shape} (rtol {rtol}, atol {atol})")
     out = dict(phase="substrate_kernels", name=name, shape=list(shape),
                max_abs_err=err, rtol=rtol, atol=atol)
     if got.dtype != torch.bool:
@@ -804,14 +818,21 @@ BF16_RTOL, BF16_ATOL = 1e-2, 1e-3
 
 def flash_attention_cases(dev):
     """The reference test's (BH, Sq, Sk, D, causal) shapes in float32,
-    causal with Sq != Sk, bfloat16, then qwen3-14b's attention at
+    causal with Sq != Sk, bfloat16 at D = 64 (the tensor-core kernel) and
+    at D = 48, 96 and 200 (the CUDA-core kernel's three bf16 versions),
+    each checked for the kernel it took, then qwen3-14b's attention at
     `train_4k` (40 query heads over 8 kv heads expanded in `repeat_kv`'s
     order, D = 128, S = 4,096, batch 1, bfloat16, causal) through `mha` as
-    a user calls it."""
+    a user calls it, which must take the tensor-core kernel. There the
+    CUDA-core kernel, launched through the library at the same shape, is
+    held to the plain version under the bf16 check and timed, and SDPA is
+    held to the plain version under the same check, as information."""
+    import math
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels._build import stream
+    from repro_torch.kernels.flash_attention import ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False
 
     def call(causal):
@@ -826,7 +847,10 @@ def flash_attention_cases(dev):
             (2, 33, 70, 16, False, np.float32),
             (2, 33, 70, 16, True, np.float32),
             (2, 150, 40, 48, True, np.float32),
-            (2, 128, 128, 64, True, "bf16")]:
+            (2, 128, 128, 64, True, "bf16"),
+            (2, 150, 40, 48, True, "bf16"),
+            (2, 100, 100, 96, True, "bf16"),
+            (1, 90, 90, 200, True, "bf16")]:
         rng = np.random.default_rng(bh * sq + d)
         qkv = [torch.from_numpy(rng.normal(size=(bh, s, d)).astype(
             np.float32)).to(dev) for s in (sq, sk, sk)]
@@ -834,9 +858,14 @@ def flash_attention_cases(dev):
         if dtype == "bf16":
             qkv = [t.to(torch.bfloat16) for t in qkv]
             rtol, atol = BF16_RTOL, BF16_ATOL
+        before = ops.LAUNCHES["flash_attention_wgmma"]
         lines.append(substrate_compare(
             "flash_attention", call(causal), qkv, rtol, atol,
             (bh, sq, sk, d, causal, str(qkv[0].dtype))))
+        check(ops.LAUNCHES["flash_attention_wgmma"] - before
+              == int(dtype == "bf16" and d in (64, 128)),
+              f"flash_attention at {(bh, sq, sk, d, dtype)} took the wrong "
+              f"kernel")
     b, s, h, kv, d = 1, 4096, 40, 8, 128
     gen = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16)
@@ -846,22 +875,57 @@ def flash_attention_cases(dev):
             for _ in range(2))
     out, launches = drive_entry("flash_attention",
                                 lambda: ops.mha(q, k, v, causal=True))
+    wgmma_launches = ops.LAUNCHES["flash_attention_wgmma"]
+    check(wgmma_launches == launches,
+          "mha at train_4k did not take the tensor-core kernel")
     check(out.shape == (b, s, h, d) and bool(torch.isfinite(out).all()),
           "mha: bad output")
     qf, kf, vf = (t.transpose(1, 2).reshape(b * h, s, d).contiguous()
                   for t in (q, k, v))
     pairs = s * (s + 1) // 2                      # top-left causal pairs
     qh, kh, vh = (t.view(b, h, s, d) for t in (qf, kf, vf))
+    shape = [b * h, s, s, d, True, "torch.bfloat16"]
+    lib, core_out = ops.LIBRARY.load(), torch.empty_like(qf)
+
+    def cuda_cores():
+        err = lib.flash_attention_fwd(
+            qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), core_out.data_ptr(),
+            b * h, s, s, d, 1.0 / math.sqrt(d), 1, 1, stream())
+        check(err == 0, f"the CUDA-core kernel's launch failed ({err})")
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    want = ref.flash_attention(qf, kf, vf, causal=True)
+    cuda_cores()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(core_out).all()),
+          f"the CUDA-core kernel: non-finite at {shape}")
+    err, rel, ok = close(core_out, want, BF16_RTOL, BF16_ATOL)
+    check(ok, f"the CUDA-core kernel differs from the plain version by "
+          f"{err} (relative norm {rel}) at {shape}")
+    core = dict(phase="substrate_kernels", name="flash_attention",
+                kernel="CUDA-core (flash_attention_fwd)", shape=shape,
+                max_abs_err=err, rel_norm_err=rel, rtol=BF16_RTOL,
+                atol=BF16_ATOL)
+    err, rel, ok = close(sdpa().view(b * h, s, d), want, BF16_RTOL,
+                         BF16_ATOL)
+    emit(dict(phase="substrate_kernels", check="sdpa_vs_plain", shape=shape,
+              max_abs_err=err, rel_norm_err=rel, within_bf16_check=ok))
+    del want
     line = substrate_compare(
         "flash_attention", call(True), (qf, kf, vf), BF16_RTOL, BF16_ATOL,
-        (b * h, s, s, d, True, "torch.bfloat16"),
+        tuple(shape),
         cost=(4 * b * h * s * d * 2, 4 * b * h * pairs * d, BF16_OPS_PER_S),
-        library=lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                       is_causal=True),
-        plain_reps=(3, 2))
-    line.update(launches=launches, model="qwen3-14b", cell="train_4k")
+        library=sdpa, plain_reps=(3, 2))
+    core["ms"] = cuda_ms(cuda_cores, 5, 3)[0]
+    torch.cuda.synchronize()
+    emit(core)
+    line.update(launches=launches, wgmma_launches=wgmma_launches,
+                earlier_ms=core["ms"], earlier="CUDA-core kernel",
+                half_bound_reached=line["ms"] <= 2 * line["bound_ms"],
+                model="qwen3-14b", cell="train_4k")
     lines.append(line)
-    del q, k, v, qf, kf, vf, qh, kh, vh, out
+    del q, k, v, qf, kf, vf, qh, kh, vh, out, core_out
     torch.cuda.empty_cache()
     return lines
 
@@ -1217,7 +1281,9 @@ def main() -> int:
             max_abs_err=max(ln["max_abs_err"] for ln in substrate[name]),
             ms=line["ms"], plain_ms=line["plain_ms"],
             bound_ms=line["bound_ms"], bound_by=line["bound_by"],
-            library_ms=line["library_ms"], shape=line["shape"]))
+            library_ms=line["library_ms"], shape=line["shape"],
+            **({"earlier_ms": line["earlier_ms"]} if "earlier_ms" in line
+               else {})))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start,
               path_launches=paths,
               note="library_ms is null for the bitset kernels and "

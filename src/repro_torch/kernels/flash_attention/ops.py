@@ -1,10 +1,13 @@
 """Dispatching wrapper for flash attention.
 
 Dispatch is by the device of the tensors handed in, and by nothing else:
-a CPU tensor takes the plain version in `ref`; a CUDA tensor launches the
-hand-written Hopper kernel `csrc/flash_attention.cu` (built at first use by
-the port's build helper) or raises. `LAUNCHES["flash_attention"]` counts
-the kernel's launches.
+a CPU tensor takes the plain version in `ref`; a CUDA tensor launches one of
+the two hand-written Hopper kernels of `csrc/flash_attention.cu` (built at
+first use by the port's build helper) or raises. `takes_tensor_cores`
+picks the kernel: bfloat16 at D = 64 or 128 takes the bf16 `wgmma` kernel
+fed by TMA, everything else the float32 CUDA-core kernel; neither falls
+back to the other. `LAUNCHES["flash_attention"]` counts every launch,
+`LAUNCHES["flash_attention_wgmma"]` those of the tensor-core kernel.
 
 `mha` adapts the (B, S, H, D) layout of the models to the kernel's
 flattened (B*H, S, D) layout; GQA expansion happens before the call (the
@@ -26,12 +29,23 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 LIBRARY = CudaLibrary(SOURCE, {
-    "flash_attention_fwd": [_p, _p, _p, _p, _ll, _i, _i, _i, _f, _i, _i, _p]})
-LAUNCHES = Launches({"flash_attention": 0})
-# Head widths the kernel takes: its accumulator is sized at compile time
-# (64, 128 or 256 columns); the repo's configurations use at most 128.
+    "flash_attention_fwd": [_p, _p, _p, _p, _ll, _i, _i, _i, _f, _i, _i, _p],
+    "flash_attention_fwd_sm90": [_p, _p, _p, _p, _ll, _i, _i, _i, _f, _i,
+                                 _p]})
+LAUNCHES = Launches({"flash_attention": 0, "flash_attention_wgmma": 0})
+# Head widths the CUDA-core kernel takes: its accumulator is sized at
+# compile time (64, 128 or 256 columns); the repo's configurations use 128.
 MAX_HEAD_DIM = 256
+# Head widths of the tensor-core kernel (one or two 64-column TMA boxes).
+TENSOR_CORE_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def takes_tensor_cores(dtype: torch.dtype, d: int) -> bool:
+    """Whether a CUDA call takes the bf16 tensor-core kernel: bfloat16 at
+    D = 64 or 128. float32 stays on the CUDA cores (its 2e-5 checks are
+    beyond TF32), as does bfloat16 at any other D."""
+    return dtype == torch.bfloat16 and d in TENSOR_CORE_HEAD_DIMS
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -59,12 +73,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sk == 0:
         raise ValueError("flash_attention: no keys")
     out = torch.empty_like(q)
-    if bh and sq:
+    if not (bh and sq):
+        return out
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
+            sk, d, 1.0 / math.sqrt(d), int(causal))
+    if takes_tensor_cores(q.dtype, d):
+        raise_on("flash_attention",
+                 LIBRARY.load().flash_attention_fwd_sm90(*args, stream()))
+        LAUNCHES["flash_attention_wgmma"] += 1
+    else:
         raise_on("flash_attention", LIBRARY.load().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-            sk, d, 1.0 / math.sqrt(d), int(causal), _DTYPES[q.dtype],
-            stream()))
-        LAUNCHES["flash_attention"] += 1
+            *args, _DTYPES[q.dtype], stream()))
+    LAUNCHES["flash_attention"] += 1
     return out
 
 

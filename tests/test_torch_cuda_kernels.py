@@ -3,7 +3,8 @@ and the engines on the card against the same runs on the CPU. The
 substrate kernels (common_neighbor, embedding_bag, dense_spmm,
 flash_attention) are held against their plain versions at the reference
 tests' edge shapes and a few more (D past one staged tile, L past one
-warp, N > 32, Sq != Sk, bfloat16).
+warp, N > 32, Sq != Sk, bfloat16), and flash_attention's tensor-core
+kernel at D = 64 and 128 from one row to several ragged tiles.
 
 Every test here needs a CUDA device and nvcc (the kernels have no CPU
 mode); without a card they skip. The file imports neither JAX nor the
@@ -365,6 +366,68 @@ def test_cuda_flash_attention_bf16(cuda_device, full_fp32_matmul, causal):
     want = fa_ref.flash_attention(q, k, v, causal=causal).float()
     torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-3)
     assert float((got.float() - want).norm() / want.norm()) < 1e-2
+
+
+# (Sq, Sk) of the tensor-core kernel: one row, one consumer's 64 rows,
+# either side of one 128-row tile, several tiles with a ragged end, then
+# top-left causal masking with Sq != Sk both ways
+WGMMA_SEQS = [(1, 1), (64, 64), (127, 127), (128, 128), (129, 129),
+              (300, 300), (1000, 1000), (150, 40), (64, 192)]
+
+
+@pytest.mark.parametrize("bh", [1, 40])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk", WGMMA_SEQS)
+def test_cuda_flash_attention_tensor_cores(cuda_device, full_fp32_matmul, sq,
+                                           sk, d, causal, bh):
+    """bfloat16 at D = 64 and 128 takes the wgmma kernel, held to the plain
+    version as the bf16 case above: rtol 1e-2, atol 1e-3 elementwise and a
+    relative norm under 1e-2."""
+    rng = np.random.default_rng(sq * 7 + sk + d + bh)
+    q, k, v = (torch.from_numpy(rng.normal(size=(bh, s, d))).to(
+        cuda_device, torch.bfloat16) for s in (sq, sk, sk))
+    before = dict(fa_ops.LAUNCHES)
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"] + 1
+    assert fa_ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (bh, sq, d)
+    want = fa_ref.flash_attention(q, k, v, causal=causal).float()
+    torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-3)
+    assert float((got.float() - want).norm() / want.norm()) < 1e-2
+
+
+# every version of the CUDA-core kernel reached on the card: bfloat16 at
+# D = 48, 96 and 200 (its 64-, 128- and 256-column accumulators; D off the
+# tensor-core list) and float32 at D = 128
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 48),
+                                     (torch.bfloat16, 96),
+                                     (torch.bfloat16, 200),
+                                     (torch.float32, 128)])
+def test_cuda_flash_attention_cuda_cores(cuda_device, full_fp32_matmul,
+                                         dtype, d):
+    """bfloat16 at D = 48, 96, 200 and float32 at D = 128 take the CUDA-core
+    kernel (the tensor-core count stays where it was), held to the plain
+    version: float32 at 2e-5, bfloat16 at rtol 1e-2, atol 1e-3 and a
+    relative norm under 1e-2."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 130, d))).to(
+        cuda_device, dtype) for _ in range(3))
+    before = dict(fa_ops.LAUNCHES)
+    got = fa_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"]
+    assert fa_ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert got.dtype == dtype and got.shape == (2, 130, d)
+    want = fa_ref.flash_attention(q, k, v, causal=True).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-3)
+        assert float((got.float() - want).norm() / want.norm()) < 1e-2
 
 
 @pytest.mark.parametrize("b", [1, 2])

@@ -107,7 +107,22 @@ def test_cpu_dispatch_takes_the_plain_version_without_counting():
     for causal in (True, False):
         assert torch.equal(ops.flash_attention(q, k, v, causal=causal),
                            ref.flash_attention(q, k, v, causal=causal))
-    assert ops.LAUNCHES == {"flash_attention": 0}
+    assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_wgmma": 0}
+
+
+@pytest.mark.parametrize("dtype,d,tensor_cores", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 16, False), (torch.bfloat16, 32, False),
+    (torch.bfloat16, 48, False), (torch.bfloat16, 96, False),
+    (torch.bfloat16, 200, False), (torch.bfloat16, 256, False),
+    (torch.float32, 16, False), (torch.float32, 48, False),
+    (torch.float32, 64, False), (torch.float32, 128, False),
+    (torch.float32, 200, False), (torch.float32, 256, False),
+    (torch.float16, 128, False)])
+def test_routing_between_the_two_kernels(dtype, d, tensor_cores):
+    """bfloat16 at D = 64 or 128 takes the tensor-core kernel; float32
+    (held to 2e-5, beyond TF32) and every other D the CUDA-core kernel."""
+    assert ops.takes_tensor_cores(dtype, d) is tensor_cores
 
 
 def test_dispatch_refuses_other_devices():

@@ -1,6 +1,6 @@
 """PyTorch port, layering: it stands alone and has one kernel choke point.
 
-* `repro_torch` and chip_smoke.py import neither JAX nor the reference
+* `repro_torch`, tools/ and chip_smoke.py import neither JAX nor the reference
   package `repro` — checked on the source and in a fresh interpreter that
   runs the engine on the CPU;
 * every kernel package is reached only through its `ops` (no module
@@ -57,7 +57,8 @@ def _imports(path: Path):
 
 
 def _port_sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + sorted((ROOT / "tools").glob("*.py")) \
+        + [ROOT / "chip_smoke.py"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():
