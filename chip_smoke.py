@@ -16,7 +16,10 @@ together) and then, printing one JSON line per phase:
    shapes of the Graph500 scale-12 buckets (the hybrid census over A
    stacked on the X0 rows, the rcd sweep of P against ~X0 rows stacked on
    ~A, the window walk on the windows the persistent and per-root engines
-   launch it with), with CUDA-event times;
+   launch it with), with CUDA-event times; each real-window line of the
+   window walk with its launch geometry (warps per lane G, lanes per
+   block, staged rows, pivot key) and its time at each G and at 0, 1 and
+   16 steps;
 2b. substrate_kernels: `has_common_neighbor`, `embedding_bag_sum`,
    `dense_spmm` and `flash_attention` against their plain versions at the
    reference tests' edge shapes and at full width (scale 12's edges, the
@@ -411,28 +414,54 @@ def window_cost(args, ctl):
     return nbytes, 3 * int(ctl[..., 1].sum()) * (U + 2 * XC) * W
 
 
+def lanes_of(args):
+    """(L, U, XC, T, W) of a window walk's inputs (any leading dims)."""
+    T, W = args[3].shape[-2:]
+    return (args[3].numel() // (T * W), args[0].shape[-2],
+            args[1].shape[-2], T, W)
+
+
 def compare_window(name, args, steps, timed=False):
     """Window kernel vs its plain version on the same CUDA tensors.
-    Tolerance 0: windows are bit patterns and ctl holds integers."""
+    Tolerance 0: windows are bit patterns and ctl holds integers. Timed,
+    each G in (1, 2, 4) is held to the plain version and timed too, and
+    the kernel is timed at 0 steps (a copy-through: the launch and the
+    window's bytes) and 1 step (staging and one step) beside `steps`."""
     from repro_torch.kernels.bitset_ops import ops, ref
 
     def call(impl):
         return getattr(impl, name)(*args, steps=steps)
     got = call(ops)
-    err = exact(name, got, call(ref), args[3].shape)
+    want = call(ref)
+    err = exact(name, got, want, args[3].shape)
     ctl = got[-1]
-    out = dict(name=name, shape=list(args[0].shape), xc=args[1].shape[-2],
+    L, U, XC, T, W = lanes_of(args)
+    out = dict(name=name, shape=list(args[0].shape), xc=XC,
                window=list(args[3].shape), steps=steps, max_abs_err=err,
                tolerance=0, steps_done=int(ctl[..., 5].sum()),
-               calls=int(ctl[..., 1].sum()))
+               calls=int(ctl[..., 1].sum()),
+               geometry=ops.window_geometry(
+                   L, U, XC, T, W, ops._sms(args[0].device))._asdict())
     if timed:
         nbytes, nops = window_cost(args, ctl)
         ms, call_ms = cuda_ms(lambda: call(ops))
         plain_ms, plain_call_ms = cuda_ms(lambda: call(ref), reps=5,
                                           inner=3)
+        group_ms = {}
+        for g in ops.WINDOW_GROUPS:
+            geo = ops.window_geometry(L, U, XC, T, W,
+                                      ops._sms(args[0].device), group=g)
+
+            def forced(geo=geo):
+                return ops._window_walk(name, *args, steps, geometry=geo)
+            exact(f"{name} G={g}", forced(), want, args[3].shape)
+            group_ms[g] = cuda_ms(forced)[0]
+        steps_ms = {str(k): cuda_ms(lambda k=k: getattr(ops, name)(
+            *args, steps=k))[0] for k in (0, 1)}
         out.update(
             ms=ms, plain_ms=plain_ms, call_ms=call_ms,
-            plain_call_ms=plain_call_ms,
+            plain_call_ms=plain_call_ms, group_ms=group_ms,
+            steps_ms=dict(steps_ms, **{str(steps): ms}),
             bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S, nops / OPS_PER_S),
             bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                       >= nops / OPS_PER_S else "operations"),
@@ -478,13 +507,24 @@ def window_inputs(dev, L, U, XC, W, edge, seed, T=8):
 def window_edge_cases(dev):
     """The window walk, both forms, at its edge cases: a dead lane,
     dloc = T−1 with branches left, an empty B at U = 32 (the branch
-    vertex clamps), W = 3, XC = 1, K = 1 and K = 64."""
+    vertex clamps); W = 1, 2, 3 and 4 and W = 7 (the runtime-W instance);
+    lane slices off 16 bytes (XC = 1 with W = 2, XC = 50 with W = 3: plain
+    loads); rows too large to stage (U = 256, XC = 7,000, W = 8); K = 0, 1
+    and 64; L = 1 (the single-root form); L off the lanes per block, whose
+    blocks hold lanes that stop at different steps (301 lanes, 2 a block;
+    1,663 lanes, 4 a block); XC = 2,048 (G = 4 on 64 lanes, G = 2 on
+    1,663). Every forced launch geometry is held in the card tests
+    (tests/test_torch_cuda_kernels.py)."""
     n = 0
     for i, (L, U, XC, W, edge, steps) in enumerate([
             (3, 64, 40, 2, "dead", 16), (3, 64, 40, 2, "blocked", 16),
             (3, 32, 64, 1, "empty_b", 16), (4, 96, 50, 3, "none", 16),
             (4, 64, 1, 2, "none", 16), (4, 64, 40, 2, "none", 1),
-            (4, 64, 40, 2, "none", 64)]):
+            (4, 64, 40, 2, "none", 64), (4, 128, 128, 4, "none", 16),
+            (3, 200, 70, 7, "none", 16), (2, 256, 7000, 8, "none", 16),
+            (4, 64, 40, 2, "none", 0), (301, 64, 40, 2, "blocked", 16),
+            (64, 32, 2048, 1, "empty_b", 16),
+            (1663, 32, 2048, 1, "dead", 16)]):
         args = window_inputs(dev, L, U, XC, W, edge, seed=i)
         compare_window("dfs_step_window_lanes", args, steps)
         compare_window("dfs_step_window", args, steps)
@@ -511,16 +551,16 @@ def launched_windows(name, drive):
     return seen
 
 
-def window_slice_cases(dev, prep):
-    """The window walk on each Graph500 bucket's real windows: those of
-    the launch with the most live lanes (dloc >= 0; the later on a tie)
-    among the first four trips of the fused-window persistent engine
-    (lane form) and of the windowed per-root walk (per-root form)."""
+def real_windows(dev, prep):
+    """Each Graph500 bucket's real windows, as (bucket, kernel name,
+    inputs, live lanes): those of the launch with the most live lanes
+    (dloc >= 0; the later on a tie) among the first four trips of the
+    fused-window persistent engine (lane form) and of the windowed
+    per-root walk (per-root form)."""
     from repro_torch.core.engine import frames as fr
     from repro_torch.core.engine import loop
     from repro_torch.core.engine.loop import bucket_tensors
     cfg = fr.EngineConfig(dynamic_red=False, window_steps=16, max_iters=4)
-    lines = []
     for b in prep.buckets:
         args = bucket_tensors(b.a, b.p0, b.x_rows, b.x_alive0, b.rsz0, dev)
         lanes = min(64, b.num_roots)
@@ -533,12 +573,20 @@ def window_slice_cases(dev, prep):
                                            max_iters=64)))):
             seen = launched_windows(name, drive)[:4]
             live = [int((w[-1] >= 0).sum()) for w in seen]
-            wargs = seen[max(range(len(seen)), key=lambda i: (live[i], i))]
-            line = compare_window(name, wargs, 16, timed=True)
-            line.update(phase="kernels", bucket_u=b.u_pad, bucket_xc=b.x_pad,
-                        roots=b.num_roots, live=max(live))
-            emit(line)
-            lines.append(line)
+            yield (b, name, seen[max(range(len(seen)),
+                                     key=lambda i: (live[i], i))], max(live))
+
+
+def window_slice_cases(dev, prep):
+    """The window walk on each bucket's real windows (`real_windows`).
+    Each line carries the launch geometry and the time at each G."""
+    lines = []
+    for b, name, wargs, live in real_windows(dev, prep):
+        line = compare_window(name, wargs, 16, timed=True)
+        line.update(phase="kernels", bucket_u=b.u_pad, bucket_xc=b.x_pad,
+                    roots=b.num_roots, live=live)
+        emit(line)
+        lines.append(line)
     return lines
 
 # --------------------------------------------------------------------------
@@ -1149,12 +1197,12 @@ def step_profile(dev, prep, u=64, steps=64):
               device_idle_share=1.0 - busy / plain_wall))
 
 
-def trip_profile(dev, prep, u=64, trips=64):
+def trip_profile(dev, prep, u=64, trips=64, paths=None):
     """`step_profile` for the lane and window paths on the U=64 bucket:
     the first `trips` trips of the persistent lanes (min(64, roots)
     lanes) with the default config, the 'hybrid' and 'rcd' backends and
     the fused-window config, and of the per-root window walk (cut at
-    16·trips frame-steps per root)."""
+    16·trips frame-steps per root); `paths` picks some of them."""
     from repro_torch.core.engine import frames as fr
     from repro_torch.core.engine.loop import (bucket_tensors, run_bucket,
                                               run_bucket_persistent)
@@ -1176,6 +1224,8 @@ def trip_profile(dev, prep, u=64, trips=64):
                 lanes=lanes)),
             ("perroot_window", lambda: run_bucket(
                 *args, fr.EngineConfig(max_iters=16 * trips, **win)))):
+        if paths is not None and path not in paths:
+            continue
         out, plain_wall, wall, busy, n_k = device_profile(run_once)
         n = out["iters"] if path != "perroot_window" else out["steps"]
         emit(dict(phase="trip_profile", path=path, bucket_u=u,
@@ -1270,7 +1320,10 @@ def main() -> int:
             ms=line["ms"], plain_ms=line["plain_ms"],
             bound_ms=line["bound_ms"], bound_by=line["bound_by"],
             library_ms=None, shape=line["shape"],
-            mask_shape=line.get("mask_shape")))
+            mask_shape=line.get("mask_shape"),
+            **({"geometry": line["geometry"],
+                "group_ms": line["group_ms"]} if "geometry" in line
+               else {})))
     # the substrate kernels at the full width their entry point ran at
     # (one launch per entry-point call)
     for name, (_, source, replaces) in SUBSTRATE.items():

@@ -16,6 +16,7 @@ LIBRARY = CudaLibrary(SOURCE, {
     "bitset_frame_step": [_p, _p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _p],
     "bitset_clique_counts": [_p, _p, _p, _p, _p, _p, _ll, _i, _i, _p],
     "bitset_and_popcount_many": [_p, _p, _p, _ll, _i, _i, _i, _p],
-    "bitset_dfs_step_window": [_p] * 15 + [_ll, _i, _i, _i, _i, _i, _p],
+    "bitset_dfs_step_window": [_p] * 15 + [_ll] + [_i] * 10 + [_p],
+    "bitset_window_lane_bytes": [_i] * 6,
 })
 

@@ -13,13 +13,13 @@
 // Counts accumulate in int with __popc. The TPU kernels summed popcounts
 // in float32 only because Mosaic has no integer-axis reductions.
 //
-// Bounds on an H100 SXM (3.35 TB/s HBM; the integer work of the row
+// Bounds on an H100 SXM (3.35 TB/s HBM): the integer work of the row
 // kernels, the census and the many-mask sweep is a few ALU ops per word,
-// far below the card's integer rate, so they are bound by bytes; the window
-// walk re-reads its rows every step and is bound by operations). None of
-// them is made fast yet: coalesced warp-per-row loads for W >= 4,
-// shared-memory staging of the rows and fusing the engine's per-step
-// elementwise passes are later work.
+// far below the card's integer rate, so they are bound by bytes, and at
+// the engine's shapes by the launch itself (3-5 us), which only fewer
+// launches will lower. The window walk is bound by the latency of its
+// dependent frame-steps; its design (a warp group per lane, each lane's
+// rows staged once per launch) is in the note above it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -167,33 +167,10 @@ __global__ void frame_step_kernel(const uint32_t* __restrict__ rows,
   partner[r * K + k] = part;
 }
 
+
 // ---------------------------------------------------------------------------
-// dfs_step_window: per lane, up to `steps` masked pivot-BK frame-steps over
-// a T-frame stack window (dynamic reduction off, counting only).
-//
-// Replaces repro/kernels/bitset_ops/kernel.py::dfs_step_window_lanes
-// (_dfs_step_window_lanes_kernel, :505/:613) and ::dfs_step_window
-// (_dfs_step_window_kernel, :458/:559), whose shared body is _window_walk
-// (:333); the single-root form is this launch with L = 1. It computes what
-// the plain version ref.dfs_step_window_lanes computes, step for step.
-//
-// Bound: each branching step sweeps the lane's U adjacency rows once and
-// its XC X0 rows twice (AND+popcount against childP and childRb), at most
-// K*L*(U + 2*XC)*W word operations; the bytes are the inputs read once.
-// At the engine's shapes the bytes bound is the larger one, and both are
-// below a microsecond; the kernel's time is its K dependent steps, each
-// with four block barriers. Design: one block per lane; the lane's
-// window lives in shared memory for all K steps (the point of the TPU
-// kernel: the stack does not round-trip device memory between steps);
-// A and X0 rows are read from global memory (they stay in L2); every
-// reduction is a block reduction whose result all threads read, so the
-// walk's control state (depth, done, counters) is held identically by
-// every thread and the block takes uniform branches. Counts are int
-// __popc sums; argmax ties go to the lowest index, as torch.argmax does.
-// The TPU kernel's (8, 128) scratch literals and word/row gates do not
-// apply: T and W are runtime sizes bounded only by shared memory.
+// Block reduction of the census kernel: every thread returns the result.
 // ---------------------------------------------------------------------------
-constexpr int kWinThreads = 256;
 constexpr int kBig = 1 << 30;
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -217,19 +194,8 @@ struct MinSum {
   }
 };
 
-// (a, b) and (c, d): (score, index) pairs, higher score then lower index
-// wins; e: sum
-struct PivotArgmax {
-  __device__ Acc operator()(Acc x, Acc y) const {
-    const bool yu = y.a > x.a || (y.a == x.a && y.b < x.b);
-    const bool yx = y.c > x.c || (y.c == x.c && y.d < x.d);
-    return Acc{yu ? y.a : x.a, yu ? y.b : x.b, yx ? y.c : x.c,
-               yx ? y.d : x.d, x.e + y.e};
-  }
-};
-
-// Block-wide reduction; every thread returns the result. `scratch` holds
-// 33 entries; the leading barrier keeps a previous call's readers safe.
+// `scratch` holds 33 entries; the leading barrier keeps a previous call's
+// readers safe.
 template <class Combine>
 __device__ Acc block_reduce(Acc v, Combine comb, Acc ident, Acc* scratch) {
   for (int off = 16; off > 0; off >>= 1) v = comb(v, shfl_down(v, off));
@@ -247,177 +213,6 @@ __device__ Acc block_reduce(Acc v, Combine comb, Acc ident, Acc* scratch) {
   return scratch[32];
 }
 
-__global__ void __launch_bounds__(kWinThreads)
-dfs_step_window_kernel(const uint32_t* __restrict__ a,
-                       const uint32_t* __restrict__ x_rows,
-                       const int32_t* __restrict__ alive0,
-                       const uint32_t* __restrict__ win_p,
-                       const uint32_t* __restrict__ win_b,
-                       const uint32_t* __restrict__ win_xp,
-                       const uint32_t* __restrict__ win_rb,
-                       const int32_t* __restrict__ win_rsz,
-                       const int32_t* __restrict__ dloc,
-                       uint32_t* __restrict__ out_p,
-                       uint32_t* __restrict__ out_b,
-                       uint32_t* __restrict__ out_xp,
-                       uint32_t* __restrict__ out_rb,
-                       int32_t* __restrict__ out_rsz,
-                       int32_t* __restrict__ ctl,
-                       int U, int XC, int T, int W, int steps) {
-  extern __shared__ uint32_t smem[];
-  __shared__ Acc scratch[33];
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int64_t lane = blockIdx.x;
-  const int TW = T * W;
-  uint32_t* sP = smem;
-  uint32_t* sB = sP + TW;
-  uint32_t* sXp = sB + TW;
-  uint32_t* sRb = sXp + TW;
-  uint32_t* cP = sRb + TW;
-  uint32_t* cXp = cP + W;
-  uint32_t* cRb = cXp + W;
-  int* sRsz = reinterpret_cast<int*>(cRb + W);
-
-  const uint32_t* A = a + lane * U * static_cast<int64_t>(W);
-  const uint32_t* X = x_rows + lane * XC * static_cast<int64_t>(W);
-  const int32_t* al0 = alive0 + lane * XC;
-  const int64_t wbase = lane * TW;
-  for (int i = tid; i < TW; i += nt) {
-    sP[i] = win_p[wbase + i];
-    sB[i] = win_b[wbase + i];
-    sXp[i] = win_xp[wbase + i];
-    sRb[i] = win_rb[wbase + i];
-  }
-  for (int i = tid; i < T; i += nt) sRsz[i] = win_rsz[lane * T + i];
-  __syncthreads();
-
-  int dl = dloc[lane];
-  int sdone = 0, calls = 0, spx = 0, clq = 0;
-  for (int k = 0; k < steps; ++k) {
-    const int d = min(max(dl, 0), T - 1);
-    // first set bit of the frame's branch set
-    int fb = kBig;
-    for (int i = tid; i < W; i += nt) {
-      const uint32_t bw = sB[d * W + i];
-      if (bw) fb = min(fb, 32 * i + __ffs(static_cast<int>(bw)) - 1);
-    }
-    fb = block_reduce(Acc{fb, 0, 0, 0, 0}, MinSum(),
-                      Acc{kBig, 0, 0, 0, 0}, scratch).a;
-    const bool has_branch = fb < kBig;
-    const bool blocked = has_branch && dl >= T - 1;
-    const bool act = !blocked && dl >= 0;
-    if (!act) break;  // the walk is done: no later step would act
-    ++sdone;
-    if (!has_branch) {  // pop
-      --dl;
-      continue;
-    }
-    const int w = min(fb, U - 1);
-    const int ww = w >> 5;
-    const uint32_t wbit = 1u << (w & 31);
-    const uint32_t* arow = A + static_cast<int64_t>(w) * W;
-
-    // child sets and their sizes
-    int pc_p = 0, pc_x = 0, pc_rb = 0;
-    for (int i = tid; i < W; i += nt) {
-      const uint32_t wr = arow[i];
-      const uint32_t cp = sP[d * W + i] & wr;
-      const uint32_t cx = sXp[d * W + i] & wr;
-      const uint32_t crb = sRb[d * W + i] | (i == ww ? wbit : 0u);
-      cP[i] = cp;
-      cXp[i] = cx;
-      cRb[i] = crb;
-      pc_p += __popc(cp);
-      pc_x += __popc(cx);
-      pc_rb += __popc(crb);
-    }
-    const Acc sizes = block_reduce(Acc{kBig, pc_p, pc_x, pc_rb, 0}, MinSum(),
-                                   Acc{kBig, 0, 0, 0, 0}, scratch);
-    pc_p = sizes.b;
-    pc_x = sizes.c;
-    pc_rb = sizes.d;
-
-    // pivot scores: child degrees over P ∪ X, X0 rows over the alive set
-    // (alive iff alive0 and Rb ⊆ N(x), the closed form of the frame's Rb)
-    Acc piv{-2, 0x7fffffff, -2, 0x7fffffff, 0};
-    for (int u = tid; u < U; u += nt) {
-      const uint32_t* row = A + static_cast<int64_t>(u) * W;
-      int deg = 0;
-      for (int i = 0; i < W; ++i) deg += __popc(row[i] & cP[i]);
-      const bool in_pool = ((cP[u >> 5] | cXp[u >> 5]) >> (u & 31)) & 1u;
-      const int score = in_pool ? deg : -1;
-      if (score > piv.a) {  // u increases: strict > keeps the first max
-        piv.a = score;
-        piv.b = u;
-      }
-    }
-    for (int x = tid; x < XC; x += nt) {
-      const uint32_t* row = X + static_cast<int64_t>(x) * W;
-      int pc = 0, prb = 0;
-      for (int i = 0; i < W; ++i) {
-        const uint32_t r = row[i];
-        pc += __popc(r & cP[i]);
-        prb += __popc(r & cRb[i]);
-      }
-      const bool alive = al0[x] != 0 && prb == pc_rb;
-      piv.e += alive;
-      const int score = alive ? pc : -1;
-      if (score > piv.c) {
-        piv.c = score;
-        piv.d = x;
-      }
-    }
-    piv = block_reduce(piv, PivotArgmax(),
-                       Acc{-2, 0x7fffffff, -2, 0x7fffffff, 0}, scratch);
-    const int nal = piv.e;
-
-    ++calls;
-    spx += pc_p + pc_x + nal;
-    const int crsz = sRsz[d] + 1;
-    if (pc_p == 0 && pc_x == 0 && nal == 0 && crsz >= 2) ++clq;
-    const bool push = pc_p != 0;
-    const uint32_t* prow = piv.c > piv.a
-                               ? X + static_cast<int64_t>(piv.d) * W
-                               : A + static_cast<int64_t>(piv.b) * W;
-    const int cd = min(d + 1, T - 1);
-    // current frame: P \ w, X ∪ w, B \ w; child frame at d + 1 if pushed
-    for (int i = tid; i < W; i += nt) {
-      const uint32_t m = i == ww ? wbit : 0u;
-      sP[d * W + i] &= ~m;
-      sXp[d * W + i] |= m;
-      sB[d * W + i] &= ~m;
-      if (push) {
-        sP[cd * W + i] = cP[i];
-        sB[cd * W + i] = cP[i] & ~prow[i];
-        sXp[cd * W + i] = cXp[i];
-        sRb[cd * W + i] = cRb[i];
-      }
-    }
-    if (push && tid == 0) sRsz[cd] = crsz;
-    __syncthreads();
-    if (push) ++dl;
-  }
-
-  for (int i = tid; i < TW; i += nt) {
-    out_p[wbase + i] = sP[i];
-    out_b[wbase + i] = sB[i];
-    out_xp[wbase + i] = sXp[i];
-    out_rb[wbase + i] = sRb[i];
-  }
-  for (int i = tid; i < T; i += nt) out_rsz[lane * T + i] = sRsz[i];
-  if (tid == 0) {
-    int32_t* c = ctl + lane * 8;
-    c[0] = dl;
-    c[1] = calls;
-    c[2] = calls;  // every call of the window walk is a branch
-    c[3] = spx;
-    c[4] = clq;
-    c[5] = sdone;
-    c[6] = 0;
-    c[7] = 0;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // clique_counts: per root, with pc[k] = popcount(rows[k] & mask),
@@ -512,10 +307,590 @@ and_popcount_many_kernel(const uint32_t* __restrict__ rows,
   }
 }
 
-// dynamic shared memory of one lane: the four window fields, the three
-// child sets and the T frame sizes
-inline size_t dfs_step_window_smem(int T, int W) {
-  return sizeof(uint32_t) * (4 * static_cast<size_t>(T) * W + 3 * W + T);
+// ---------------------------------------------------------------------------
+// dfs_step_window: per lane, up to `steps` masked pivot-BK frame-steps over
+// a T-frame stack window (dynamic reduction off, counting only).
+//
+// Replaces repro/kernels/bitset_ops/kernel.py::dfs_step_window_lanes
+// (_dfs_step_window_lanes_kernel, :505/:613) and ::dfs_step_window
+// (_dfs_step_window_kernel, :458/:559), whose shared body is _window_walk
+// (:333); the single-root form is this launch with L = 1. It computes what
+// the plain version ref.dfs_step_window_lanes computes, step for step.
+//
+// What bounds it: each branching step sweeps the lane's U adjacency rows
+// once and its XC X0 rows twice (AND+popcount against childP and childRb).
+// At the engine's shapes (U = 32/64/128 with XC = 2,048/512/128 and
+// W = 1/2/4, T = 8, 16 steps) those operations and the inputs' bytes each
+// take well under a microsecond on the card, so the kernel is bound by
+// latency: 16 dependent steps, each a chain of first bit, child sets, row
+// sweep, argmax and window update, behind one launch.
+//
+// Design, against that chain:
+// - A group of G warps (G = 1, 2 or 4, chosen by the wrapper from XC and L)
+//   walks one lane, and a block holds several lanes. No barrier spans the
+//   block, so lanes that stop at different steps never wait for each other.
+// - A lane's rows never change during a launch, so they are read from
+//   device memory once: its A rows (U*W words) and X0 rows (XC*W words)
+//   are staged in shared memory by 1-D bulk asynchronous copies
+//   (cp.async.bulk, completing on an mbarrier) while the group loads the
+//   window and packs alive0 to bits with warp ballots. A slice whose address
+//   or size is not a multiple of 16 bytes is loaded with plain coalesced
+//   loads instead; rows too large for the block's shared memory are read
+//   from device memory by one warp a lane (the one STAGED = false
+//   instance: runtime W, G = 1; no engine shape reaches it). A dead lane
+//   (dloc < 0), or a launch of zero steps, copies its window through and
+//   stages nothing.
+// - For W <= 4 (a template parameter) the child sets childP, childXp and
+//   childRb live in registers, every thread holding all W words; a
+//   runtime-W instance keeps them in the group's shared memory. Either
+//   way the walk's control state (depth, counters) is the same in every
+//   thread of the group, and the group's branches are uniform.
+// - The reductions are warp collectives. The pivot argmax packs
+//   (score + 1, ~index) into one 32-bit key, so one __reduce_max_sync
+//   settles the score and the lowest index on a tie (where the key would
+//   not fit, a max of the score and then a min of the index); the alive
+//   count is one __reduce_add_sync. A group of G > 1 warps combines its
+//   warps' results through shared memory behind a named barrier
+//   (bar.sync id, 32*G), which also orders its window writes; one warp
+//   needs only __syncwarp. An X0 row wins the pivot only if its score is
+//   strictly greater than the best adjacency row's, as in the reference.
+// Counts are int __popc sums.
+// ---------------------------------------------------------------------------
+constexpr int kWinMaxThreads = 256;
+constexpr long long kWinSmemMax = 232448;  // 227 KB: a block's shared memory
+// A staging copy that has not landed after 60 s traps instead of hanging
+// the card (a trap is sticky: the process's CUDA context is lost). The
+// limit is long because the global timer keeps counting while the card
+// serves other work.
+constexpr unsigned long long kWaitNs = 60ull * 1000 * 1000 * 1000;
+
+__host__ __device__ constexpr long long align16(long long n) {
+  return (n + 15) & ~15ll;
+}
+
+// Byte offsets in one lane's shared-memory region: its mbarrier, the
+// group's reduction scratch (8 ints a warp), the window (P, B, Xp, Rb, then
+// the T frame sizes), the runtime-W child sets and, when staged, alive0's
+// bits and the A and X0 rows. ops.py::window_lane_bytes mirrors it, and
+// bitset_window_lane_bytes exports it so the card tests can hold the two
+// together.
+struct WinLayout {
+  long long bar, red, win, child, alive, rows_a, rows_x, bytes;
+  __host__ __device__ WinLayout(int U, int XC, int T, int W, int G,
+                                bool staged) {
+    long long o = 0;
+    bar = o;
+    o += 16;
+    red = o;
+    o += align16(32ll * G);
+    win = o;
+    o += align16(4ll * (4ll * T * W + T));
+    child = o;
+    o += align16(12ll * W);
+    alive = rows_a = rows_x = o;
+    if (staged) {
+      alive = o;
+      o += align16(4ll * ((XC + 31ll) / 32));
+      rows_a = o;
+      o += align16(4ll * U * W);
+      rows_x = o;
+      o += align16(4ll * XC * W);
+    }
+    bytes = o;
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t globaltimer() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const uint64_t t0 = globaltimer();
+  while (!mbar_try(bar, parity)) {
+    if (globaltimer() - t0 > kWaitNs) __trap();
+  }
+}
+
+// `bytes` (a multiple of 16) from 16-byte aligned device memory into shared
+// memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Barrier of one lane's group: its warp, or its G warps (named barrier
+// group + 1; barrier 0 is __syncthreads').
+template <int G>
+__device__ __forceinline__ void group_sync(int group) {
+  if constexpr (G == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "n"(32 * G)
+                 : "memory");
+  }
+}
+
+// The child sets of a step: registers for a compile-time W, the group's
+// shared memory for the runtime-W instance (WT = 0).
+template <int WT>
+struct ChildSets {
+  uint32_t p[WT], x[WT], rb[WT];
+  // word j of childP | childXp; a select, so the arrays stay in registers
+  __device__ __forceinline__ uint32_t pool(int j) const {
+    uint32_t v = 0;
+#pragma unroll
+    for (int i = 0; i < WT; ++i) v = i == j ? p[i] | x[i] : v;
+    return v;
+  }
+};
+
+template <>
+struct ChildSets<0> {
+  uint32_t *p, *x, *rb;
+  __device__ __forceinline__ uint32_t pool(int j) const { return p[j] | x[j]; }
+};
+
+// popcount(row & childP) and, with RB, popcount(row & childRb). Staged rows
+// of 2 or 4 words are read as one 8- or 16-byte load.
+template <int WT, bool STAGED, bool RB>
+__device__ __forceinline__ void row_pops(const uint32_t* row,
+                                         const ChildSets<WT>& c, int W,
+                                         int& pp, int& prb) {
+  pp = 0;
+  prb = 0;
+  if constexpr (WT == 0) {
+    for (int i = 0; i < W; ++i) {
+      const uint32_t r = row[i];
+      pp += __popc(r & c.p[i]);
+      if constexpr (RB) prb += __popc(r & c.rb[i]);
+    }
+  } else {
+    uint32_t r[WT];
+    if constexpr (STAGED && WT == 2) {
+      const uint2 v = *reinterpret_cast<const uint2*>(row);
+      r[0] = v.x;
+      r[1] = v.y;
+    } else if constexpr (STAGED && WT == 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(row);
+      r[0] = v.x;
+      r[1] = v.y;
+      r[2] = v.z;
+      r[3] = v.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < WT; ++i) r[i] = row[i];
+    }
+#pragma unroll
+    for (int i = 0; i < WT; ++i) {
+      pp += __popc(r[i] & c.p[i]);
+      if constexpr (RB) prb += __popc(r[i] & c.rb[i]);
+    }
+  }
+}
+
+// A pivot candidate: s = score + 1 (>= 0; -1 for no row), i = row index.
+struct Best {
+  int s, i;
+};
+
+__device__ __forceinline__ uint32_t best_key(Best b, int ib, uint32_t imask) {
+  return b.s < 0 ? 0u : (static_cast<uint32_t>(b.s) << ib) |
+                            (imask - static_cast<uint32_t>(b.i));
+}
+
+__device__ __forceinline__ Best key_best(uint32_t key, int ib,
+                                         uint32_t imask) {
+  return Best{static_cast<int>(key >> ib),
+              static_cast<int>(imask - (key & imask))};
+}
+
+__device__ __forceinline__ Best warp_best(Best b) {
+  const int s = __reduce_max_sync(kFullMask, b.s);
+  const unsigned i = __reduce_min_sync(
+      kFullMask, b.s == s ? static_cast<unsigned>(b.i) : 0xffffffffu);
+  return Best{s, static_cast<int>(i)};
+}
+
+__device__ __forceinline__ Best better(Best a, Best b) {
+  return b.s > a.s || (b.s == a.s && b.i < a.i) ? b : a;
+}
+
+// The group's best adjacency row (u), best X0 row (x) and alive count, from
+// each thread's own; the lowest index wins a tie.
+template <int G>
+__device__ __forceinline__ void group_pivot(Best& u, Best& x, int& nal,
+                                            bool packed, int ib, int* red,
+                                            int group, int warp, int lane) {
+  const uint32_t imask = (1u << ib) - 1u;
+  nal = __reduce_add_sync(kFullMask, nal);
+  if (packed) {
+    uint32_t ku = __reduce_max_sync(kFullMask, best_key(u, ib, imask));
+    uint32_t kx = __reduce_max_sync(kFullMask, best_key(x, ib, imask));
+    if constexpr (G > 1) {
+      if (lane == 0) {
+        red[8 * warp] = static_cast<int>(ku);
+        red[8 * warp + 1] = static_cast<int>(kx);
+        red[8 * warp + 2] = nal;
+      }
+      group_sync<G>(group);
+      nal = 0;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        ku = max(ku, static_cast<uint32_t>(red[8 * g]));
+        kx = max(kx, static_cast<uint32_t>(red[8 * g + 1]));
+        nal += red[8 * g + 2];
+      }
+    }
+    u = key_best(ku, ib, imask);
+    x = key_best(kx, ib, imask);
+  } else {
+    u = warp_best(u);
+    x = warp_best(x);
+    if constexpr (G > 1) {
+      if (lane == 0) {
+        red[8 * warp] = u.s;
+        red[8 * warp + 1] = u.i;
+        red[8 * warp + 2] = x.s;
+        red[8 * warp + 3] = x.i;
+        red[8 * warp + 4] = nal;
+      }
+      group_sync<G>(group);
+      u = x = Best{-1, 0x7fffffff};
+      nal = 0;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        u = better(u, Best{red[8 * g], red[8 * g + 1]});
+        x = better(x, Best{red[8 * g + 2], red[8 * g + 3]});
+        nal += red[8 * g + 4];
+      }
+    }
+  }
+}
+
+struct WinArgs {
+  const uint32_t* a;
+  const uint32_t* x_rows;
+  const int32_t* alive0;
+  const uint32_t* win[4];  // P, B, Xp, Rb
+  const int32_t* win_rsz;
+  const int32_t* dloc;
+  uint32_t* out[4];
+  int32_t* out_rsz;
+  int32_t* ctl;
+  long long L;
+  int U, XC, T, W, steps;
+  int lanes_per_block;
+  int lane_bytes;  // WinLayout(...).bytes
+  int index_bits;  // 2^index_bits > max(U, XC)
+  int packed;      // (score + 1, ~index) fits 32 bits
+};
+
+template <int WT, int G, bool STAGED>
+__global__ void __launch_bounds__(kWinMaxThreads)
+dfs_step_window_kernel(const WinArgs args) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kGroup = 32 * G;
+  const int group = threadIdx.x / kGroup;
+  const int gt = threadIdx.x % kGroup;
+  const int warp = gt >> 5;
+  const int lane_id = gt & 31;
+  const long long lane =
+      static_cast<long long>(blockIdx.x) * args.lanes_per_block + group;
+  if (lane >= args.L) return;
+  const int U = args.U, XC = args.XC, T = args.T;
+  const int W = WT > 0 ? WT : args.W;
+  const int TW = T * W;
+  const long long wbase = lane * TW;
+  int dl = args.dloc[lane];
+
+  if (dl < 0 || args.steps <= 0) {  // nothing to walk: copy through
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      for (int i = gt; i < TW; i += kGroup) {
+        args.out[f][wbase + i] = args.win[f][wbase + i];
+      }
+    }
+    for (int i = gt; i < T; i += kGroup) {
+      args.out_rsz[lane * T + i] = args.win_rsz[lane * T + i];
+    }
+    if (gt < 8) args.ctl[lane * 8 + gt] = gt == 0 ? dl : 0;
+    return;
+  }
+
+  unsigned char* region =
+      smem + static_cast<long long>(group) * args.lane_bytes;
+  const WinLayout lay(U, XC, T, W, G, STAGED);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(region + lay.bar);
+  int* red = reinterpret_cast<int*>(region + lay.red);
+  uint32_t* swin = reinterpret_cast<uint32_t*>(region + lay.win);
+  uint32_t* sP = swin;
+  uint32_t* sB = sP + TW;
+  uint32_t* sXp = sB + TW;
+  uint32_t* sRb = sXp + TW;
+  int* sRsz = reinterpret_cast<int*>(sRb + TW);
+  const uint32_t* A = args.a + lane * U * static_cast<long long>(W);
+  const uint32_t* X = args.x_rows + lane * XC * static_cast<long long>(W);
+  const int32_t* al0 = args.alive0 + lane * XC;
+  const uint32_t* rows_a = A;
+  const uint32_t* rows_x = X;
+  const uint32_t* s_alive = nullptr;
+  if constexpr (STAGED) {
+    uint32_t* sA = reinterpret_cast<uint32_t*>(region + lay.rows_a);
+    uint32_t* sX = reinterpret_cast<uint32_t*>(region + lay.rows_x);
+    uint32_t* sAl = reinterpret_cast<uint32_t*>(region + lay.alive);
+    const uint32_t bytes_a = 4u * U * W;
+    const uint32_t bytes_x = 4u * XC * W;
+    const bool bulk_a = ((reinterpret_cast<uintptr_t>(A) | bytes_a) & 15) == 0;
+    const bool bulk_x = ((reinterpret_cast<uintptr_t>(X) | bytes_x) & 15) == 0;
+    if (gt == 0) mbar_init(bar);
+    group_sync<G>(group);
+    if (gt == 0) {
+      mbar_expect_tx(bar, (bulk_a ? bytes_a : 0u) + (bulk_x ? bytes_x : 0u));
+      if (bulk_a) bulk_load(sA, A, bytes_a, bar);
+      if (bulk_x) bulk_load(sX, X, bytes_x, bar);
+    }
+    if (!bulk_a) {
+      for (int i = gt; i < U * W; i += kGroup) sA[i] = A[i];
+    }
+    if (!bulk_x) {
+      for (int i = gt; i < XC * W; i += kGroup) sX[i] = X[i];
+    }
+    for (int x0 = 32 * warp; x0 < XC; x0 += kGroup) {  // 32 rows a ballot
+      const int x = x0 + lane_id;
+      const unsigned bits = __ballot_sync(kFullMask, x < XC && al0[x] != 0);
+      if (lane_id == 0) sAl[x0 >> 5] = bits;
+    }
+    rows_a = sA;
+    rows_x = sX;
+    s_alive = sAl;
+  }
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    for (int i = gt; i < TW; i += kGroup) swin[f * TW + i] = args.win[f][wbase + i];
+  }
+  for (int i = gt; i < T; i += kGroup) sRsz[i] = args.win_rsz[lane * T + i];
+  if constexpr (STAGED) mbar_wait(bar, 0);
+  group_sync<G>(group);
+
+  ChildSets<WT> c;
+  if constexpr (WT == 0) {
+    c.p = reinterpret_cast<uint32_t*>(region + lay.child);
+    c.x = c.p + W;
+    c.rb = c.x + W;
+  }
+  const int nw = WT > 0 ? WT : W;
+  const int ib = args.index_bits;
+  const bool packed = args.packed != 0;
+  int sdone = 0, calls = 0, spx = 0, clq = 0;
+  for (int k = 0; k < args.steps; ++k) {
+    const int d = min(max(dl, 0), T - 1);
+    // first set bit of the frame's branch set
+    const uint32_t* fB = sB + d * nw;
+    int fb = kBig;
+#pragma unroll
+    for (int i = nw - 1; i >= 0; --i) {
+      const uint32_t bw = fB[i];
+      if (bw) fb = 32 * i + __ffs(static_cast<int>(bw)) - 1;
+    }
+    const bool has_branch = fb < kBig;
+    if (dl < 0 || (has_branch && dl >= T - 1)) break;  // the walk is done
+    ++sdone;
+    if (!has_branch) {  // pop
+      --dl;
+      continue;
+    }
+    const int w = min(fb, U - 1);
+    const int ww = w >> 5;
+    const uint32_t wbit = 1u << (w & 31);
+    const int crsz = sRsz[d] + 1;
+    const uint32_t* arow = rows_a + static_cast<long long>(w) * nw;
+
+    // child sets and their sizes
+    int pc_p = 0, pc_x = 0, pc_rb = 0;
+    if constexpr (WT > 0) {
+#pragma unroll
+      for (int i = 0; i < WT; ++i) {
+        const uint32_t wr = arow[i];
+        c.p[i] = sP[d * WT + i] & wr;
+        c.x[i] = sXp[d * WT + i] & wr;
+        c.rb[i] = sRb[d * WT + i] | (i == ww ? wbit : 0u);
+        pc_p += __popc(c.p[i]);
+        pc_x += __popc(c.x[i]);
+        pc_rb += __popc(c.rb[i]);
+      }
+    } else {
+      for (int i = gt; i < W; i += kGroup) {
+        const uint32_t wr = arow[i];
+        c.p[i] = sP[d * W + i] & wr;
+        c.x[i] = sXp[d * W + i] & wr;
+        c.rb[i] = sRb[d * W + i] | (i == ww ? wbit : 0u);
+      }
+      group_sync<G>(group);
+      for (int i = 0; i < W; ++i) {
+        pc_p += __popc(c.p[i]);
+        pc_x += __popc(c.x[i]);
+        pc_rb += __popc(c.rb[i]);
+      }
+    }
+
+    // pivot scores: child degrees over P ∪ X, X0 rows over the alive set
+    // (alive iff alive0 and Rb ⊆ N(x), the closed form of the frame's Rb).
+    // With childP empty there is no child frame, so no pivot to pick.
+    Best bu{-1, 0}, bx{-1, 0};
+    if (pc_p != 0) {
+      for (int u = gt; u < U; u += kGroup) {
+        int deg, unused;
+        row_pops<WT, STAGED, false>(rows_a + static_cast<long long>(u) * nw,
+                                    c, W, deg, unused);
+        const int s = (c.pool(u >> 5) >> (u & 31)) & 1u ? deg + 1 : 0;
+        if (s > bu.s) bu = Best{s, u};  // u increases: strict > keeps the first
+      }
+    }
+    int nal = 0;
+#pragma unroll 4
+    for (int x = gt; x < XC; x += kGroup) {
+      int pc, prb;
+      row_pops<WT, STAGED, true>(rows_x + static_cast<long long>(x) * nw, c,
+                                 W, pc, prb);
+      bool alive;
+      if constexpr (STAGED) {
+        alive = (s_alive[x >> 5] >> (x & 31)) & 1u;
+      } else {
+        alive = al0[x] != 0;
+      }
+      alive = alive && prb == pc_rb;
+      nal += alive;
+      const int s = alive ? pc + 1 : 0;
+      if (s > bx.s) bx = Best{s, x};
+    }
+    group_pivot<G>(bu, bx, nal, packed, ib, red, group, warp, lane_id);
+
+    ++calls;
+    spx += pc_p + pc_x + nal;
+    if (pc_p == 0 && pc_x == 0 && nal == 0 && crsz >= 2) ++clq;
+    const bool push = pc_p != 0;
+    const uint32_t* prow =
+        bx.s > bu.s ? rows_x + static_cast<long long>(bx.i) * nw
+                    : rows_a + static_cast<long long>(bu.i) * nw;
+    const int cd = min(d + 1, T - 1);
+    // current frame: P \ w, X ∪ w, B \ w; child frame at d + 1 if pushed
+    for (int i = gt; i < nw; i += kGroup) {
+      uint32_t cp, cx, crb;
+      if constexpr (WT > 0) {
+        cp = cx = crb = 0;
+#pragma unroll
+        for (int j = 0; j < WT; ++j) {
+          if (j == i) {
+            cp = c.p[j];
+            cx = c.x[j];
+            crb = c.rb[j];
+          }
+        }
+      } else {
+        cp = c.p[i];
+        cx = c.x[i];
+        crb = c.rb[i];
+      }
+      const uint32_t m = i == ww ? wbit : 0u;
+      sP[d * nw + i] &= ~m;
+      sXp[d * nw + i] |= m;
+      sB[d * nw + i] &= ~m;
+      if (push) {
+        sP[cd * nw + i] = cp;
+        sB[cd * nw + i] = cp & ~prow[i];
+        sXp[cd * nw + i] = cx;
+        sRb[cd * nw + i] = crb;
+      }
+    }
+    if (push && gt == 0) sRsz[cd] = crsz;
+    group_sync<G>(group);
+    if (push) ++dl;
+  }
+
+  group_sync<G>(group);
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    for (int i = gt; i < TW; i += kGroup) args.out[f][wbase + i] = swin[f * TW + i];
+  }
+  for (int i = gt; i < T; i += kGroup) args.out_rsz[lane * T + i] = sRsz[i];
+  if (gt == 0) {
+    int32_t* out = args.ctl + lane * 8;
+    out[0] = dl;
+    out[1] = calls;
+    out[2] = calls;  // every call of the window walk is a branch
+    out[3] = spx;
+    out[4] = clq;
+    out[5] = sdone;
+    out[6] = 0;
+    out[7] = 0;
+  }
+}
+
+template <int WT, int G, bool STAGED>
+int launch_window(const WinArgs& args, long long smem, cudaStream_t stream) {
+  auto* kernel = dfs_step_window_kernel<WT, G, STAGED>;
+  if (smem > 48 * 1024) {  // the opt-in is per instantiation
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long blocks =
+      (args.L + args.lanes_per_block - 1) / args.lanes_per_block;
+  kernel<<<static_cast<unsigned>(blocks), 32 * G * args.lanes_per_block,
+           static_cast<size_t>(smem), stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int WT>
+int launch_window_w(const WinArgs& args, int group, long long smem,
+                    cudaStream_t stream) {
+  if (group == 1) return launch_window<WT, 1, true>(args, smem, stream);
+  if (group == 2) return launch_window<WT, 2, true>(args, smem, stream);
+  return launch_window<WT, 4, true>(args, smem, stream);
+}
+
+inline int bit_length(long long v) {
+  int n = 0;
+  for (; v > 0; v >>= 1) ++n;
+  return n;
 }
 
 inline unsigned blocks_for(int K) {
@@ -590,6 +965,18 @@ int bitset_and_popcount_many(const void* rows, const void* masks, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// Bytes of one lane's shared-memory region (WinLayout), at most INT_MAX.
+int bitset_window_lane_bytes(int U, int XC, int T, int W, int group,
+                             int staged) {
+  const long long n = WinLayout(U, XC, T, W, group, staged != 0).bytes;
+  return static_cast<int>(n < 0x7fffffffll ? n : 0x7fffffffll);
+}
+
+// The launch geometry (group, lanes_per_block, staged, index_bits, packed)
+// comes from ops.py::window_geometry; a geometry this file cannot run is
+// refused (cudaErrorInvalidValue), never computed some other way. Rows
+// read from device memory (staged = 0) take group 1.
 int bitset_dfs_step_window(const void* a, const void* x_rows,
                            const void* alive0, const void* win_p,
                            const void* win_b, const void* win_xp,
@@ -597,27 +984,60 @@ int bitset_dfs_step_window(const void* a, const void* x_rows,
                            const void* dloc, void* out_p, void* out_b,
                            void* out_xp, void* out_rb, void* out_rsz,
                            void* ctl, long long L, int U, int XC, int T,
-                           int W, int steps, void* stream) {
-  const size_t smem = dfs_step_window_smem(T, W);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dfs_step_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+                           int W, int steps, int group, int lanes_per_block,
+                           int staged, int index_bits, int packed,
+                           void* stream) {
+  if ((group != 1 && group != 2 && group != 4) ||
+      (staged == 0 && group != 1) || lanes_per_block < 1 ||
+      32 * group * lanes_per_block > kWinMaxThreads || index_bits < 1 ||
+      index_bits > 31 || (1ll << index_bits) <= (U > XC ? U : XC) ||
+      (packed && bit_length(32ll * W + 1) + index_bits > 32) ||
+      (L + lanes_per_block - 1) / lanes_per_block > 0x7fffffffll) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  dfs_step_window_kernel<<<static_cast<unsigned>(L), kWinThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(x_rows),
-      static_cast<const int32_t*>(alive0),
-      static_cast<const uint32_t*>(win_p), static_cast<const uint32_t*>(win_b),
-      static_cast<const uint32_t*>(win_xp),
-      static_cast<const uint32_t*>(win_rb),
-      static_cast<const int32_t*>(win_rsz), static_cast<const int32_t*>(dloc),
-      static_cast<uint32_t*>(out_p), static_cast<uint32_t*>(out_b),
-      static_cast<uint32_t*>(out_xp), static_cast<uint32_t*>(out_rb),
-      static_cast<int32_t*>(out_rsz), static_cast<int32_t*>(ctl), U, XC, T, W,
-      steps);
-  return static_cast<int>(cudaGetLastError());
+  const long long smem =
+      WinLayout(U, XC, T, W, group, staged != 0).bytes * lanes_per_block;
+  if (smem > kWinSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  WinArgs args;
+  args.a = static_cast<const uint32_t*>(a);
+  args.x_rows = static_cast<const uint32_t*>(x_rows);
+  args.alive0 = static_cast<const int32_t*>(alive0);
+  args.win[0] = static_cast<const uint32_t*>(win_p);
+  args.win[1] = static_cast<const uint32_t*>(win_b);
+  args.win[2] = static_cast<const uint32_t*>(win_xp);
+  args.win[3] = static_cast<const uint32_t*>(win_rb);
+  args.win_rsz = static_cast<const int32_t*>(win_rsz);
+  args.dloc = static_cast<const int32_t*>(dloc);
+  args.out[0] = static_cast<uint32_t*>(out_p);
+  args.out[1] = static_cast<uint32_t*>(out_b);
+  args.out[2] = static_cast<uint32_t*>(out_xp);
+  args.out[3] = static_cast<uint32_t*>(out_rb);
+  args.out_rsz = static_cast<int32_t*>(out_rsz);
+  args.ctl = static_cast<int32_t*>(ctl);
+  args.L = L;
+  args.U = U;
+  args.XC = XC;
+  args.T = T;
+  args.W = W;
+  args.steps = steps;
+  args.lanes_per_block = lanes_per_block;
+  args.lane_bytes = static_cast<int>(smem / lanes_per_block);
+  args.index_bits = index_bits;
+  args.packed = packed;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (staged == 0) return launch_window<0, 1, false>(args, smem, s);
+  switch (W) {
+    case 1:
+      return launch_window_w<1>(args, group, smem, s);
+    case 2:
+      return launch_window_w<2>(args, group, smem, s);
+    case 3:
+      return launch_window_w<3>(args, group, smem, s);
+    case 4:
+      return launch_window_w<4>(args, group, smem, s);
+    default:
+      return launch_window_w<0>(args, group, smem, s);
+  }
 }
 
 }  // extern "C"

@@ -23,7 +23,8 @@ flattened to (R, K, W). The window walks take per-lane windows
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,9 +43,83 @@ LAUNCHES = Launches({"frame_step": 0, "and_popcount_rows": 0,
 # any T; the engine passes this one, so its window spills and hits are the
 # reference's.
 WINDOW_FRAMES = 8
-# Dynamic shared memory one block may use on an H100 (227 KB), less the
-# kernel's static reduction scratch.
-WINDOW_SMEM_MAX = 232448 - 1024
+# Shared memory one block may use on an H100 (227 KB), and the most a
+# lane's window and child sets may take (the window walk refuses more).
+WINDOW_BLOCK_SMEM = 232448
+WINDOW_SMEM_MAX = WINDOW_BLOCK_SMEM - 1024
+# The window walk's launch: a group of 1, 2 or 4 warps walks one lane, and a
+# block holds at most WINDOW_BLOCK_THREADS threads.
+WINDOW_GROUPS = (1, 2, 4)
+WINDOW_BLOCK_THREADS = 256
+H100_SMS = 132
+
+
+class WindowGeometry(NamedTuple):
+    """Launch geometry of the window walk (`csrc/bitset_ops.cu`)."""
+    group: int             # warps per lane
+    lanes_per_block: int
+    staged: bool           # the lane's A and X0 rows in shared memory
+    index_bits: int        # 2**index_bits > max(U, XC)
+    packed: bool           # (score + 1, ~index) fits one 32-bit key
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def window_lane_bytes(U: int, XC: int, T: int, W: int, group: int,
+                      staged: bool) -> int:
+    """Shared memory of one lane: mbarrier, the group's reduction scratch,
+    the window, the child sets and, staged, alive0's bits and the rows (the
+    layout of `WinLayout` in the CUDA source; the card tests hold the two
+    together through the library's `bitset_window_lane_bytes`)."""
+    n = (16 + _align16(32 * group) + _align16(4 * (4 * T * W + T))
+         + _align16(12 * W))
+    if staged:
+        n += (_align16(4 * -(-XC // 32)) + _align16(4 * U * W)
+              + _align16(4 * XC * W))
+    return n
+
+
+@functools.lru_cache(maxsize=1024)
+def window_geometry(L: int, U: int, XC: int, T: int, W: int,
+                    sms: int = H100_SMS,
+                    group: Optional[int] = None) -> WindowGeometry:
+    """The window walk's launch for L lanes of (U, XC, T, W), cached: the
+    engine repeats a bucket's shape on every launch.
+
+    G: the most warps a lane that keep the launch within 32 warps an SM
+    (64 registers a thread), so that it runs in one wave: 4 on the
+    engine's 64 lanes and per root at U = 64 and 128, 2 per root at
+    U = 32 (1,663 lanes). More warps shorten each step's row sweep; on
+    the scale-12 buckets the chosen G was the fastest of 1, 2 and 4 but
+    per root at U = 64, where G = 2 was 1.4 % faster on an H100
+    (`chip_smoke.py`'s `group_ms`, PERF.md §6). The rows are staged when
+    one lane's fit the block's shared memory; rows that do not are read
+    from device memory by one warp a lane (the CUDA source's one unstaged
+    instance). Lanes per block fill at most WINDOW_BLOCK_THREADS threads
+    and that memory, and stop at one when L is small. Any (U, XC, T, W)
+    whose window fits (WINDOW_SMEM_MAX) gets a geometry. `group` fixes G
+    of a staged launch instead."""
+    if group is None:
+        group = max((g for g in WINDOW_GROUPS if g * L <= 32 * sms),
+                    default=1)
+    staged = window_lane_bytes(U, XC, T, W, group, True) <= WINDOW_BLOCK_SMEM
+    if not staged:
+        group = 1
+        staged = (window_lane_bytes(U, XC, T, W, group, True)
+                  <= WINDOW_BLOCK_SMEM)
+    lane = window_lane_bytes(U, XC, T, W, group, staged)
+    per_block = max(1, min(WINDOW_BLOCK_THREADS // (32 * group), L // sms,
+                           WINDOW_BLOCK_SMEM // lane))
+    index_bits = max(U, XC).bit_length()
+    return WindowGeometry(group, per_block, staged, index_bits,
+                          (32 * W + 1).bit_length() + index_bits <= 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(name: str, rows: torch.Tensor, *vecs: torch.Tensor):
@@ -192,9 +267,11 @@ def and_popcount_many(rows: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
 
 
 def _window_walk(name: str, a, x_rows, alive0, winP, winB, winXp, winRb,
-                 winrsz, dloc, steps: int):
+                 winrsz, dloc, steps: int,
+                 geometry: Optional[WindowGeometry] = None):
     """Validate and launch one window walk over every lane (the leading
-    dims of the windows, flattened)."""
+    dims of the windows, flattened), with `window_geometry`'s launch
+    unless one is given (the card tests drive every instance)."""
     if winP.dim() < 2:
         raise ValueError(f"{name}: windows must be (..., T, W)")
     lead = tuple(winP.shape[:-2])
@@ -223,10 +300,12 @@ def _window_walk(name: str, a, x_rows, alive0, winP, winB, winXp, winRb,
     for d in lead:
         n *= d
     if n:
+        geo = geometry or window_geometry(n, U, XC, T, W, _sms(a.device))
         raise_on(name, LIBRARY.load().bitset_dfs_step_window(
             *(t.data_ptr() for t in (a, x_rows, alive0, winP, winB, winXp,
                                      winRb, winrsz, dloc) + outs + (ctl,)),
-            n, U, XC, T, W, steps, stream()))
+            n, U, XC, T, W, steps, geo.group, geo.lanes_per_block,
+            int(geo.staged), geo.index_bits, int(geo.packed), stream()))
         LAUNCHES[name] += 1
     return outs + (ctl,)
 

@@ -12,6 +12,8 @@ reference package, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -134,10 +136,18 @@ def test_cuda_run_matches_cpu_run(cuda_device, dynamic_red):
 
 
 # (L, U, XC, T, W, steps): one and several lanes, W = 3, XC = 1, a window
-# deeper than the engine's, K = 1 and K = 64
+# deeper than the engine's, K = 1 and K = 64, XC = 2,048 on 64 lanes
+# (G = 4); then W = 7 (the runtime-W instance), lane slices off 16 bytes
+# (XC = 1 with W = 2, XC = 50 with W = 3), rows too large to stage, L off
+# the lanes per block with lanes that stop at different steps in one block
+# (301 lanes, 2 a block; 1,663 lanes at XC = 2,048, 4 a block, G = 2), and
+# K = 0
 WINDOW_SHAPES = [(1, 32, 1, 8, 1, 16), (6, 64, 40, 8, 2, 1),
                  (5, 96, 300, 8, 3, 64), (4, 128, 128, 12, 4, 16),
-                 (64, 32, 2048, 8, 1, 16)]
+                 (64, 32, 2048, 8, 1, 16), (3, 200, 70, 8, 7, 16),
+                 (4, 64, 1, 8, 2, 16), (4, 96, 50, 8, 3, 16),
+                 (2, 256, 7000, 8, 8, 16), (301, 64, 40, 8, 2, 16),
+                 (1663, 32, 2048, 8, 1, 16), (4, 64, 40, 8, 2, 0)]
 
 
 def _window_inputs(L, U, XC, T, W, seed, dev):
@@ -180,6 +190,54 @@ def test_cuda_window_kernel_matches_plain_version(cuda_device, L, U, XC, T,
     assert ops.LAUNCHES["dfs_step_window_lanes"] == \
         before["dfs_step_window_lanes"] + 1
     assert ops.LAUNCHES["dfs_step_window"] == before["dfs_step_window"] + 1
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 6])
+def test_cuda_window_kernel_every_geometry(cuda_device, W):
+    """Every launch of the window walk on one input per W instance: G = 1,
+    2 and 4, one lane a block or 3 (L = 7: the last block is short), rows
+    staged or read from device memory, the packed pivot key or the two-step
+    reduction (also with 31 index bits); and rows one word past a 16-byte
+    boundary (no bulk copy). Unstaged rows take G = 1 only: a launch of
+    G = 2 or 4 without staging is refused."""
+    L, U, XC = 7, 32 * W - 5, 200
+    args = _window_inputs(L, U, XC, 8, W, 40 + W, cuda_device)
+    want = ref.dfs_step_window_lanes(*args, steps=16)
+    ib = max(U, XC).bit_length()
+    cases = [(args, ops.WindowGeometry(g, lpb, staged, bits, packed))
+             for g, lpb, staged, (bits, packed) in itertools.product(
+                 ops.WINDOW_GROUPS, (1, 3), (True, False),
+                 ((ib, True), (ib, False), (31, False)))
+             if 32 * g * lpb <= ops.WINDOW_BLOCK_THREADS
+             and (staged or g == 1)]
+    shifted = []
+    for t in args[:2]:
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        flat[1:] = t.reshape(-1)
+        shifted.append(flat[1:].view(t.shape))
+    cases.append((shifted + args[2:], ops.window_geometry(L, U, XC, 8, W)))
+    for a, geo in cases:
+        got = ops._window_walk("dfs_step_window_lanes", *a, 16, geometry=geo)
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_), geo
+    for g in ops.WINDOW_GROUPS[1:]:
+        with pytest.raises(RuntimeError, match="cudaError"):
+            ops._window_walk("dfs_step_window_lanes", *args, 16,
+                             geometry=ops.WindowGeometry(g, 1, False, ib,
+                                                         False))
+
+
+@pytest.mark.parametrize("U,XC,T,W", [
+    (32, 2048, 8, 1), (64, 512, 8, 2), (128, 128, 8, 4), (187, 200, 8, 6),
+    (64, 1, 8, 2), (96, 50, 8, 3), (256, 7000, 8, 8), (32, 1, 11570, 1)])
+def test_cuda_window_lane_bytes_match_the_library(cuda_device, U, XC, T, W):
+    """`ops.window_lane_bytes`, from which the launch geometry is chosen,
+    is the CUDA source's WinLayout, at every G, staged or not."""
+    lib = ops.LIBRARY.load()
+    for g, staged in itertools.product(ops.WINDOW_GROUPS, (True, False)):
+        assert (ops.window_lane_bytes(U, XC, T, W, g, staged)
+                == lib.bitset_window_lane_bytes(U, XC, T, W, g,
+                                                int(staged))), (g, staged)
 
 
 @pytest.mark.parametrize("kw", [

@@ -129,6 +129,61 @@ def test_window_ops_validate_shapes():
     assert ops.WINDOW_FRAMES == 8
 
 
+# (L, U, XC, T, W): the scale-12 buckets per root (every root a lane) and
+# on 64 lanes, the card tests' edge shapes, rows too large to stage, and
+# the largest windows the walk takes (W = 1 and W = 850 at the shared-memory
+# limit), on one lane and on many
+GEOMETRY_SHAPES = [
+    (1663, 32, 2048, 8, 1), (623, 64, 512, 8, 2), (21, 128, 128, 8, 4),
+    (64, 32, 2048, 8, 1), (64, 64, 512, 8, 2), (64, 128, 128, 8, 4),
+    (1, 32, 1, 8, 1), (7, 187, 200, 8, 6), (2, 256, 7000, 8, 8),
+    (301, 64, 40, 8, 2), (1, 32, 1, 11570, 1), (100_000, 32, 1, 11570, 1),
+    (2, 27_000, 5, 16, 850), (1 << 20, 64, 40, 8, 2)]
+
+
+@pytest.mark.parametrize("L,U,XC,T,W", GEOMETRY_SHAPES)
+def test_window_geometry_fits_and_refuses_nothing(L, U, XC, T, W):
+    """Every shape the window walk takes gets a launch that fits a block:
+    its threads, its shared memory (the lanes' regions as the CUDA source
+    lays them out), a pivot key that holds every score and row index; the
+    rows are staged exactly when they fit, and unstaged rows take one warp
+    a lane."""
+    assert 4 * (4 * T * W + 3 * W + T) <= ops.WINDOW_SMEM_MAX
+    geo = ops.window_geometry(L, U, XC, T, W)
+    assert geo.group in ops.WINDOW_GROUPS
+    assert geo.lanes_per_block >= 1
+    assert 32 * geo.group * geo.lanes_per_block <= ops.WINDOW_BLOCK_THREADS
+    assert (geo.lanes_per_block * ops.window_lane_bytes(
+        U, XC, T, W, geo.group, geo.staged) <= ops.WINDOW_BLOCK_SMEM)
+    assert geo.staged == (ops.window_lane_bytes(U, XC, T, W, geo.group, True)
+                          <= ops.WINDOW_BLOCK_SMEM)
+    assert max(U, XC) < 2 ** geo.index_bits <= 2 ** 31
+    # (score + 1) << index_bits | (2**index_bits - 1 - index) in 32 bits
+    assert geo.packed == (((32 * W + 1) << geo.index_bits) < 2 ** 32)
+    if not geo.staged:                 # the one unstaged instance: G = 1
+        assert geo.group == 1
+    for g in ops.WINDOW_GROUPS:                   # a forced G fits too
+        forced = ops.window_geometry(L, U, XC, T, W, group=g)
+        assert forced.group == (g if forced.staged else 1)
+        assert (forced.lanes_per_block * ops.window_lane_bytes(
+            U, XC, T, W, g, forced.staged) <= ops.WINDOW_BLOCK_SMEM)
+
+
+@pytest.mark.parametrize("L,U,XC,W,group", [
+    (1663, 32, 2048, 1, 2), (623, 64, 512, 2, 4), (21, 128, 128, 4, 4),
+    (64, 32, 2048, 1, 4), (64, 64, 512, 2, 4), (64, 128, 128, 4, 4)])
+def test_window_geometry_at_the_engine_buckets(L, U, XC, W, group):
+    """The launches the scale-12 buckets get, per root (every root a lane)
+    and on 64 lanes: the rows staged, the packed pivot key, one wave on
+    132 SMs (32 warps an SM), one lane a block when L is small."""
+    geo = ops.window_geometry(L, U, XC, 8, W)
+    assert geo.group == group
+    assert geo.staged and geo.packed
+    assert L * geo.group <= 32 * ops.H100_SMS
+    if L <= ops.H100_SMS:
+        assert geo.lanes_per_block == 1
+
+
 # --------------------------------------------------------------------------
 # the per-root windowed walk against the reference's vmapped
 # run_root_windowed
