@@ -14,16 +14,20 @@ together) and then, printing one JSON line per phase:
 2. kernels: each bitset CUDA kernel held bit-exact against its plain
    PyTorch version on the same CUDA tensors, at edge shapes and at the
    shapes of the Graph500 scale-12 buckets (the hybrid census over A
-   stacked on the X0 rows, the rcd sweep of P against ~X0 rows stacked on
-   ~A, the window walk on the windows the persistent and per-root engines
-   launch it with), with CUDA-event times; each real-window line of the
-   window walk with its launch geometry (warps per lane G, lanes per
-   block, staged rows, pivot key) and its time at each G and at 0, 1 and
-   16 steps;
+   stacked on the X0 rows, through both its entry points, `clique_counts`
+   and `hybrid_census`, at each bucket's roots and at the hybrid lanes'
+   64, timed at each block size too; the rcd sweep of P against ~X0 rows
+   stacked on ~A; the window walk on the windows the persistent and
+   per-root engines launch it with), with CUDA-event times; each
+   real-window line of the window walk with its launch geometry (warps per
+   lane G, lanes per block, staged rows, pivot key) and its time at each G
+   and at 0, 1 and 16 steps;
 2b. substrate_kernels: `has_common_neighbor`, `embedding_bag_sum`,
    `dense_spmm` and `flash_attention` against their plain versions at the
-   reference tests' edge shapes and at full width (scale 12's edges, the
-   two-tower bags, the molecule cell, qwen3-14b's attention at train_4k),
+   reference tests' edge shapes (for `dense_spmm`, each staging path, named
+   in its line, and bfloat16 inputs) and at full width (scale 12's edges,
+   the two-tower bags, the molecule cell, where `dense_spmm` must stage
+   whole graphs by bulk copy, qwen3-14b's attention at train_4k),
    each entry point (`edge_common_neighbor`, `embedding_bag`,
    `densify_edges` + `dense_spmm`, `mha`) driven once with its launch
    count read, and the scale-12 triangle test against the host Lemma-4
@@ -210,7 +214,7 @@ def cuda_ms(fn, reps: int = 21, inner: int = 10):
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def kernel_cost(name, rows, mask):
+def kernel_cost(name, rows, mask, extra=()):
     """(bytes, operations) the function must move and do on these inputs:
     each input read once, each output written once."""
     R, K, W = (1,) * (3 - rows.dim()) + tuple(rows.shape)
@@ -218,6 +222,12 @@ def kernel_cost(name, rows, mask):
     if name == "clique_counts":
         nbytes = 4 * (words + R * W) + 2 * R * K + 8 * R
         ops = 3 * words + 4 * R * K           # + 2 compares, and, add
+    elif name == "hybrid_census":             # rows: A; + the X0 rows
+        x_rows, _, x_alive = extra
+        K = K + x_rows.shape[-2]
+        words = R * K * W
+        nbytes = 4 * (words + 2 * R * W + x_alive.numel()) + 12 * R
+        ops = 3 * words + 4 * R * K + 2 * R * W   # + selector bits, |P|
     elif name == "and_popcount_many":
         M = mask.shape[-2]                    # mask: the (R, M, W) masks
         nbytes = 4 * (R * (M + K) * W + R * M * K)
@@ -234,11 +244,16 @@ def kernel_cost(name, rows, mask):
     return nbytes, ops
 
 
-def run_kernel(name, rows, mask, extra, impl):
+def run_kernel(name, rows, mask, extra, impl, **kw):
+    """One call of kernel `name` through `impl` (ops or ref); `kw` (the
+    census's `threads`) goes to ops only."""
     if name == "and_popcount_rows":
         return (impl.and_popcount_rows(rows, mask),)
     if name == "clique_counts":
-        return impl.clique_counts(rows, mask, extra[0], extra[1])
+        return impl.clique_counts(rows, mask, extra[0], extra[1], **kw)
+    if name == "hybrid_census":               # rows: A, mask: P
+        return impl.hybrid_census(rows, extra[0], mask, extra[1], extra[2],
+                                  **kw)
     if name == "and_popcount_many":
         return (impl.and_popcount_many(rows, mask),)
     if name == "and_popcount_argmax":
@@ -261,16 +276,30 @@ def exact(name, got, want, shape) -> int:
     return err
 
 
+# the census's block sizes timed beside the library's own choice
+CENSUS_THREADS = (32, 64, 128, 256, 512)
+
+
 def compare(name, rows, mask, extra, timed=False):
     """Kernel vs plain version on the same CUDA tensors. Tolerance 0:
-    every output is an integer or a bit pattern, so they must be equal."""
+    every output is an integer or a bit pattern, so they must be equal.
+    The census, timed, is held and timed at each of CENSUS_THREADS too."""
     from repro_torch.kernels.bitset_ops import ops, ref
-    err = exact(name, run_kernel(name, rows, mask, extra, ops),
-                run_kernel(name, rows, mask, extra, ref), rows.shape)
+    want = run_kernel(name, rows, mask, extra, ref)
+    err = exact(name, run_kernel(name, rows, mask, extra, ops), want,
+                rows.shape)
     out = dict(name=name, shape=list(rows.shape),
                mask_shape=list(mask.shape), max_abs_err=err, tolerance=0)
+    if timed and name in ("clique_counts", "hybrid_census"):
+        threads_ms = {}
+        for t in CENSUS_THREADS:
+            def forced(t=t):
+                return run_kernel(name, rows, mask, extra, ops, threads=t)
+            exact(f"{name} threads={t}", forced(), want, rows.shape)
+            threads_ms[t] = cuda_ms(forced)[0]
+        out.update(threads_ms=threads_ms)
     if timed:
-        nbytes, nops = kernel_cost(name, rows, mask)
+        nbytes, nops = kernel_cost(name, rows, mask, extra)
         ms, call_ms = cuda_ms(lambda: run_kernel(name, rows, mask, extra,
                                                  ops))
         plain_ms, plain_call_ms = cuda_ms(
@@ -348,6 +377,15 @@ def census_edge_cases(words, rng, dev, r, k, w):
     in_x[-1] = False                                     # all-false
     none = torch.zeros_like(in_p)
     masks = words(r, 2 * k + 3, w)
+    # the hybrid census on the same rows cut into A (U rows, U not a
+    # multiple of 32 where K allows) and X0 rows (XC = 0 on one cut), Xp
+    # from the words, x_alive with bits past XC
+    cuts = sorted({min(k, 32 * w), min(k, 32 * w, max(1, k // 3 + 5))})
+    xp = words(r, w)
+    for u in cuts:
+        a, x_rows = rows[:, :u].contiguous(), rows[:, u:].contiguous()
+        x_alive = words(r, max(-(-(k - u) // 32), 1))
+        compare("hybrid_census", a, mask, (x_rows, xp, x_alive))
     for name, rr, mm, extra in [
             ("clique_counts", rows, mask, (in_p, in_x)),
             ("clique_counts", rows, mask, (none, none)),
@@ -355,48 +393,87 @@ def census_edge_cases(words, rng, dev, r, k, w):
             ("and_popcount_many", rows, masks, ()),
             ("and_popcount_many", rows, masks[:, :1].contiguous(), ())]:
         compare(name, rr, mm, extra)
-    return 5
+    return 5 + len(cuts)
+
+
+def bucket_operands(b, dev, rng):
+    """One Graph500 bucket's rows on the card with P and Xp drawn from its
+    p0, and the census's two forms of operands: the stacked rows with bool
+    selectors (`clique_counts`) and x_alive as bits (`hybrid_census`)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import frames as fr
+    from repro_torch.core.engine.loop import bucket_tensors
+    a, p0, x_rows, x_alive0, _ = bucket_tensors(
+        b.a, b.p0, b.x_rows, b.x_alive0, b.rsz0, dev)
+    keep = torch.from_numpy(
+        rng.integers(0, 2**32, p0.shape, dtype=np.uint64)
+        .astype(np.uint32).view(np.int32)).to(dev)
+    P = p0 & keep
+    Xp = p0 & ~keep
+    U = a.shape[1]
+    return dict(
+        a=a, x_rows=x_rows, x_alive0=x_alive0, P=P, Xp=Xp,
+        census=torch.cat([a, x_rows], 1),
+        in_p=torch.cat([fr.bitset_to_mask(P, U),
+                        torch.zeros_like(x_alive0)], -1),
+        in_x=torch.cat([fr.bitset_to_mask(Xp, U), x_alive0], -1),
+        xal=fr.mask_to_bitset(x_alive0, -(-x_rows.shape[1] // 32)))
 
 
 def bucket_cases(prep, dev):
     """Each Graph500 bucket's own rows, with masks drawn from its p0 — the
     shapes the slice's main path hands every kernel: the hybrid census
-    over A stacked on the X0 rows (U + XC rows), and the rcd maximality
-    sweep of P (K = 1) against ~X0 rows stacked on ~A (M = XC + U)."""
+    over A stacked on the X0 rows (U + XC rows; `clique_counts` on the
+    reference's contract, and `hybrid_census` on the engine's operands,
+    which the engine calls), each at the bucket's roots and at the hybrid
+    lanes' 64 (form "lanes": the first 64 roots' rows), the two entry
+    points held to each other; and the rcd maximality sweep of P (K = 1)
+    against ~X0 rows stacked on ~A (M = XC + U)."""
     import numpy as np
     import torch
     from repro_torch.core.engine import frames as fr
-    from repro_torch.core.engine.loop import bucket_tensors
+    from repro_torch.kernels.bitset_ops import ops
     rng = np.random.default_rng(1)
     lines = []
     for b in prep.buckets:
-        a, p0, x_rows, x_alive0, _ = bucket_tensors(
-            b.a, b.p0, b.x_rows, b.x_alive0, b.rsz0, dev)
-        keep = torch.from_numpy(
-            rng.integers(0, 2**32, p0.shape, dtype=np.uint64)
-            .astype(np.uint32).view(np.int32)).to(dev)
-        P = p0 & keep
-        Xp = p0 & ~keep
+        o = bucket_operands(b, dev, rng)
+        a, x_rows, x_alive0, P, Xp, census, in_p, in_x, xal = (
+            o[k] for k in ("a", "x_rows", "x_alive0", "P", "Xp", "census",
+                           "in_p", "in_x", "xal"))
         wrow = a[:, 0].contiguous()
         not_x = ~x_rows
         U = a.shape[1]
-        census = torch.cat([a, x_rows], 1)
-        in_p = torch.cat([fr.bitset_to_mask(P, U),
-                          torch.zeros_like(x_alive0)], -1)
-        in_x = torch.cat([fr.bitset_to_mask(Xp, U), x_alive0], -1)
         not_nbrs = torch.cat([not_x, ~a], 1)
-        for name, rows, mask, extra in [
-                ("frame_step", a, P, (Xp, wrow)),
-                ("and_popcount_rows", a, P, ()),
-                ("and_popcount_rows", not_x, P, ()),
-                ("and_popcount_argmax", x_rows, P, (x_alive0,)),
-                ("clique_counts", census, P, (in_p, in_x)),
-                ("and_popcount_many", P.unsqueeze(1), not_nbrs, ())]:
+        L = min(64, b.num_roots)
+
+        def lanes(*ts):
+            return tuple(t[:L].contiguous() for t in ts)
+        hybrid = (a, P, (x_rows, Xp, xal))
+        for name, rows, mask, extra, form in [
+                ("frame_step", a, P, (Xp, wrow), "roots"),
+                ("and_popcount_rows", a, P, (), "roots"),
+                ("and_popcount_rows", not_x, P, (), "roots"),
+                ("and_popcount_argmax", x_rows, P, (x_alive0,), "roots"),
+                ("clique_counts", census, P, (in_p, in_x), "roots"),
+                ("clique_counts", *lanes(census, P),
+                 lanes(in_p, in_x), "lanes"),
+                ("hybrid_census", *hybrid, "roots"),
+                ("hybrid_census", *lanes(a, P), lanes(x_rows, Xp, xal),
+                 "lanes"),
+                ("and_popcount_many", P.unsqueeze(1), not_nbrs, (),
+                 "roots")]:
             line = compare(name, rows, mask, extra, timed=True)
             line.update(phase="kernels", bucket_u=b.u_pad, bucket_xc=b.x_pad,
-                        roots=b.num_roots)
+                        roots=b.num_roots, form=form)
             emit(line)
             lines.append(line)
+        # the two census entry points agree on the engine's operands
+        got = ops.hybrid_census(a, x_rows, P, Xp, xal)
+        for g, w in zip(got, ops.clique_counts(census, P, in_p, in_x)
+                        + (fr.popcount(P),)):
+            check(torch.equal(g, w), f"hybrid_census and clique_counts "
+                  f"disagree at U = {U}")
     return lines
 
 
@@ -799,29 +876,43 @@ def embedding_bag_cases(dev):
 
 
 def dense_spmm_cases(dev):
-    """The reference test's (B, N, F) shapes and N past 32, then the
-    molecule cell (128 graphs of 30 nodes, 64 undirected edges each)
-    through `densify_edges` and `dense_spmm` as a user calls them, held
-    against the sparse `segment_spmm`, at F = 128 (MeshGraphNet's
-    d_hidden) and F = 32 (the cell's d_feat). Plain version and
-    `torch.bmm` in full float32 (TF32 off)."""
+    """The reference test's (B, N, F) shapes, N past 32, the kernel's
+    two-stage ring (N = 400; with column chunks at N = 300, F = 200) and
+    plain-load paths (N = 7 with F = 3; N = 333), bfloat16 inputs cast by
+    the wrapper, then the molecule cell (128 graphs of 30 nodes, 64
+    undirected edges each) through `densify_edges` and `dense_spmm` as a
+    user calls them, held against the sparse `segment_spmm`, at F = 128
+    (MeshGraphNet's d_hidden) and F = 32 (the cell's d_feat), where the
+    kernel must stage whole graphs by bulk copy in one stage. Each line
+    names the path the kernel took. Plain version and `torch.bmm` in full
+    float32 (TF32 off)."""
     import numpy as np
     import torch
     from repro_torch.kernels.segment_spmm import ops
     torch.backends.cuda.matmul.allow_tf32 = False
 
     def call(impl, adj, x):
+        # the plain version takes the float32 the wrapper casts to
+        if impl is not ops:
+            adj, x = adj.float(), x.float()
         return impl.dense_spmm(adj, x)
     lines = []
-    for b, n, f in [(1, 8, 4), (8, 30, 16), (17, 12, 32), (3, 70, 40),
-                    (2, 100, 130)]:
+    for b, n, f, dtype in [(1, 8, 4, None), (8, 30, 16, None),
+                           (17, 12, 32, None), (3, 70, 40, None),
+                           (2, 100, 130, None), (4, 7, 3, None),
+                           (3, 400, 128, None), (2, 300, 200, None),
+                           (2, 40, 136, None),
+                           (2, 333, 64, None),
+                           (8, 30, 16, torch.bfloat16)]:
         rng = np.random.default_rng(b * n + f)
-        adj = (rng.random((b, n, n)) < 0.3).astype(np.float32)
-        x = rng.normal(size=(b, n, f)).astype(np.float32)
-        lines.append(substrate_compare(
-            "dense_spmm", call, (torch.from_numpy(adj).to(dev),
-                                 torch.from_numpy(x).to(dev)),
-            1e-5, 1e-5, (b, n, f)))
+        adj = torch.from_numpy((rng.random((b, n, n)) < 0.3).astype(
+            np.float32)).to(dev, dtype)
+        x = torch.from_numpy(rng.normal(size=(b, n, f)).astype(
+            np.float32)).to(dev, dtype)
+        line = substrate_compare("dense_spmm", call, (adj, x), 1e-5, 1e-5,
+                                 (b, n, f, str(adj.dtype)))
+        line.update(path=ops.kernel_path(adj.float(), x.float()))
+        lines.append(line)
     rng = np.random.default_rng(3)
     graphs, npg, und = 128, 30, 64
     pairs = np.stack([rng.choice(npg, 2, replace=False)
@@ -835,11 +926,16 @@ def dense_spmm_cases(dev):
         x = torch.from_numpy(rng.normal(size=(graphs, npg, f)).astype(
             np.float32)).to(dev)
         adj = ops.densify_edges(src, dst, graphs * npg, gid2, graphs, npg)
+        path = ops.kernel_path(adj, x)
+        check(path["bulk"] and not path["ring"],
+              f"dense_spmm does not stage whole graphs by bulk copy at the "
+              f"molecule cell (F = {f}): {path}")
         line = substrate_compare(
             "dense_spmm", call, (adj, x), 1e-5, 1e-5, (graphs, npg, f),
             cost=(4 * (graphs * npg * npg + 2 * graphs * npg * f),
                   2 * graphs * npg * npg * f, OPS_PER_S),
             library=lambda: torch.bmm(adj, x))
+        line.update(path=path)
         if main:
             out, launches = drive_entry("dense_spmm", lambda: ops.dense_spmm(
                 ops.densify_edges(src, dst, graphs * npg, gid2, graphs, npg),
@@ -1309,21 +1405,35 @@ def main() -> int:
     us = {b.u_pad for b in prep.buckets}
     main_u = 64 if 64 in us else prep.buckets[0].u_pad
     table = []
+
+    def at_main(name, form="roots"):
+        return next(ln for ln in kernel_lines
+                    if ln["name"] == name and ln["bucket_u"] == main_u
+                    and ln.get("form", "roots") == form)
     for name in REPLACES:
-        line = next(ln for ln in kernel_lines
-                    if ln["name"] == name and ln["bucket_u"] == main_u)
+        line = at_main(name)
+        # the census: row 4 keeps the reference's contract at the bucket's
+        # roots; the hybrid lanes' shape and the engine's entry point
+        # (`hybrid_census`, the same kernel) stand beside it
+        census = name == "clique_counts"
         table.append(dict(
             name=name, route="cuda", source=SOURCE,
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=max(ln["max_abs_err"] for ln in kernel_lines
-                            if ln["name"] == name),
+                            if ln["name"] == name or census
+                            and ln["name"] == "hybrid_census"),
             ms=line["ms"], plain_ms=line["plain_ms"],
             bound_ms=line["bound_ms"], bound_by=line["bound_by"],
             library_ms=None, shape=line["shape"],
             mask_shape=line.get("mask_shape"),
             **({"geometry": line["geometry"],
                 "group_ms": line["group_ms"]} if "geometry" in line
-               else {})))
+               else {}),
+            **({"lanes_ms": at_main(name, "lanes")["ms"],
+                "hybrid_census_ms": at_main("hybrid_census")["ms"],
+                "hybrid_census_lanes_ms":
+                    at_main("hybrid_census", "lanes")["ms"],
+                "threads_ms": line["threads_ms"]} if census else {})))
     # the substrate kernels at the full width their entry point ran at
     # (one launch per entry-point call)
     for name, (_, source, replaces) in SUBSTRATE.items():

@@ -31,13 +31,11 @@ WORD = 32
 # ===========================================================================
 
 @functools.lru_cache(maxsize=64)
-def _bit_layout(u: int, device: torch.device):
-    """(word index, in-word shift) of bits 0..u-1, and the 32 one-hot word
-    values (bit 31 is INT_MIN) — constants cached per size and device."""
-    idx = torch.arange(u, device=device)
-    onehot = torch.from_numpy(
-        (np.uint32(1) << np.arange(WORD, dtype=np.uint32)).view(np.int32))
-    return (idx // WORD, (idx % WORD).to(torch.int32), onehot.to(device))
+def _onehot(device: torch.device):
+    """The 32 one-hot word values (bit 31 is INT_MIN), cached per device."""
+    return torch.from_numpy(
+        (np.uint32(1) << np.arange(WORD, dtype=np.uint32)).view(np.int32)
+    ).to(device)
 
 
 def popcount(bits):
@@ -60,10 +58,8 @@ def first_bit_index(bits):
     return w * WORD + pos
 
 
-def bitset_to_mask(bits, u):
-    """(..., W) bitsets -> (..., u) bool membership masks."""
-    word_idx, shift, _ = _bit_layout(u, bits.device)
-    return ((bits[..., word_idx] >> shift) & 1) != 0
+# (..., W) bitsets -> (..., u) bool membership masks
+bitset_to_mask = bitops.bits_to_mask
 
 
 @functools.lru_cache(maxsize=64)
@@ -89,7 +85,7 @@ def mask_to_bitset(mask, words):
     sum: one multiply-and-sum instead of the reference's OR reduction over
     one-hot rows. K is a multiple of 32, or fits in one word."""
     k = mask.shape[-1]
-    _, _, onehot = _bit_layout(WORD, mask.device)
+    onehot = _onehot(mask.device)
     if k % WORD:
         if words != 1:
             raise ValueError(f"mask of {k} bits does not fill {words} words")
@@ -181,11 +177,9 @@ class RootContext(NamedTuple):
     not_x_rows: torch.Tensor  # (R, XC, W) ~x_rows, hoisted out of the loop
     eye: torch.Tensor        # (U, W) one-hot bitsets over the universe
     ar: torch.Tensor         # (R,) root index, for per-root gathers
-    # The stacked rows of the two per-call sweeps, hoisted like not_x_rows
-    # (None for the backends that do not sweep them): A on the X0 rows,
-    # (R, U + XC, W), for the 'hybrid' census; ~X0 rows on ~A,
-    # (R, XC + U, W), for the 'rcd' maximality check.
-    ax_rows: Optional[torch.Tensor] = None
+    # The stacked rows of the 'rcd' maximality check, hoisted like
+    # not_x_rows (None for the other backends): ~X0 rows on ~A,
+    # (R, XC + U, W). The 'hybrid' census reads A and x_rows as they are.
     not_xa_rows: Optional[torch.Tensor] = None
 
     @property
@@ -208,15 +202,13 @@ class RootContext(NamedTuple):
 def make_context(a, x_rows, backend: str = "pivot") -> RootContext:
     # ~x_rows is the same on every step (the Lemma-8 X-subset test); eager
     # torch would not hoist it, and it is the bucket's largest tensor. The
-    # stacked rows of `backend`'s per-call sweep are hoisted the same way:
+    # stacked rows of the 'rcd' per-call sweep are hoisted the same way:
     # the reference concatenates them on every call.
     not_x = ~x_rows
     return RootContext(
         A=a, x_rows=x_rows, not_x_rows=not_x,
         eye=eye_bits(a.shape[1], a.shape[2], a.device),
         ar=torch.arange(a.shape[0], device=a.device),
-        ax_rows=(torch.cat([a, x_rows], 1) if backend == "hybrid"
-                 else None),
         not_xa_rows=(torch.cat([not_x, ~a], 1) if backend == "rcd"
                      else None))
 

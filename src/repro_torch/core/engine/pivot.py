@@ -94,8 +94,9 @@ def branch_set(cfg, ctx: fr.RootContext, P, Xp, xal, red, deg=None):
 def hybrid_early_term(carry, cfg, ctx: fr.RootContext, P, Xp, xal, Rb, rsz,
                       enable):
     """'hybrid' call-entry checks (Wang et al., PAPERS.md): one fused
-    census over the stacked adjacency + X0 rows (`ctx.ax_rows`) decides,
-    per root,
+    census over the adjacency and X0 rows (`bitops.hybrid_census`, which
+    reads both where they lie and derives its row selectors from P, Xp
+    and xal) decides, per root,
 
     * early termination — P induces a clique (every member is adjacent to
       the |P|−1 others), so R ∪ P is the subtree's ONLY maximal candidate:
@@ -108,13 +109,8 @@ def hybrid_early_term(carry, cfg, ctx: fr.RootContext, P, Xp, xal, Rb, rsz,
     frame. The report is gated by `enable`, so the persistent engine's
     refill claims and live-masked lane steps inherit the same gating as
     every other carry write."""
-    in_p = fr.bitset_to_mask(P, ctx.u)
-    psize = in_p.sum(-1, dtype=torch.int32)
-    in_x = torch.cat([fr.bitset_to_mask(Xp, ctx.u),
-                      fr.bitset_to_mask(xal, ctx.xc)], -1)
-    # the X0 rows are no P members: in_p is padded with False over them
-    n_full, n_dom = bitops.clique_counts(
-        ctx.ax_rows, P, torch.nn.functional.pad(in_p, (0, ctx.xc)), in_x)
+    n_full, n_dom, psize = bitops.hybrid_census(ctx.A, ctx.x_rows, P, Xp,
+                                                xal)
     is_clique = (n_full == psize) & (psize > 0)
     dominated = n_dom > 0
     size = rsz + psize

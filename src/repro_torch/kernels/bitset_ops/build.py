@@ -14,7 +14,8 @@ LIBRARY = CudaLibrary(SOURCE, {
     "bitset_and_popcount_rows": [_p, _p, _p, _ll, _i, _i, _p],
     "bitset_and_popcount_argmax": [_p, _p, _p, _p, _p, _ll, _i, _i, _p],
     "bitset_frame_step": [_p, _p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _p],
-    "bitset_clique_counts": [_p, _p, _p, _p, _p, _p, _ll, _i, _i, _p],
+    "bitset_clique_counts": [_p] * 6 + [_ll, _i, _i, _i, _p],
+    "bitset_hybrid_census": [_p] * 8 + [_ll] + [_i] * 5 + [_p],
     "bitset_and_popcount_many": [_p, _p, _p, _ll, _i, _i, _i, _p],
     "bitset_dfs_step_window": [_p] * 15 + [_ll] + [_i] * 10 + [_p],
     "bitset_window_lane_bytes": [_i] * 6,

@@ -168,51 +168,8 @@ __global__ void frame_step_kernel(const uint32_t* __restrict__ rows,
 }
 
 
-// ---------------------------------------------------------------------------
-// Block reduction of the census kernel: every thread returns the result.
-// ---------------------------------------------------------------------------
 constexpr int kBig = 1 << 30;
 constexpr unsigned kFullMask = 0xffffffffu;
-
-struct Acc {
-  int a, b, c, d, e;
-};
-
-__device__ inline Acc shfl_down(Acc x, int off) {
-  x.a = __shfl_down_sync(kFullMask, x.a, off);
-  x.b = __shfl_down_sync(kFullMask, x.b, off);
-  x.c = __shfl_down_sync(kFullMask, x.c, off);
-  x.d = __shfl_down_sync(kFullMask, x.d, off);
-  x.e = __shfl_down_sync(kFullMask, x.e, off);
-  return x;
-}
-
-// (a: first set bit) min; b, c, d: sums
-struct MinSum {
-  __device__ Acc operator()(Acc x, Acc y) const {
-    return Acc{min(x.a, y.a), x.b + y.b, x.c + y.c, x.d + y.d, 0};
-  }
-};
-
-// `scratch` holds 33 entries; the leading barrier keeps a previous call's
-// readers safe.
-template <class Combine>
-__device__ Acc block_reduce(Acc v, Combine comb, Acc ident, Acc* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v = comb(v, shfl_down(v, off));
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < static_cast<int>(blockDim.x >> 5) ? scratch[lane] : ident;
-    for (int off = 16; off > 0; off >>= 1) v = comb(v, shfl_down(v, off));
-    if (lane == 0) scratch[32] = v;
-  }
-  __syncthreads();
-  return scratch[32];
-}
-
 
 // ---------------------------------------------------------------------------
 // clique_counts: per root, with pc[k] = popcount(rows[k] & mask),
@@ -222,47 +179,248 @@ __device__ Acc block_reduce(Acc v, Combine comb, Acc ident, Acc* scratch) {
 // Replaces repro/kernels/bitset_ops/kernel.py::clique_counts
 // (_clique_counts_kernel, :207/:225), the 'hybrid' backend's call-entry
 // census over A stacked on the X0 rows. Bound: bytes, R*K*W*4 + 2*R*K
-// (selectors) + R*W*4 read and 8*R written. Design: one block per root,
-// striding over its K rows, one thread per row; the mask is staged once in
-// shared memory and |mask| is a block reduction of its words' popcounts.
-// Each thread counts its rows' two flags, and a second block reduction
-// writes the two counts: no atomics and no second pass (the TPU version
-// emitted per-row flags and summed them outside the kernel only to keep
-// its grid steps independent under vmap).
+// (selectors) + R*W*4 read and 8*R written; at the engine's shapes (K = U
+// + XC = 2,080 / 576 / 256 rows of W = 1 / 2 / 4 words, 64 lanes or a
+// bucket's roots) well under the launch, so what bounds it is the chain
+// inside a block between the launch and its one write.
+//
+// Design: one block per root, and no block-wide step before the row loads.
+// - Every warp loads the root's W mask words itself (lane w < W, a loop for
+//   a runtime W past 32) and gets |mask| with __popc and __reduce_add_sync:
+//   redundant per warp, but no barrier stands between the launch and the
+//   rows.
+// - A thread issues the loads of up to kCensusBatch rows at once (8- or
+//   16-byte vectors at W = 2 and 4, with their selector bytes or bits),
+//   the first batch before the mask's. A block has 512 threads when the
+//   roots are few (under two a SM: the hybrid lanes' 64, the U = 128
+//   bucket's 21) and 256 when they fill the card in waves, never more
+//   than one a row (census_threads; measured at the three scale-12
+//   buckets by chip_smoke.py's threads_ms).
+// - Each warp sums its flags with __reduce_add_sync, and one shared-memory
+//   combine behind a single barrier writes the two counts.
+// Two entry points share the kernel. bitset_clique_counts keeps the
+// reference's contract (stacked rows, bool selectors). bitset_hybrid_census
+// reads A and the X0 rows where they lie, as two pointers with no stacked
+// copy, derives the selectors from the bitsets (in_p: bit k of P for
+// k < U and false on the X0 rows; in_x: bit k of Xp for k < U, bit k - U
+// of x_alive after) and also writes |P|'s bits below U.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-clique_counts_kernel(const uint32_t* __restrict__ rows,
-                     const uint32_t* __restrict__ mask,
-                     const uint8_t* __restrict__ in_p,
-                     const uint8_t* __restrict__ in_x,
-                     int32_t* __restrict__ n_full,
-                     int32_t* __restrict__ n_dom, int K, int W) {
-  extern __shared__ uint32_t smask[];
-  __shared__ Acc scratch[33];
+constexpr int kCensusBatch = 4;
+constexpr int kCensusMaxThreads = 512;
+
+struct CensusArgs {
+  const uint32_t* rows;     // stacked (R, K, W); the hybrid census: A (R, U, W)
+  const uint32_t* x_rows;   // the hybrid census: (R, XC, W)
+  const uint32_t* mask;     // P (R, W)
+  const uint32_t* xp;       // the hybrid census: Xp (R, W)
+  const uint32_t* x_alive;  // the hybrid census: (R, XCW) bits
+  const uint8_t* in_p;      // stacked: (R, K)
+  const uint8_t* in_x;
+  int32_t* n_full;
+  int32_t* n_dom;
+  int32_t* psize;           // the hybrid census: |P| below U
+  int K, U, XC, XCW, W;
+};
+
+// word j of a register bitset of WT words; a select, so the array stays in
+// registers
+template <int WT>
+__device__ __forceinline__ uint32_t word_of(const uint32_t (&v)[WT], int j) {
+  uint32_t out = 0;
+#pragma unroll
+  for (int i = 0; i < WT; ++i) out = i == j ? v[i] : out;
+  return out;
+}
+
+template <int WT>
+__device__ __forceinline__ void load_words(const uint32_t* p,
+                                           uint32_t (&w)[WT]) {
+  if constexpr (WT == 4) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (WT == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < WT; ++i) w[i] = __ldg(p + i);
+  }
+}
+
+// WT: W words as registers (1, 2 or 4; rows 16-byte aligned at W = 4, 8 at
+// W = 2), or 0 for a runtime W read word by word. HYB: the hybrid census.
+template <int WT, bool HYB>
+__global__ void __launch_bounds__(kCensusMaxThreads)
+census_kernel(const CensusArgs a) {
+  __shared__ int s_full[kCensusMaxThreads / 32];
+  __shared__ int s_dom[kCensusMaxThreads / 32];
+  constexpr int WR = WT > 0 ? WT : 1;
   const int64_t r = blockIdx.x;
-  int msize = 0;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    const uint32_t m = mask[r * W + w];
-    smask[w] = m;
-    msize += __popc(m);
+  const int lane = threadIdx.x & 31;
+  const int W = WT > 0 ? WT : a.W;
+  const int K = a.K;
+  const int nt = blockDim.x;
+  const uint32_t* mrow = a.mask + r * W;
+
+  // this thread's first rows: every load issued before the mask's
+  uint32_t w[kCensusBatch][WR];
+  uint32_t sel[kCensusBatch];   // bit 0: in_p, bit 1: in_x (stacked), or
+                                // the row's x_alive word (hybrid, X0 rows)
+  auto row_ptr = [&](int k) -> const uint32_t* {
+    if constexpr (HYB) {
+      return k < a.U ? a.rows + (r * a.U + k) * static_cast<int64_t>(W)
+                     : a.x_rows + (r * a.XC + (k - a.U)) *
+                                      static_cast<int64_t>(W);
+    } else {
+      return a.rows + (r * K + k) * static_cast<int64_t>(W);
+    }
+  };
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < kCensusBatch; ++j) {
+      const int k = k0 + j * nt;
+      if (k >= K) continue;
+      if constexpr (WT > 0) load_words<WT>(row_ptr(k), w[j]);
+      if constexpr (HYB) {
+        const int x = k - a.U;
+        sel[j] = x >= 0 ? __ldg(a.x_alive + r * a.XCW + (x >> 5)) : 0u;
+      } else {
+        sel[j] = (a.in_p[r * K + k] ? 1u : 0u) |
+                 (a.in_x[r * K + k] ? 2u : 0u);
+      }
+    }
+  };
+  fetch(threadIdx.x);
+
+  // |mask|, P's bits below U and (hybrid) Xp, in every warp: no barrier
+  uint32_t m[WR], xpw[WR];
+  int msize = 0, psize = 0;
+  if constexpr (WT > 0) {
+    const uint32_t mw = lane < WT ? __ldg(mrow + lane) : 0u;
+    msize = __reduce_add_sync(kFullMask, __popc(mw));
+#pragma unroll
+    for (int i = 0; i < WT; ++i) m[i] = __shfl_sync(kFullMask, mw, i);
+    if constexpr (HYB) {
+      const uint32_t xw = lane < WT ? __ldg(a.xp + r * W + lane) : 0u;
+#pragma unroll
+      for (int i = 0; i < WT; ++i) xpw[i] = __shfl_sync(kFullMask, xw, i);
+      const int below = a.U - 32 * lane;   // P's bits of this lane's word
+      const uint32_t keep = below >= 32 ? kFullMask
+                            : below > 0 ? (1u << below) - 1u : 0u;
+      psize = __reduce_add_sync(kFullMask, __popc(mw & keep));
+    }
+  } else {
+    for (int i = lane; i < W; i += 32) {
+      const uint32_t mw = __ldg(mrow + i);
+      msize += __popc(mw);
+      const int below = a.U - 32 * i;
+      psize += __popc(mw & (below >= 32 ? kFullMask
+                            : below > 0 ? (1u << below) - 1u : 0u));
+    }
+    msize = __reduce_add_sync(kFullMask, msize);
+    psize = __reduce_add_sync(kFullMask, psize);
   }
-  // the reduction's barriers also publish smask
-  msize = block_reduce(Acc{kBig, msize, 0, 0, 0}, MinSum(),
-                       Acc{kBig, 0, 0, 0, 0}, scratch).b;
+
   int full = 0, dom = 0;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const uint32_t* row = rows + (r * K + k) * static_cast<int64_t>(W);
-    int pc = 0;
-    for (int w = 0; w < W; ++w) pc += __popc(row[w] & smask[w]);
-    full += in_p[r * K + k] && pc == msize - 1;
-    dom += in_x[r * K + k] && pc == msize;
+  for (int k0 = threadIdx.x; k0 < K; k0 += kCensusBatch * nt) {
+    if (k0 != static_cast<int>(threadIdx.x)) fetch(k0);
+#pragma unroll
+    for (int j = 0; j < kCensusBatch; ++j) {
+      const int k = k0 + j * nt;
+      if (k >= K) continue;
+      int pc = 0;
+      bool ip, ix;
+      if constexpr (WT > 0) {
+#pragma unroll
+        for (int i = 0; i < WT; ++i) pc += __popc(w[j][i] & m[i]);
+      } else {
+        const uint32_t* row = row_ptr(k);
+        for (int i = 0; i < W; ++i) pc += __popc(__ldg(row + i) & __ldg(mrow + i));
+      }
+      if constexpr (HYB) {
+        if (k < a.U) {
+          uint32_t pw, xw;
+          if constexpr (WT > 0) {
+            pw = word_of<WT>(m, k >> 5);
+            xw = word_of<WT>(xpw, k >> 5);
+          } else {
+            pw = __ldg(mrow + (k >> 5));
+            xw = __ldg(a.xp + r * W + (k >> 5));
+          }
+          ip = (pw >> (k & 31)) & 1u;
+          ix = (xw >> (k & 31)) & 1u;
+        } else {
+          ip = false;
+          ix = (sel[j] >> ((k - a.U) & 31)) & 1u;
+        }
+      } else {
+        ip = sel[j] & 1u;
+        ix = sel[j] & 2u;
+      }
+      full += ip && pc == msize - 1;
+      dom += ix && pc == msize;
+    }
   }
-  const Acc sums = block_reduce(Acc{kBig, full, dom, 0, 0}, MinSum(),
-                                Acc{kBig, 0, 0, 0, 0}, scratch);
+  full = __reduce_add_sync(kFullMask, full);
+  dom = __reduce_add_sync(kFullMask, dom);
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    s_full[warp] = full;
+    s_dom[warp] = dom;
+  }
+  __syncthreads();
   if (threadIdx.x == 0) {
-    n_full[r] = sums.b;
-    n_dom[r] = sums.c;
+    for (int i = 1; i < nt / 32; ++i) {
+      full += s_full[i];
+      dom += s_dom[i];
+    }
+    a.n_full[r] = full;
+    a.n_dom[r] = dom;
+    if constexpr (HYB) a.psize[r] = psize;
   }
+}
+
+// Threads a census block takes for R roots of K rows: 512 when the blocks
+// are under two a SM, else 256, and at most K rounded up to whole warps
+// (`threads` > 0 forces a count, a multiple of 32, for the measurements of
+// chip_smoke.py and the probe).
+constexpr long long kCensusFewRoots = 2 * 132;
+
+int census_threads(long long R, int K, int threads) {
+  if (threads > 0) return threads;
+  const int most = R < kCensusFewRoots ? kCensusMaxThreads : 256;
+  const int rows = (K + 31) / 32 * 32;
+  return rows < most ? rows : most;
+}
+
+template <bool HYB>
+int launch_census(const CensusArgs& a, long long R, int threads,
+                  bool vec_ok, cudaStream_t stream) {
+  const int nt = census_threads(R, a.K, threads);
+  if (nt % 32 != 0 || nt > kCensusMaxThreads ||
+      R > 0x7fffffffll) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned grid = static_cast<unsigned>(R);
+  const int W = vec_ok ? a.W : 0;
+  switch (W) {
+    case 1:
+      census_kernel<1, HYB><<<grid, nt, 0, stream>>>(a);
+      break;
+    case 2:
+      census_kernel<2, HYB><<<grid, nt, 0, stream>>>(a);
+      break;
+    case 4:
+      census_kernel<4, HYB><<<grid, nt, 0, stream>>>(a);
+      break;
+    default:
+      census_kernel<0, HYB><<<grid, nt, 0, stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -937,16 +1095,52 @@ int bitset_frame_step(const void* rows, const void* p, const void* xp,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `threads`: the census block's threads, 0 for census_threads' choice.
 int bitset_clique_counts(const void* rows, const void* mask, const void* in_p,
                          const void* in_x, void* n_full, void* n_dom,
-                         long long R, int K, int W, void* stream) {
-  clique_counts_kernel<<<static_cast<unsigned>(R), kThreads,
-                         W * sizeof(uint32_t),
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rows), static_cast<const uint32_t*>(mask),
-      static_cast<const uint8_t*>(in_p), static_cast<const uint8_t*>(in_x),
-      static_cast<int32_t*>(n_full), static_cast<int32_t*>(n_dom), K, W);
-  return static_cast<int>(cudaGetLastError());
+                         long long R, int K, int W, int threads,
+                         void* stream) {
+  CensusArgs a{};
+  a.rows = static_cast<const uint32_t*>(rows);
+  a.mask = static_cast<const uint32_t*>(mask);
+  a.in_p = static_cast<const uint8_t*>(in_p);
+  a.in_x = static_cast<const uint8_t*>(in_x);
+  a.n_full = static_cast<int32_t*>(n_full);
+  a.n_dom = static_cast<int32_t*>(n_dom);
+  a.K = K;
+  a.U = K;
+  a.W = W;
+  const bool vec_ok = reinterpret_cast<uintptr_t>(rows) % (4 * W) == 0;
+  return launch_census<false>(a, R, threads, vec_ok,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The hybrid census: A (R, U, W) and the X0 rows (R, XC, W) where they lie,
+// P and Xp (R, W), x_alive (R, XCW) bits; writes n_full, n_dom and |P|.
+int bitset_hybrid_census(const void* a_rows, const void* x_rows,
+                         const void* p, const void* xp, const void* x_alive,
+                         void* n_full, void* n_dom, void* psize, long long R,
+                         int U, int XC, int XCW, int W, int threads,
+                         void* stream) {
+  CensusArgs a{};
+  a.rows = static_cast<const uint32_t*>(a_rows);
+  a.x_rows = static_cast<const uint32_t*>(x_rows);
+  a.mask = static_cast<const uint32_t*>(p);
+  a.xp = static_cast<const uint32_t*>(xp);
+  a.x_alive = static_cast<const uint32_t*>(x_alive);
+  a.n_full = static_cast<int32_t*>(n_full);
+  a.n_dom = static_cast<int32_t*>(n_dom);
+  a.psize = static_cast<int32_t*>(psize);
+  a.K = U + XC;
+  a.U = U;
+  a.XC = XC;
+  a.XCW = XCW;
+  a.W = W;
+  const bool vec_ok =
+      reinterpret_cast<uintptr_t>(a_rows) % (4 * W) == 0 &&
+      reinterpret_cast<uintptr_t>(x_rows) % (4 * W) == 0;
+  return launch_census<true>(a, R, threads, vec_ok,
+                             static_cast<cudaStream_t>(stream));
 }
 
 int bitset_and_popcount_many(const void* rows, const void* masks, void* out,

@@ -31,8 +31,8 @@ import torch
 from repro_torch.kernels._build import Launches, on_cpu, raise_on, stream
 from repro_torch.kernels.bitset_ops import ref
 from repro_torch.kernels.bitset_ops.build import LIBRARY
-from repro_torch.kernels.bitset_ops.words import (and_rows,  # noqa: F401
-                                                  popcount, popcount_words)
+from repro_torch.kernels.bitset_ops.words import (  # noqa: F401
+    and_rows, bits_to_mask, popcount, popcount_words)
 
 LAUNCHES = Launches({"frame_step": 0, "and_popcount_rows": 0,
                      "and_popcount_argmax": 0, "clique_counts": 0,
@@ -219,11 +219,14 @@ def frame_step(rows: torch.Tensor, p: torch.Tensor, xp: torch.Tensor,
 
 
 def clique_counts(rows: torch.Tensor, mask: torch.Tensor, in_p: torch.Tensor,
-                  in_x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                  in_x: torch.Tensor, *, threads: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused early-termination census of the 'hybrid' backend: (n_full,
     n_dom), both int32 (...,), the in_p rows with popcount(row & mask) ==
     |mask| − 1 and the in_x rows with popcount(row & mask) == |mask|.
-    rows (..., K, W), mask (..., W), in_p/in_x (..., K) bool."""
+    rows (..., K, W), mask (..., W), in_p/in_x (..., K) bool. `threads`
+    sets the CUDA block's threads (a multiple of 32 up to 512; 0: the
+    library's choice), for measurements."""
     if on_cpu(rows, mask, in_p, in_x):
         return ref.clique_counts(rows, mask, in_p, in_x)
     lead, r, k, w = _check("clique_counts", rows, mask, in_p, in_x)
@@ -238,9 +241,46 @@ def clique_counts(rows: torch.Tensor, mask: torch.Tensor, in_p: torch.Tensor,
         raise_on("clique_counts", LIBRARY.load().bitset_clique_counts(
             rows.data_ptr(), mask.data_ptr(), in_p.data_ptr(),
             in_x.data_ptr(), n_full.data_ptr(), n_dom.data_ptr(), r, k, w,
-            stream()))
+            threads, stream()))
         LAUNCHES["clique_counts"] += 1
     return n_full, n_dom
+
+
+def hybrid_census(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
+                  Xp: torch.Tensor, x_alive: torch.Tensor, *,
+                  threads: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The 'hybrid' census on the engine's operands: (n_full, n_dom,
+    psize), each int32 (...,), as `clique_counts` over A stacked on the X0
+    rows with the selectors derived from P, Xp and x_alive, and psize =
+    |P|'s bits below U (`ref.hybrid_census` is the composition). a (...,
+    U, W), x_rows (..., XC, W), P/Xp (..., W), x_alive (..., XCW) bits
+    with 32·XCW >= XC. The kernel is `clique_counts`'s, counted in
+    LAUNCHES["clique_counts"]; it reads the two row blocks where they lie
+    and builds no selector."""
+    if on_cpu(a, x_rows, P, Xp, x_alive):
+        return ref.hybrid_census(a, x_rows, P, Xp, x_alive)
+    lead, r, u, w = _check("hybrid_census", a, x_rows, P, Xp, x_alive)
+    xc = x_rows.shape[-2]
+    xcw = x_alive.shape[-1] if x_alive.dim() else 0
+    if (x_rows.dtype != torch.int32 or tuple(x_rows.shape) != lead + (xc, w)
+            or x_alive.dtype != torch.int32
+            or tuple(x_alive.shape) != lead + (xcw,) or 32 * xcw < xc
+            or u > 32 * w):
+        raise ValueError(f"hybrid_census: x_rows must be int32 "
+                         f"{lead + ('XC', w)} and x_alive int32 "
+                         f"{lead + ('XCW',)} with 32*XCW >= XC, U <= 32*W; "
+                         f"got {tuple(x_rows.shape)}, {tuple(x_alive.shape)}")
+    for v in (P, Xp):
+        _check_mask("hybrid_census", v, lead, w)
+    outs = tuple(torch.empty(lead, dtype=torch.int32, device=a.device)
+                 for _ in range(3))
+    if r:
+        raise_on("hybrid_census", LIBRARY.load().bitset_hybrid_census(
+            *(t.data_ptr() for t in (a, x_rows, P, Xp, x_alive) + outs),
+            r, u, xc, xcw, w, threads, stream()))
+        LAUNCHES["clique_counts"] += 1
+    return outs
 
 
 def and_popcount_many(rows: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:

@@ -19,8 +19,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.bitset_ops.words import (WORD, and_rows,  # noqa: F401
-                                                  popcount, popcount_words)
+from repro_torch.kernels.bitset_ops.words import (  # noqa: F401
+    WORD, and_rows, bits_to_mask, popcount, popcount_words)
 
 # one-hot word of each bit position (bit 31 is INT_MIN)
 _ONEHOT = torch.from_numpy(
@@ -69,6 +69,30 @@ def clique_counts(rows: torch.Tensor, mask: torch.Tensor, in_p: torch.Tensor,
     n_full = (in_p & (pc == msize - 1)).sum(-1, dtype=torch.int32)
     n_dom = (in_x & (pc == msize)).sum(-1, dtype=torch.int32)
     return n_full, n_dom
+
+
+def hybrid_census(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
+                  Xp: torch.Tensor, x_alive: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The 'hybrid' call-entry census on the engine's own operands:
+    `clique_counts` over A stacked on the X0 rows, with the selectors the
+    engine builds from the bitsets, and |P| beside it.
+
+    a: (..., U, W), x_rows: (..., XC, W), P/Xp: (..., W) int32 words,
+    x_alive: (..., XCW) int32 bits over the X0 rows -> (n_full, n_dom,
+    psize), each (...,) int32. in_p is P's bits below U, False on the X0
+    rows; in_x is Xp's bits below U, then x_alive's first XC bits; psize
+    counts in_p. Exactly the composition of the reference's
+    `pivot.hybrid_early_term` (`bitset_to_mask`, `concatenate`, `pad`,
+    `clique_counts`)."""
+    u, xc = a.shape[-2], x_rows.shape[-2]
+    in_p = bits_to_mask(P, u)
+    psize = in_p.sum(-1, dtype=torch.int32)
+    in_x = torch.cat([bits_to_mask(Xp, u), bits_to_mask(x_alive, xc)], -1)
+    n_full, n_dom = clique_counts(torch.cat([a, x_rows], -2), P,
+                                  torch.nn.functional.pad(in_p, (0, xc)),
+                                  in_x)
+    return n_full, n_dom, psize
 
 
 def and_popcount_many(rows: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:

@@ -34,18 +34,19 @@ COMBINERS = ("sum", "mean")
 
 def embedding_bag_sum(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """out[b] = sum of table[ids[b, l]] over the ids >= 0, summed in slot
-    order in float32. table: (V, D) float32; ids: (B, L) int32 -> (B, D)
-    float32. An id at or above V reads row V - 1, as the plain version."""
-    if on_cpu(table, ids):
-        return ref.embedding_bag(table, ids, "sum")
+    order in float32. table: (V, D); ids: (B, L) -> (B, D) float32. The
+    table is cast to float32 and the ids to int32 first, as the reference's
+    kernel does (`embedding_bag/kernel.py:71`). An id at or above V reads
+    row V - 1, as the plain version."""
+    cpu = on_cpu(table, ids)
     if table.dim() != 2 or ids.dim() != 2:
         raise ValueError(f"embedding_bag: table must be (V, D) and ids "
                          f"(B, L), got {tuple(table.shape)} and "
                          f"{tuple(ids.shape)}")
-    if table.dtype != torch.float32 or not table.is_contiguous():
-        raise ValueError("embedding_bag: table must be contiguous float32")
-    if ids.dtype != torch.int32 or not ids.is_contiguous():
-        raise ValueError("embedding_bag: ids must be contiguous int32")
+    table = table.to(torch.float32).contiguous()
+    ids = ids.to(torch.int32).contiguous()
+    if cpu:
+        return ref.embedding_bag(table, ids, "sum")
     (v, d), (b, l) = table.shape, ids.shape
     if v == 0:
         raise ValueError("embedding_bag: empty table")

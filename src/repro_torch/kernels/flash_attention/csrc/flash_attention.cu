@@ -16,9 +16,11 @@
 // Which shapes take which kernel (ops.py::takes_tensor_cores):
 // - bfloat16 with D = 64 or 128 (every LM configuration of the repo has
 //   D = 128): flash_attention_fwd_sm90, the tensor-core kernel;
-// - float32 at any D <= 256, and bfloat16 at any other D <= 256:
-//   flash_attention_fwd, the CUDA-core kernel. float32 stays off the tensor
-//   cores because its checks are the reference's 2e-5, which TF32 misses.
+// - float32 and float16 at any D <= 256, and bfloat16 at any other
+//   D <= 256: flash_attention_fwd, the CUDA-core kernel. float32 stays off
+//   the tensor cores because its checks are the reference's 2e-5, which
+//   TF32 misses. D > 256 is refused (the accumulator is sized at compile
+//   time; no configuration of the repo has D other than 64 or 128).
 //
 // Bound on an H100 SXM: operations. qwen3-14b's attention at its 4,096-
 // token training sequence (40 heads of D = 128 after GQA expansion, batch
@@ -80,8 +82,8 @@
 // Design: flash_attention_fwd (the CUDA-core kernel): one block of 256
 // threads per (head, 64-row query tile). The query tile sits in shared
 // memory as float32 for the whole block; key and value tiles of 32 rows
-// stream through shared memory (bfloat16 converted with __bfloat162float on
-// the way in). Four threads own one query row: each computes 8 of the
+// stream through shared memory (bfloat16 and float16 converted to float32
+// on the way in). Four threads own one query row: each computes 8 of the
 // tile's 32 scores (rows of q and k padded by one float, so neither read
 // conflicts on a bank), the row's max and sum come from two __shfl_xor_sync
 // steps, the probabilities go through shared memory, and each thread keeps
@@ -92,6 +94,7 @@
 #include <cstring>
 #include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 // ===========================================================================
@@ -109,9 +112,13 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half(x);
 }
 
 size_t smem_bytes(int D) {
@@ -790,16 +797,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and out alike).
+// dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and out alike).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long BH, int Sq, int Sk, int D, float scale,
                         int causal, int dtype, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 1 ? launch_d<__nv_bfloat16>(q, k, v, o, BH, Sq, Sk, D, scale,
-                                           causal, s)
-                 : launch_d<float>(q, k, v, o, BH, Sq, Sk, D, scale, causal,
-                                   s);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = launch_d<float>(q, k, v, o, BH, Sq, Sk, D, scale, causal, s);
+  } else if (dtype == 1) {
+    err = launch_d<__nv_bfloat16>(q, k, v, o, BH, Sq, Sk, D, scale, causal,
+                                  s);
+  } else if (dtype == 2) {
+    err = launch_d<__half>(q, k, v, o, BH, Sq, Sk, D, scale, causal, s);
+  }
   return static_cast<int>(err);
 }
 

@@ -5,8 +5,9 @@ a CPU tensor takes the plain version in `ref`; a CUDA tensor launches one of
 the two hand-written Hopper kernels of `csrc/flash_attention.cu` (built at
 first use by the port's build helper) or raises. `takes_tensor_cores`
 picks the kernel: bfloat16 at D = 64 or 128 takes the bf16 `wgmma` kernel
-fed by TMA, everything else the float32 CUDA-core kernel; neither falls
-back to the other. `LAUNCHES["flash_attention"]` counts every launch,
+fed by TMA, everything else (float32, float16, bfloat16 at another D)
+the CUDA-core kernel, which computes in float32; neither falls back to
+the other. `LAUNCHES["flash_attention"]` counts every launch,
 `LAUNCHES["flash_attention_wgmma"]` those of the tensor-core kernel.
 
 `mha` adapts the (B, S, H, D) layout of the models to the kernel's
@@ -38,7 +39,8 @@ LAUNCHES = Launches({"flash_attention": 0, "flash_attention_wgmma": 0})
 MAX_HEAD_DIM = 256
 # Head widths of the tensor-core kernel (one or two 64-column TMA boxes).
 TENSOR_CORE_HEAD_DIMS = (64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Types of the CUDA-core kernel (its C entry point's dtype code).
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def takes_tensor_cores(dtype: torch.dtype, d: int) -> bool:
@@ -51,8 +53,10 @@ def takes_tensor_cores(dtype: torch.dtype, d: int) -> bool:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Softmax attention forward. q: (BH, Sq, D); k, v: (BH, Sk, D), all
-    float32 or all bfloat16 -> (BH, Sq, D) in q's type. Scale 1/sqrt(D);
-    causal masks k_pos > q_pos (top-left aligned, also when Sq != Sk)."""
+    float32, all bfloat16 or all float16 -> (BH, Sq, D) in q's type.
+    Scale 1/sqrt(D); causal masks k_pos > q_pos (top-left aligned, also
+    when Sq != Sk). On the card D is at most MAX_HEAD_DIM (256): a wider
+    head is refused."""
     if on_cpu(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal)
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
@@ -61,8 +65,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"(BH, Sk, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention: q, k, v must all be float32 or "
-                         f"all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError(f"flash_attention: q, k, v must all be float32, "
+                         f"all bfloat16 or all float16, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
     bh, sq, d = q.shape

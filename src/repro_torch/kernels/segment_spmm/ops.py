@@ -3,7 +3,8 @@
 `dense_spmm` dispatches by the device of the tensors handed in, and by
 nothing else: a CPU tensor takes the plain version in `ref`; a CUDA tensor
 launches the hand-written Hopper kernel `csrc/segment_spmm.cu` (built at
-first use by the port's build helper) or raises.
+first use by the port's build helper) or raises. Both take float32: other
+floating inputs are cast first, as in the reference.
 `LAUNCHES["dense_spmm"]` counts the kernel's launches.
 
 `segment_spmm` is plain PyTorch on every device: the reference has no
@@ -24,7 +25,8 @@ from repro_torch.kernels.segment_spmm import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "segment_spmm.cu"
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-LIBRARY = CudaLibrary(SOURCE, {"dense_spmm": [_p, _p, _p, _ll, _i, _i, _p]})
+LIBRARY = CudaLibrary(SOURCE, {"dense_spmm": [_p, _p, _p, _ll, _i, _i, _p],
+                               "dense_spmm_path": [_p, _p, _ll, _i, _i]})
 LAUNCHES = Launches({"dense_spmm": 0})
 
 
@@ -36,18 +38,19 @@ def segment_spmm(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 
 
 def dense_spmm(adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """out[b] = adj[b] @ x[b] in float32: adj (B, N, N), x (B, N, F)."""
-    if on_cpu(adj, x):
-        return ref.dense_spmm(adj, x)
+    """out[b] = adj[b] @ x[b] in float32: adj (B, N, N), x (B, N, F).
+    Inputs of another floating type are cast to float32 first, as the
+    reference's kernel does (`segment_spmm/kernel.py:53`)."""
+    cpu = on_cpu(adj, x)
     if adj.dim() != 3 or x.dim() != 3 or adj.shape[1] != adj.shape[2] \
             or x.shape[:2] != adj.shape[:2]:
         raise ValueError(f"dense_spmm: adj must be (B, N, N) and x "
                          f"(B, N, F), got {tuple(adj.shape)} and "
                          f"{tuple(x.shape)}")
-    for t in (adj, x):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("dense_spmm: adj and x must be contiguous "
-                             "float32")
+    adj = adj.to(torch.float32).contiguous()
+    x = x.to(torch.float32).contiguous()
+    if cpu:
+        return ref.dense_spmm(adj, x)
     b, n, f = x.shape
     out = torch.empty(b, n, f, dtype=torch.float32, device=x.device)
     if b and n and f:
@@ -55,6 +58,19 @@ def dense_spmm(adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
             adj.data_ptr(), x.data_ptr(), out.data_ptr(), b, n, f, stream()))
         LAUNCHES["dense_spmm"] += 1
     return out
+
+
+def kernel_path(adj: torch.Tensor, x: torch.Tensor) -> dict:
+    """How the CUDA kernel stages these float32 inputs (the library's
+    `dense_spmm_path`): bulk copies on mbarriers or plain loads, one stage
+    or the two-stage ring, float4 rows, rows a thread owns, and blocks per
+    graph."""
+    b, n, f = x.shape
+    code = LIBRARY.load().dense_spmm_path(adj.data_ptr(), x.data_ptr(), b, n,
+                                          f)
+    return dict(bulk=bool(code & 1), ring=bool(code & 2),
+                vec=bool(code & 4), rows_per_thread=(code >> 4) & 15,
+                blocks_per_graph=code >> 8)
 
 
 def densify_edges(src: torch.Tensor, dst: torch.Tensor, n_nodes: int,

@@ -30,7 +30,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.segment_spmm import ops as sp_ops
 from repro_torch.kernels.segment_spmm import ref as sp_ref
-from torch_census_inputs import census_inputs
+from torch_census_inputs import census_inputs, hybrid_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -101,6 +101,61 @@ def test_cuda_census_and_many_match_plain_versions(cuda_device, r, k, w):
     assert ops.LAUNCHES["clique_counts"] == before["clique_counts"] + 1
     assert ops.LAUNCHES["and_popcount_many"] == \
         before["and_popcount_many"] + 3
+
+
+# (R, U, XC, W) of the census: K = U + XC under 32 and off every block
+# size, R = 1 and the scale-12 buckets' 623 roots and 64 lanes, XC = 0,
+# W = 1-4 (the vector instances and W = 3) and a runtime W past 4
+CENSUS_CASES = [(1, 7, 5, 1), (4, 7, 5, 1), (623, 64, 512, 2),
+                (64, 64, 512, 2), (64, 32, 2048, 1), (21, 128, 128, 4),
+                (3, 50, 37, 2), (5, 70, 33, 3), (4, 32, 0, 1),
+                (4, 100, 130, 4), (3, 200, 300, 8), (2, 160, 7, 5)]
+
+
+def _unaligned(t):
+    """A contiguous copy of `t` one word past an aligned address, so the
+    census takes its word-by-word instance."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("r,u,xc,w", CENSUS_CASES)
+def test_cuda_census_entry_points_match_plain_versions(cuda_device, r, u,
+                                                       xc, w):
+    """Both entry points of the census kernel bit for bit against their
+    plain versions: `hybrid_census` on the engine's operands and
+    `clique_counts` on the same rows stacked with the selectors the plain
+    version derives, at every block size, and with rows off the vector
+    loads' alignment."""
+    a, xr, P, Xp, xal = (
+        torch.from_numpy(x.view(np.int32)).to(cuda_device)[:r]
+        for x in hybrid_inputs(max(r, 4), u, xc, w, seed=r + u + xc + w))
+    a, xr, P, Xp, xal = (t.contiguous() for t in (a, xr, P, Xp, xal))
+    want = ref.hybrid_census(a, xr, P, Xp, xal)
+    rows = torch.cat([a, xr], 1)
+    in_p = torch.nn.functional.pad(ref.bits_to_mask(P, u), (0, xc))
+    in_x = torch.cat([ref.bits_to_mask(Xp, u), ref.bits_to_mask(xal, xc)],
+                     -1)
+    assert all(torch.equal(g, w_) for g, w_ in zip(
+        ref.clique_counts(rows, P, in_p, in_x), want))
+    before = ops.LAUNCHES["clique_counts"]
+    calls = 0
+    for threads in (0, 32, 64, 128, 256, 512):
+        got = ops.hybrid_census(a, xr, P, Xp, xal, threads=threads)
+        assert all(torch.equal(g, w_) for g, w_ in zip(got, want)), threads
+        got = ops.clique_counts(rows, P, in_p, in_x, threads=threads)
+        assert all(torch.equal(g, w_) for g, w_ in zip(got, want)), threads
+        calls += 2
+    got = ops.hybrid_census(_unaligned(a), _unaligned(xr), P, Xp, xal)
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    got = ops.clique_counts(_unaligned(rows), P, in_p, in_x)
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["clique_counts"] == before + calls + 2
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ops.hybrid_census(a, xr, P, Xp, xal, threads=48)
 
 
 @pytest.mark.parametrize("backend", ["hybrid", "rcd"])
@@ -335,6 +390,25 @@ def test_cuda_embedding_bag_matches_plain_version(cuda_device, v, d, b, l):
     assert eb_ops.LAUNCHES["embedding_bag_sum"] == before + 2
 
 
+def test_cuda_embedding_bag_casts_its_inputs(cuda_device):
+    """A bfloat16 or float64 table and int64 ids are cast to float32 and
+    int32, as the reference's kernel does, and launch the kernel: equal to
+    the plain version on the cast inputs within 1e-5."""
+    rng = np.random.default_rng(4)
+    table = torch.from_numpy(rng.normal(size=(700, 24)).astype(np.float32))
+    ids = torch.from_numpy(np.where(rng.random((50, 9)) < 0.8,
+                                    rng.integers(0, 700, (50, 9)), -1))
+    for t in (table.to(torch.bfloat16), table.double()):
+        t, i = t.to(cuda_device), ids.to(cuda_device)
+        before = eb_ops.LAUNCHES["embedding_bag_sum"]
+        got = eb_ops.embedding_bag_sum(t, i)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(
+            got, eb_ref.embedding_bag(t.float(), i.int(), "sum"),
+            rtol=1e-5, atol=1e-5)
+        assert eb_ops.LAUNCHES["embedding_bag_sum"] == before + 1
+
+
 @pytest.fixture
 def full_fp32_matmul():
     """The plain versions' einsum in full float32 (no TF32), as stated."""
@@ -364,6 +438,60 @@ def test_cuda_dense_spmm_matches_plain_version(cuda_device, full_fp32_matmul,
                                rtol=1e-5, atol=1e-5)
     torch.cuda.synchronize()
     assert sp_ops.LAUNCHES["dense_spmm"] == before + 1
+
+
+# (B, N, F) -> the path dense_spmm takes: the molecule cell (whole graphs
+# by bulk copy, one stage), the two-stage ring with bulk copies (N = 400;
+# with column chunks at F = 200), one stage with column chunks (F = 136,
+# the last chunk 8 wide), the ring with plain loads (N = 333 odd),
+# plain loads in one stage (N = 7 and F = 3; F = 130 past 128, not a
+# multiple of 4), bulk copies at F off float4 (F = 6)
+SPMM_PATHS = [((128, 30, 128), dict(bulk=True, ring=False, vec=True)),
+              ((128, 30, 32), dict(bulk=True, ring=False, vec=True)),
+              ((3, 400, 128), dict(bulk=True, ring=True, vec=True)),
+              ((2, 300, 200), dict(bulk=True, ring=True, vec=True)),
+              ((2, 40, 136), dict(bulk=True, ring=False, vec=True)),
+              ((2, 333, 64), dict(bulk=False, ring=True, vec=True)),
+              ((4, 7, 3), dict(bulk=False, ring=False, vec=False)),
+              ((2, 100, 130), dict(bulk=False, ring=False, vec=False)),
+              ((5, 10, 6), dict(bulk=True, ring=False, vec=False))]
+
+
+@pytest.mark.parametrize("shape,path", SPMM_PATHS)
+def test_cuda_dense_spmm_paths(cuda_device, full_fp32_matmul, shape, path):
+    """Each staging path of the kernel (`kernel_path` says which one a
+    shape takes) within rtol = atol = 1e-5 of the plain version."""
+    b, n, f = shape
+    rng = np.random.default_rng(b + n + f)
+    adj = torch.from_numpy(
+        (rng.random((b, n, n)) < 0.3).astype(np.float32)).to(cuda_device)
+    x = torch.from_numpy(
+        rng.normal(size=(b, n, f)).astype(np.float32)).to(cuda_device)
+    taken = sp_ops.kernel_path(adj, x)
+    assert {k: taken[k] for k in path} == path
+    torch.testing.assert_close(sp_ops.dense_spmm(adj, x),
+                               sp_ref.dense_spmm(adj, x),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_dense_spmm_casts_its_inputs(cuda_device, full_fp32_matmul):
+    """bfloat16 and float64 inputs are cast to float32 by the wrapper, as
+    the reference's kernel does, and launch the kernel: within 1e-5 of
+    the plain version on the cast inputs."""
+    rng = np.random.default_rng(6)
+    adj = torch.from_numpy((rng.random((16, 30, 30)) < 0.3)
+                           .astype(np.float32)).to(cuda_device)
+    x = torch.from_numpy(rng.normal(size=(16, 30, 64))
+                         .astype(np.float32)).to(cuda_device)
+    for dtype in (torch.bfloat16, torch.float64):
+        before = sp_ops.LAUNCHES["dense_spmm"]
+        got = sp_ops.dense_spmm(adj.to(dtype), x.to(dtype))
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(
+            got, sp_ref.dense_spmm(adj.to(dtype).float(),
+                                   x.to(dtype).float()),
+            rtol=1e-5, atol=1e-5)
+        assert sp_ops.LAUNCHES["dense_spmm"] == before + 1
 
 
 def test_cuda_densify_edges_matches_cpu(cuda_device):
@@ -486,6 +614,42 @@ def test_cuda_flash_attention_cuda_cores(cuda_device, full_fp32_matmul,
     else:
         torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-3)
         assert float((got.float() - want).norm() / want.norm()) < 1e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [48, 128, 200])
+def test_cuda_flash_attention_float16(cuda_device, full_fp32_matmul, d,
+                                      causal):
+    """float16 takes the CUDA-core kernel's float16 instance (never the
+    tensor-core one), held to the plain version at the bfloat16
+    tolerances: rtol 1e-2, atol 1e-3 and a relative norm under 1e-2."""
+    rng = np.random.default_rng(d + causal)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, s, d))).to(
+        cuda_device, torch.float16) for s in (130, 150, 150))
+    before = dict(fa_ops.LAUNCHES)
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"]
+    assert fa_ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert got.dtype == torch.float16 and got.shape == (2, 130, d)
+    want = fa_ref.flash_attention(q, k, v, causal=causal).float()
+    torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-3)
+    assert float((got.float() - want).norm() / want.norm()) < 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_cuda_flash_attention_refuses_wide_heads(cuda_device, dtype):
+    """D above MAX_HEAD_DIM (256) is refused on the card, launching
+    nothing: the CUDA-core kernel's accumulator is sized at compile time,
+    and no configuration of the repo has D other than 64 or 128."""
+    q = torch.zeros(1, 8, fa_ops.MAX_HEAD_DIM + 8, dtype=dtype,
+                    device=cuda_device)
+    before = dict(fa_ops.LAUNCHES)
+    with pytest.raises(ValueError, match="head width"):
+        fa_ops.flash_attention(q, q, q)
+    assert fa_ops.LAUNCHES == before
 
 
 @pytest.mark.parametrize("b", [1, 2])

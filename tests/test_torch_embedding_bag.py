@@ -56,6 +56,28 @@ def test_embedding_bag_sum_matches_reference(v, d, b, l):
     assert not want[0].any()
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
+def test_embedding_bag_sum_casts_like_the_reference(dtype):
+    """A table of another floating type is cast to float32 and int64 ids
+    to int32 first, as the reference's kernel does: a bfloat16 table
+    (values exact in bfloat16) and a float64 one, against its Pallas
+    kernel in interpret mode on the same inputs; float32 out."""
+    table, ids = _inputs(512, 32, 100, 8, 5)
+    table = torch.from_numpy(table).to(torch.bfloat16).float().numpy()
+    t_ids, j_ids = torch.from_numpy(ids.astype(np.int64)), jnp.asarray(ids)
+    if dtype == "bfloat16":
+        t_table = torch.from_numpy(table).to(torch.bfloat16)
+        j_table = jnp.asarray(table).astype(jnp.bfloat16)
+    else:
+        t_table = torch.from_numpy(table.astype(np.float64))
+        j_table = jnp.asarray(table.astype(np.float64))
+    want = np.asarray(jkernel.embedding_bag_sum(j_table, j_ids,
+                                                interpret=True))
+    got = ops.embedding_bag_sum(t_table, t_ids)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 @pytest.mark.parametrize("block_v", [64, 256])
 def test_embedding_bag_vocab_tiles(block_v):
     """The reference kernel's vocabulary tiles, against the same bags."""

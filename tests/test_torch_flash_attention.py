@@ -69,6 +69,23 @@ def test_flash_attention_bf16():
                                atol=5e-2)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_float16(causal):
+    """float16 in and out, float32 inside (the CUDA-core kernel's third
+    type): against the reference's jnp version on the same float16 inputs
+    at the card's bfloat16 tolerances, rtol 1e-2 and atol 1e-3 (both round
+    a float32 result once to float16, 2^-11 of the value)."""
+    q, k, v = _qkv(2, 70, 90, 32, 9)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.float16) for a in (q, k, v))
+    want = np.asarray(jref.flash_attention(jq, jk, jv, causal=causal),
+                      np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.float16) for a in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-2,
+                               atol=1e-3)
+
+
 def test_mha_layout():
     from repro.models.layers import blockwise_attention
     rng = np.random.default_rng(9)

@@ -28,10 +28,10 @@ from repro_torch.core.engine import frames as fr
 from repro_torch.core.engine import loop, pivot, reductions, run
 from repro_torch.graph import csr as tcsr
 from repro_torch.graph import generators as tgen
-from repro_torch.kernels.bitset_ops import ref
+from repro_torch.kernels.bitset_ops import ops, ref
 
 from test_hybrid_engine import GRAPHS
-from torch_census_inputs import census_inputs, one_bit
+from torch_census_inputs import bits_of, census_inputs, hybrid_inputs, one_bit
 
 pytest_plugins = ["torch_jax_executables"]
 
@@ -87,6 +87,41 @@ def test_clique_counts_matches_reference(r, k, w):
             jnp.asarray(in_x[i]), block_k=256 if k >= 256 else max(1, k // 2),
             interpret=True)
         assert (int(got[0][i]), int(got[1][i])) == (int(pf), int(pd))
+
+
+# (R, U, XC, W): U a multiple of 32 or not, XC = 0, runtime W (3), the
+# engine's three buckets' widths
+HYBRID_SHAPES = [(5, 64, 40, 2), (5, 50, 37, 2), (4, 32, 0, 1),
+                 (6, 100, 130, 4), (4, 7, 5, 1), (5, 70, 33, 3),
+                 (4, 128, 128, 4)]
+
+
+@pytest.mark.parametrize("r,u,xc,w", HYBRID_SHAPES)
+def test_hybrid_census_matches_reference(r, u, xc, w):
+    """`hybrid_census` (plain version and CPU dispatch) on the engine's
+    operands equals the reference's `clique_counts` over A stacked on the
+    X0 rows with the selectors built here in numpy, and |P| below U beside
+    it: an empty P, a one-bit P, P inside an alive X0 row's neighbourhood,
+    a clique P, and P with bits past U."""
+    a, xr, P, Xp, xal = hybrid_inputs(r, u, xc, w, seed=u + xc + w)
+    in_p = np.concatenate([bits_of(P, u), np.zeros((r, xc), bool)], -1)
+    in_x = np.concatenate([bits_of(Xp, u), bits_of(xal, xc)], -1)
+    want = jref.clique_counts(jnp.asarray(np.concatenate([a, xr], 1)),
+                              jnp.asarray(P), jnp.asarray(in_p),
+                              jnp.asarray(in_x))
+    psize = bits_of(P, u).sum(-1)
+    for impl in (ref, ops):
+        got = impl.hybrid_census(_t(a), _t(xr), _t(P), _t(Xp), _t(xal))
+        assert all(g.dtype == torch.int32 for g in got)
+        for g, w_ in zip(got, want):
+            assert np.array_equal(g.numpy(), np.asarray(w_))
+        assert np.array_equal(got[2].numpy(), psize)
+    n_full, n_dom = (np.asarray(x) for x in want)
+    assert psize[0] == 0 and n_full[0] == 0 and psize[1] == 1
+    assert n_full[3] == psize[3] > 0
+    if xc:
+        assert n_dom[2] > 0
+    assert n_dom.sum() > 0
 
 
 # --------------------------------------------------------------------------

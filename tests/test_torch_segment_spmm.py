@@ -48,6 +48,28 @@ def test_dense_spmm_matches_reference(b, n, f):
         np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
+def test_dense_spmm_casts_like_the_reference(dtype):
+    """Inputs of another floating type are cast to float32 first, as the
+    reference's kernel does: bfloat16 inputs (values exact in bfloat16, so
+    both sides hold the same numbers) and float64 ones, against its Pallas
+    kernel in interpret mode on the same inputs; float32 out."""
+    adj, x = _graphs(4, 30, 16, 7)
+    x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    if dtype == "bfloat16":
+        t_adj, t_x = (torch.from_numpy(a).to(torch.bfloat16)
+                      for a in (adj, x))
+        j_adj, j_x = (jnp.asarray(a).astype(jnp.bfloat16) for a in (adj, x))
+    else:
+        t_adj, t_x = (torch.from_numpy(a.astype(np.float64))
+                      for a in (adj, x))
+        j_adj, j_x = (jnp.asarray(a.astype(np.float64)) for a in (adj, x))
+    want = np.asarray(jkernel.dense_spmm(j_adj, j_x, interpret=True))
+    got = ops.dense_spmm(t_adj, t_x)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 @pytest.mark.parametrize("weighted", [False, True])
 def test_dense_spmm_matches_segment_sum(weighted):
     """The dense path computes the same aggregation as the sparse path."""

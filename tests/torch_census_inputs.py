@@ -42,3 +42,50 @@ def census_inputs(r, k, w, seed):
     if r > 1:
         in_x[-1] = False
     return rows, mask, in_p, in_x
+
+
+def bits_of(words, n):
+    """(..., W) uint32 words -> (..., n) bool: bit i of the words, i < n."""
+    flat = np.unpackbits(np.ascontiguousarray(words).view(np.uint8),
+                         axis=-1, bitorder="little")
+    return flat[..., :n].astype(bool)
+
+
+def hybrid_inputs(r, u, xc, w, seed):
+    """The engine's operands of the hybrid census: a (r, u, w) and x_rows
+    (r, xc, w) uint32 words, P and Xp (r, w), x_alive (r, max(ceil(xc /
+    32), 1)) words with garbage past bit xc. P and Xp are disjoint and
+    below U except on the roots from 4 on, whose P has bits past U where
+    32·w > u. Root 0's P is empty, root 1's one bit, root 2's inside the
+    neighbourhood of an alive X0 row (when xc > 0), and root 3's a clique
+    of A (so n_full == |P|); a fifth of the other rows hold P."""
+    assert r >= 4 and u <= 32 * w
+    rng = np.random.default_rng(seed)
+    rows, _, _, _ = census_inputs(r, u + xc, w, seed)
+    a = np.ascontiguousarray(rows[:, :u])
+    x_rows = np.ascontiguousarray(rows[:, u:])
+    below = np.packbits(np.arange(32 * w) < u, bitorder="little") \
+        .view(np.uint32)
+    P = np.packbits(rng.random((r, w, 32)) < 0.4, axis=-1,
+                    bitorder="little").view(np.uint32).reshape(r, w)
+    P[:4] &= below
+    Xp = np.packbits(rng.random((r, w, 32)) < 0.3, axis=-1,
+                     bitorder="little").view(np.uint32).reshape(r, w)
+    Xp &= below & ~P
+    xcw = max(-(-xc // 32), 1)
+    x_alive = rng.integers(0, 2**32, (r, xcw), dtype=np.uint64) \
+        .astype(np.uint32)
+    P[0] = 0
+    P[1] = one_bit(w, u - 1)
+    if xc:
+        j = int(rng.integers(xc))
+        P[2] &= x_rows[2, j]
+        x_alive[2, j // 32] |= np.uint32(1) << np.uint32(j % 32)
+    Xp &= ~P
+    for i in range(r):
+        for k in np.flatnonzero(rng.random(u + xc) < 0.2):
+            row = a[i, k] if k < u else x_rows[i, k - u]
+            row |= P[i]
+    for k in np.flatnonzero(bits_of(P[3], u)):
+        a[3, k] = (a[3, k] | P[3]) & ~one_bit(w, int(k))
+    return a, x_rows, P, Xp, x_alive
