@@ -13,7 +13,12 @@ together) and then, printing one JSON line per phase:
    library's build (nvcc seconds);
 2. kernels: each bitset CUDA kernel held bit-exact against its plain
    PyTorch version on the same CUDA tensors, at edge shapes and at the
-   shapes of the Graph500 scale-12 buckets (the hybrid census over A
+   shapes of the Graph500 scale-12 buckets (the row kernels on A and on
+   the X0 rows; the Lemma-8 pass `lemma8_reduce` and the pivot select
+   `pivot_select`, the engine's entry points on them, at each bucket's
+   roots and the lanes' 64, on random operands and on the U = 64
+   bucket's own, recorded from the engine's first launches, each line
+   with its roots that have a full vertex; the hybrid census over A
    stacked on the X0 rows, through both its entry points, `clique_counts`
    and `hybrid_census`, at each bucket's roots and at the hybrid lanes'
    64, timed at each block size too; the rcd sweep of P against ~X0 rows
@@ -228,6 +233,8 @@ def kernel_cost(name, rows, mask, extra=()):
         words = R * K * W
         nbytes = 4 * (words + 2 * R * W + x_alive.numel()) + 12 * R
         ops = 3 * words + 4 * R * K + 2 * R * W   # + selector bits, |P|
+    elif name in ("lemma8_reduce", "pivot_select"):
+        return frame_cost(name, rows, mask, extra)
     elif name == "and_popcount_many":
         M = mask.shape[-2]                    # mask: the (R, M, W) masks
         nbytes = 4 * (R * (M + K) * W + R * M * K)
@@ -244,6 +251,40 @@ def kernel_cost(name, rows, mask, extra=()):
     return nbytes, ops
 
 
+def alive_rows(x_rows, xal, roots=None):
+    """X0 rows alive in xal (its bits below XC), over all roots or the
+    roots selected by `roots` (R,) bool."""
+    from repro_torch.kernels.bitset_ops import ops
+    alive = ops.bits_to_mask(xal, x_rows.shape[-2])
+    if roots is not None:
+        alive = alive & roots.unsqueeze(-1)
+    return int(alive.sum())
+
+
+def frame_cost(name, a, P, extra):
+    """(bytes, operations) of the engine's entry points on these inputs.
+    lemma8_reduce: A, the frame's vectors in and out (P, Xp, Rb, xal, rsz),
+    degP2 and n_full, and the alive X0 rows of the roots with a full
+    vertex (what the Lemma-8 X-subset test must read); pivot_select: deg
+    and n_full (or A for its own sweep), P, Xp and xal in, the alive X0
+    rows, the pivot row and B out."""
+    from repro_torch.kernels.bitset_ops import ref
+    R, U, W = (1,) * (3 - a.dim()) + tuple(a.shape)
+    x_rows, Xp, xal = extra[:3]
+    xcw = xal.shape[-1]
+    if name == "lemma8_reduce":
+        n_full = ref.lemma8_reduce(a, x_rows, P, Xp, xal, *extra[3:])[6]
+        rows = alive_rows(x_rows, xal, n_full > 0)
+        nbytes = 4 * (R * U * W + 6 * R * W + 2 * R * xcw + 2 * R
+                      + R * U + R + rows * W)
+        return nbytes, 3 * R * U * W + 2 * rows * W
+    deg = extra[3]
+    rows = alive_rows(x_rows, xal)
+    nbytes = 4 * ((R * U + R if deg is not None else R * U * W)
+                  + 2 * R * W + R * xcw + rows * W + 2 * R * W)
+    return nbytes, 3 * rows * W + 3 * R * U * (1 if deg is not None else W)
+
+
 def run_kernel(name, rows, mask, extra, impl, **kw):
     """One call of kernel `name` through `impl` (ops or ref); `kw` (the
     census's `threads`) goes to ops only."""
@@ -254,6 +295,12 @@ def run_kernel(name, rows, mask, extra, impl, **kw):
     if name == "hybrid_census":               # rows: A, mask: P
         return impl.hybrid_census(rows, extra[0], mask, extra[1], extra[2],
                                   **kw)
+    if name == "lemma8_reduce":               # rows: A, mask: P
+        x_rows, Xp, xal, Rb, rsz = extra
+        return impl.lemma8_reduce(rows, x_rows, mask, Xp, xal, Rb, rsz)
+    if name == "pivot_select":                # the reduced frame's scores
+        x_rows, Xp, xal, deg, n_full = extra
+        return (impl.pivot_select(rows, x_rows, mask, Xp, xal, deg, n_full),)
     if name == "and_popcount_many":
         return (impl.and_popcount_many(rows, mask),)
     if name == "and_popcount_argmax":
@@ -290,6 +337,16 @@ def compare(name, rows, mask, extra, timed=False):
                 rows.shape)
     out = dict(name=name, shape=list(rows.shape),
                mask_shape=list(mask.shape), max_abs_err=err, tolerance=0)
+    if name in ("lemma8_reduce", "pivot_select"):
+        # roots with a full vertex, and the alive X0 rows the kernel reads
+        # (lemma8_reduce: those of these roots only)
+        n_full = want[6] if name == "lemma8_reduce" else extra[4]
+        full = None if n_full is None else n_full > 0
+        out.update(xc=extra[0].shape[-2],
+                   full_roots=None if full is None else int(full.sum()),
+                   alive_x_rows=alive_rows(
+                       extra[0], extra[2],
+                       full if name == "lemma8_reduce" else None))
     if timed and name in ("clique_counts", "hybrid_census"):
         threads_ms = {}
         for t in CENSUS_THREADS:
@@ -350,7 +407,71 @@ def edge_cases(dev):
         check(int(idx[0]) == 0 and int(best[0]) == -1,
               "all-invalid root must give (0, -1)")
         n += census_edge_cases(words, rng, dev, r, k, w)
+    return n + frame_edge_cases(dev)
+
+
+def frame_edge_cases(dev):
+    """lemma8_reduce and pivot_select (every scoring mode and backend) at
+    edge shapes: XC = 0, 1, 33 and 2,048, U off 32 and U = 128, W = 1-5,
+    A and the X0 rows one word off the vector loads' alignment, an empty P
+    and pool, P inside N(v) ∪ {v} (Lemma 8 fires), tied rows, xal with
+    bits past XC."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.bitset_ops import ops, ref
+    rng = np.random.default_rng(2)
+
+    def words(*shape, density=0.5):
+        b = rng.random(shape + (32,)) < density
+        return torch.from_numpy(np.packbits(b, axis=-1, bitorder="little")
+                                .view(np.int32).reshape(shape)).to(dev)
+    n = 0
+    for r, u, xc, w in [(3, 7, 0, 1), (5, 50, 33, 2), (4, 96, 1, 3),
+                        (4, 128, 2048, 4), (3, 160, 70, 5), (9, 32, 40, 1)]:
+        below = ops.mask_to_bits(torch.ones(1, u, dtype=torch.bool,
+                                            device=dev), w)
+        a, x_rows = words(r, u, w) & below, words(r, xc, w) & below
+        P = words(r, w, density=0.3) & below
+        Xp = words(r, w, density=0.2) & below & ~P
+        P[0], Xp[0] = 0, 0                               # empty pool
+        v = int(rng.integers(u))                         # Lemma 8 fires
+        a[1, v] &= ~ops.mask_to_bits(torch.arange(u, device=dev) == v, w)
+        P[1] = (a[1, v] | ops.mask_to_bits(
+            torch.arange(u, device=dev) == v, w)) & below[0]
+        a[2] = a[2, :1]                                  # tied rows
+        xal = words(r, max(-(-xc // 32), 1))             # bits past XC
+        Rb = words(r, w, density=0.05) & ~P
+        rsz = torch.from_numpy(rng.integers(0, 9, r).astype(np.int32)).to(dev)
+        l8 = (x_rows, Xp, xal, Rb, rsz)
+        compare("lemma8_reduce", a, P, l8)
+        red = ref.lemma8_reduce(a, x_rows, P, Xp, xal, Rb, rsz)
+        check(int(red[6][1]) > 0, "lemma8 edge case: no full vertex")
+        compare("pivot_select", a, red[0],
+                (x_rows, red[1], red[2], red[5], red[6]))
+        n += 2
+        for rows_a, rows_x in ((a, x_rows), (unaligned(a), unaligned(x_rows))):
+            exact("lemma8_reduce unaligned",
+                  ops.lemma8_reduce(rows_a, rows_x, P, Xp, xal, Rb, rsz),
+                  red, a.shape)
+            for deg, n_full in ((red[5], red[6]), (red[5], None),
+                                (None, None)):
+                for kw in ({}, {"revised": True}, {"hybrid": True}):
+                    exact(f"pivot_select {kw}", (ops.pivot_select(
+                        rows_a, rows_x, P, Xp, xal, deg, n_full, **kw),),
+                        (ref.pivot_select(a, x_rows, P, Xp, xal, deg,
+                                          n_full, **kw),), a.shape)
+                    n += 1
     return n
+
+
+def unaligned(t):
+    """A contiguous copy of `t` one word past an aligned address (the
+    kernels' word-by-word instances)."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def census_edge_cases(words, rng, dev, r, k, w):
@@ -398,13 +519,15 @@ def census_edge_cases(words, rng, dev, r, k, w):
 
 def bucket_operands(b, dev, rng):
     """One Graph500 bucket's rows on the card with P and Xp drawn from its
-    p0, and the census's two forms of operands: the stacked rows with bool
-    selectors (`clique_counts`) and x_alive as bits (`hybrid_census`)."""
+    p0 (Rb empty, rsz the roots' own), and the census's two forms of
+    operands: the stacked rows with bool selectors (`clique_counts`) and
+    x_alive as bits (`hybrid_census`, and the engine's other entry
+    points)."""
     import numpy as np
     import torch
     from repro_torch.core.engine import frames as fr
     from repro_torch.core.engine.loop import bucket_tensors
-    a, p0, x_rows, x_alive0, _ = bucket_tensors(
+    a, p0, x_rows, x_alive0, rsz0 = bucket_tensors(
         b.a, b.p0, b.x_rows, b.x_alive0, b.rsz0, dev)
     keep = torch.from_numpy(
         rng.integers(0, 2**32, p0.shape, dtype=np.uint64)
@@ -413,7 +536,8 @@ def bucket_operands(b, dev, rng):
     Xp = p0 & ~keep
     U = a.shape[1]
     return dict(
-        a=a, x_rows=x_rows, x_alive0=x_alive0, P=P, Xp=Xp,
+        a=a, x_rows=x_rows, x_alive0=x_alive0, P=P, Xp=Xp, rsz=rsz0,
+        Rb=torch.zeros_like(P),
         census=torch.cat([a, x_rows], 1),
         in_p=torch.cat([fr.bitset_to_mask(P, U),
                         torch.zeros_like(x_alive0)], -1),
@@ -423,24 +547,28 @@ def bucket_operands(b, dev, rng):
 
 def bucket_cases(prep, dev):
     """Each Graph500 bucket's own rows, with masks drawn from its p0 — the
-    shapes the slice's main path hands every kernel: the hybrid census
-    over A stacked on the X0 rows (U + XC rows; `clique_counts` on the
-    reference's contract, and `hybrid_census` on the engine's operands,
-    which the engine calls), each at the bucket's roots and at the hybrid
-    lanes' 64 (form "lanes": the first 64 roots' rows), the two entry
-    points held to each other; and the rcd maximality sweep of P (K = 1)
-    against ~X0 rows stacked on ~A (M = XC + U)."""
+    shapes the slice's main path hands every kernel: the row kernels on A
+    and on the X0 rows (the X-subset shape: ~X0 rows against P); the
+    Lemma-8 pass and the pivot select on the engine's operands (the pivot
+    select on the frame the pass reduced, as the engine calls it); the
+    hybrid census over A stacked on the X0 rows (U + XC rows;
+    `clique_counts` on the reference's contract, and `hybrid_census` on
+    the engine's operands, which the engine calls), the two entry points
+    held to each other; each at the bucket's roots and, where the lanes
+    call it, at their 64 (form "lanes": the first 64 roots' rows); and
+    the rcd maximality sweep of P (K = 1) against ~X0 rows stacked on ~A
+    (M = XC + U)."""
     import numpy as np
     import torch
     from repro_torch.core.engine import frames as fr
-    from repro_torch.kernels.bitset_ops import ops
+    from repro_torch.kernels.bitset_ops import ops, ref
     rng = np.random.default_rng(1)
     lines = []
     for b in prep.buckets:
         o = bucket_operands(b, dev, rng)
-        a, x_rows, x_alive0, P, Xp, census, in_p, in_x, xal = (
+        a, x_rows, x_alive0, P, Xp, census, in_p, in_x, xal, Rb, rsz = (
             o[k] for k in ("a", "x_rows", "x_alive0", "P", "Xp", "census",
-                           "in_p", "in_x", "xal"))
+                           "in_p", "in_x", "xal", "Rb", "rsz"))
         wrow = a[:, 0].contiguous()
         not_x = ~x_rows
         U = a.shape[1]
@@ -450,11 +578,18 @@ def bucket_cases(prep, dev):
         def lanes(*ts):
             return tuple(t[:L].contiguous() for t in ts)
         hybrid = (a, P, (x_rows, Xp, xal))
+        l8 = (x_rows, Xp, xal, Rb, rsz)
+        red = ref.lemma8_reduce(a, x_rows, P, Xp, xal, Rb, rsz)
+        piv = (x_rows, red[1], red[2], red[5], red[6])
         for name, rows, mask, extra, form in [
                 ("frame_step", a, P, (Xp, wrow), "roots"),
                 ("and_popcount_rows", a, P, (), "roots"),
-                ("and_popcount_rows", not_x, P, (), "roots"),
+                ("and_popcount_rows", not_x, P, (), "x_subset"),
                 ("and_popcount_argmax", x_rows, P, (x_alive0,), "roots"),
+                ("lemma8_reduce", a, P, l8, "roots"),
+                ("lemma8_reduce", *lanes(a, P), lanes(*l8), "lanes"),
+                ("pivot_select", a, red[0], piv, "roots"),
+                ("pivot_select", *lanes(a, red[0]), lanes(*piv), "lanes"),
                 ("clique_counts", census, P, (in_p, in_x), "roots"),
                 ("clique_counts", *lanes(census, P),
                  lanes(in_p, in_x), "lanes"),
@@ -465,7 +600,7 @@ def bucket_cases(prep, dev):
                  "roots")]:
             line = compare(name, rows, mask, extra, timed=True)
             line.update(phase="kernels", bucket_u=b.u_pad, bucket_xc=b.x_pad,
-                        roots=b.num_roots, form=form)
+                        roots=b.num_roots, form=form, operands="random")
             emit(line)
             lines.append(line)
         # the two census entry points agree on the engine's operands
@@ -474,6 +609,75 @@ def bucket_cases(prep, dev):
                         + (fr.popcount(P),)):
             check(torch.equal(g, w), f"hybrid_census and clique_counts "
                   f"disagree at U = {U}")
+    return lines
+
+
+def launched(names, drive):
+    """The inputs of every launch of each `ops.<name>` while `drive()`
+    runs the engine, cloned as the engine handed them over: {name: [(args,
+    kwargs), ...]}."""
+    import torch
+    from repro_torch.kernels.bitset_ops import ops
+    real = {name: getattr(ops, name) for name in names}
+    seen = {name: [] for name in names}
+
+    def recorder(name):
+        def record(*args, **kw):
+            seen[name].append(tuple(
+                t.clone() if isinstance(t, torch.Tensor) else t
+                for t in args) + (dict(kw),))
+            return real[name](*args, **kw)
+        return record
+    for name in names:
+        setattr(ops, name, recorder(name))
+    try:
+        drive()
+    finally:
+        for name in names:
+            setattr(ops, name, real[name])
+    return seen
+
+
+def real_frames(dev, prep, u=64, first=8):
+    """The engine's own operands of lemma8_reduce and pivot_select at the U
+    = 64 bucket, recorded from their first `first` launches in the per-root
+    slice (`run_bucket`, run() defaults; form "roots") and on 64 persistent
+    lanes (form "lanes"): random P rarely has a full vertex, the engine's
+    often does. Of each form, the lemma8_reduce launch whose roots have
+    the most full vertices (the later on a tie) and the pivot_select
+    launch of the same call entry, as (bucket, form, lemma8 args, pivot
+    args)."""
+    from repro_torch.core.engine import frames as fr
+    from repro_torch.core.engine import loop
+    from repro_torch.core.engine.loop import bucket_tensors
+    from repro_torch.kernels.bitset_ops import ref
+    b = next(b for b in prep.buckets if b.u_pad == u)
+    args = bucket_tensors(b.a, b.p0, b.x_rows, b.x_alive0, b.rsz0, dev)
+    cfg = fr.EngineConfig(max_iters=first)
+    for form, drive in (
+            ("roots", lambda: loop.run_bucket(*args, cfg)),
+            ("lanes", lambda: loop.run_bucket_persistent(
+                *args, cfg, lanes=min(64, b.num_roots)))):
+        seen = launched(("lemma8_reduce", "pivot_select"), drive)
+        l8 = seen["lemma8_reduce"][:first]
+        full = [int((ref.lemma8_reduce(*c[:7])[6] > 0).sum()) for c in l8]
+        i = max(range(len(l8)), key=lambda i: (full[i], i))
+        yield b, form, l8[i][:7], seen["pivot_select"][i][:7]
+
+
+def real_frame_cases(dev, prep):
+    """lemma8_reduce and pivot_select on the engine's own operands
+    (`real_frames`), each held bit for bit to its plain version and
+    timed; each line says how many roots had a full vertex."""
+    lines = []
+    for b, form, l8, piv in real_frames(dev, prep):
+        for name, (a, x_rows, P, *rest) in (("lemma8_reduce", l8),
+                                           ("pivot_select", piv)):
+            line = compare(name, a, P, (x_rows, *rest), timed=True)
+            line.update(phase="kernels", bucket_u=b.u_pad, bucket_xc=b.x_pad,
+                        roots=b.num_roots, form=form, operands="real")
+            emit(line)
+            lines.append(line)
     return lines
 
 
@@ -610,24 +814,6 @@ def window_edge_cases(dev):
     return n
 
 
-def launched_windows(name, drive):
-    """The inputs of every launch of `ops.<name>` while `drive()` runs
-    the engine, cloned as the engine handed them to the kernel."""
-    from repro_torch.kernels.bitset_ops import ops
-    real = getattr(ops, name)
-    seen = []
-
-    def record(*args, steps):
-        seen.append(tuple(t.clone() for t in args))
-        return real(*args, steps=steps)
-    setattr(ops, name, record)
-    try:
-        drive()
-    finally:
-        setattr(ops, name, real)
-    return seen
-
-
 def real_windows(dev, prep):
     """Each Graph500 bucket's real windows, as (bucket, kernel name,
     inputs, live lanes): those of the launch with the most live lanes
@@ -648,7 +834,7 @@ def real_windows(dev, prep):
                     *args, fr.EngineConfig(dynamic_red=False,
                                            window_steps=16,
                                            max_iters=64)))):
-            seen = launched_windows(name, drive)[:4]
+            seen = [c[:-1] for c in launched((name,), drive)[name][:4]]
             live = [int((w[-1] >= 0).sum()) for w in seen]
             yield (b, name, seen[max(range(len(seen)),
                                      key=lambda i: (live[i], i))], max(live))
@@ -1375,7 +1561,8 @@ def main() -> int:
     n_edge = edge_cases(dev) + window_edge_cases(dev)
     g12 = kronecker(12, 16, seed=0)
     prep = prepare(g12, device=dev)
-    kernel_lines = bucket_cases(prep, dev) + window_slice_cases(dev, prep)
+    kernel_lines = (bucket_cases(prep, dev) + real_frame_cases(dev, prep)
+                    + window_slice_cases(dev, prep))
     emit(dict(phase="kernels_done", edge_cases=n_edge,
               bucket_cases=len(kernel_lines),
               seconds=time.perf_counter() - t_start))
@@ -1406,28 +1593,48 @@ def main() -> int:
     main_u = 64 if 64 in us else prep.buckets[0].u_pad
     table = []
 
-    def at_main(name, form="roots"):
+    def at_main(name, form="roots", operands="random"):
         return next(ln for ln in kernel_lines
                     if ln["name"] == name and ln["bucket_u"] == main_u
-                    and ln.get("form", "roots") == form)
+                    and ln.get("form", "roots") == form
+                    and ln.get("operands", "random") == operands)
+
+    def timing(line):
+        return {k: line[k] for k in ("shape", "xc", "full_roots",
+                                     "alive_x_rows", "ms", "plain_ms",
+                                     "bound_ms", "bound_by") if k in line}
+    # each kernel's engine entry point, counted under its name
+    entry = {"and_popcount_rows": "lemma8_reduce",
+             "and_popcount_argmax": "pivot_select",
+             "clique_counts": "hybrid_census"}
     for name in REPLACES:
         line = at_main(name)
         # the census: row 4 keeps the reference's contract at the bucket's
         # roots; the hybrid lanes' shape and the engine's entry point
-        # (`hybrid_census`, the same kernel) stand beside it
+        # (`hybrid_census`, the same kernel) stand beside it. Rows 2-3
+        # likewise keep their reference form (A against P; the X0 rows'
+        # argmax) beside the X-subset shape and their engine entry points
+        # on the engine's own operands and on random ones
         census = name == "clique_counts"
         table.append(dict(
             name=name, route="cuda", source=SOURCE,
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=max(ln["max_abs_err"] for ln in kernel_lines
-                            if ln["name"] == name or census
-                            and ln["name"] == "hybrid_census"),
+                            if ln["name"] in (name, entry.get(name))),
             ms=line["ms"], plain_ms=line["plain_ms"],
             bound_ms=line["bound_ms"], bound_by=line["bound_by"],
             library_ms=None, shape=line["shape"],
             mask_shape=line.get("mask_shape"),
             **({"geometry": line["geometry"],
                 "group_ms": line["group_ms"]} if "geometry" in line
+               else {}),
+            **({"x_subset": timing(at_main(name, "x_subset"))}
+               if name == "and_popcount_rows" else {}),
+            **({entry[name]: {
+                f"{form}_{ops_}": timing(at_main(entry[name], form, ops_))
+                for form in ("roots", "lanes")
+                for ops_ in ("real", "random")}}
+               if name in ("and_popcount_rows", "and_popcount_argmax")
                else {}),
             **({"lanes_ms": at_main(name, "lanes")["ms"],
                 "hybrid_census_ms": at_main("hybrid_census")["ms"],

@@ -30,14 +30,6 @@ WORD = 32
 # algebra over row matrices goes through repro_torch.kernels.bitset_ops.ops.
 # ===========================================================================
 
-@functools.lru_cache(maxsize=64)
-def _onehot(device: torch.device):
-    """The 32 one-hot word values (bit 31 is INT_MIN), cached per device."""
-    return torch.from_numpy(
-        (np.uint32(1) << np.arange(WORD, dtype=np.uint32)).view(np.int32)
-    ).to(device)
-
-
 def popcount(bits):
     return bitops.popcount_words(bits)
 
@@ -78,44 +70,11 @@ def eye_bits(u, words, device=None):
     return _eye_bits(u, words, torch.device(device or "cpu"))
 
 
-def mask_to_bitset(mask, words):
-    """(..., K) bool -> (..., words) bitsets (bit k set iff mask[k]).
-
-    The bits are disjoint, so the OR over them is their wrapping int32
-    sum: one multiply-and-sum instead of the reference's OR reduction over
-    one-hot rows. K is a multiple of 32, or fits in one word."""
-    k = mask.shape[-1]
-    onehot = _onehot(mask.device)
-    if k % WORD:
-        if words != 1:
-            raise ValueError(f"mask of {k} bits does not fill {words} words")
-        return (mask * onehot[:k]).sum(-1, keepdim=True, dtype=torch.int32)
-    m = mask.reshape(mask.shape[:-1] + (k // WORD, WORD))
-    return (m * onehot).sum(-1, dtype=torch.int32)
-
-
-def _or_fold(x):
-    """OR over axis -2 by pairwise halving (log2(K) rounds); torch has no
-    bitwise reduction, and unpacking to bits would cost 8x the bytes."""
-    while x.shape[-2] > 1:
-        k = x.shape[-2]
-        h = k // 2
-        y = x[..., :h, :] | x[..., h:2 * h, :]
-        if k % 2:
-            y[..., :1, :] |= x[..., 2 * h:, :]
-        x = y
-    return x.squeeze(-2)
-
-
-def or_reduce(rows, sel):
-    """OR of the rows selected by sel: (..., K, W), (..., K) -> (..., W)."""
-    return _or_fold(rows * sel.unsqueeze(-1))
-
-
-def and_reduce(rows, sel):
-    """AND of the selected rows (all-ones when none is selected), by De
-    Morgan over the same fold."""
-    return ~_or_fold(~rows * sel.unsqueeze(-1))
+# (..., K) bool masks -> (..., words) bitsets, and the OR / AND of the
+# selected rows of (..., K, W) row matrices
+mask_to_bitset = bitops.mask_to_bits
+or_reduce = bitops.or_reduce
+and_reduce = bitops.and_reduce
 
 
 def single_bit_index_rows(rows):
@@ -174,12 +133,12 @@ class RootContext(NamedTuple):
     """Per-bucket constants threaded through the DFS (never stacked)."""
     A: torch.Tensor          # (R, U, W) induced adjacency bitsets
     x_rows: torch.Tensor     # (R, XC, W) X0 row bitsets
-    not_x_rows: torch.Tensor  # (R, XC, W) ~x_rows, hoisted out of the loop
     eye: torch.Tensor        # (U, W) one-hot bitsets over the universe
     ar: torch.Tensor         # (R,) root index, for per-root gathers
-    # The stacked rows of the 'rcd' maximality check, hoisted like
-    # not_x_rows (None for the other backends): ~X0 rows on ~A,
-    # (R, XC + U, W). The 'hybrid' census reads A and x_rows as they are.
+    # The stacked rows of the 'rcd' maximality check, hoisted out of the
+    # loop (None for the other backends): ~X0 rows on ~A, (R, XC + U, W).
+    # The Lemma-8 pass, the pivot select and the 'hybrid' census read A and
+    # x_rows as they are.
     not_xa_rows: Optional[torch.Tensor] = None
 
     @property
@@ -200,16 +159,14 @@ class RootContext(NamedTuple):
 
 
 def make_context(a, x_rows, backend: str = "pivot") -> RootContext:
-    # ~x_rows is the same on every step (the Lemma-8 X-subset test); eager
-    # torch would not hoist it, and it is the bucket's largest tensor. The
-    # stacked rows of the 'rcd' per-call sweep are hoisted the same way:
-    # the reference concatenates them on every call.
-    not_x = ~x_rows
+    # The stacked rows of the 'rcd' per-call sweep are the same on every
+    # step: eager torch would not hoist them (the reference concatenates
+    # them on every call).
     return RootContext(
-        A=a, x_rows=x_rows, not_x_rows=not_x,
+        A=a, x_rows=x_rows,
         eye=eye_bits(a.shape[1], a.shape[2], a.device),
         ar=torch.arange(a.shape[0], device=a.device),
-        not_xa_rows=(torch.cat([not_x, ~a], 1) if backend == "rcd"
+        not_xa_rows=(torch.cat([~x_rows, ~a], 1) if backend == "rcd"
                      else None))
 
 

@@ -11,7 +11,8 @@ Backends:
               vertex branching (B = P) on near-clique nodes
 
 Every score sweep is a fused AND+popcount(+argmax) dispatch through
-`bitset_ops.ops`; nothing here touches `ref` or the kernels directly.
+`bitset_ops.ops` (the whole branch-set select is one, `pivot_select`);
+nothing here touches `ref` or the kernels directly.
 All tensors carry the root batch R first (see `frames`).
 """
 from __future__ import annotations
@@ -25,70 +26,33 @@ from repro_torch.kernels.bitset_ops import ops as bitops
 # when the induced density 2|E[P]| / (|P|·(|P|−1)) reaches this threshold —
 # near-clique nodes early-terminate in their children, so the pivot sweep's
 # pruning buys nothing there (DESIGN.md §2.7). The reference's default, the
-# one value its run() uses.
-HYBRID_DENSITY = 0.9
+# one value its run() uses; `ops.pivot_select` applies it.
+HYBRID_DENSITY = bitops.HYBRID_DENSITY
 
 
 def branch_set(cfg, ctx: fr.RootContext, P, Xp, xal, red, deg=None):
-    """Branch set B for the 'pivot'/'revised'/'hybrid' backends.
+    """Branch set B for the 'pivot'/'revised'/'hybrid' backends, in one
+    launch (`ops.pivot_select`).
 
-    B = P \\ N(pivot), except that 'hybrid' overrides to vertex branching
-    (B = P) on nodes whose induced density reaches HYBRID_DENSITY.
+    B = P \\ N(pivot), the pivot the first best of the pool P ∪ Xp (P alone
+    for 'revised') by degree in P, unless an alive X0 row scores strictly
+    higher; 'hybrid' overrides to vertex branching (B = P) on nodes whose
+    induced density reaches HYBRID_DENSITY.
 
     `red` is the ReducedFrame from dynamic_reduce (None when dynamic
     reduction is off); its degP2/n_full replace the third AND+popcount
     sweep over A (§Perf; the reference's default `reuse_degrees=True`,
-    the only setting the port has). With dynamic reduction off, `deg`
-    (the fused frame-step degree vector over this very P) plays the same
-    role — where + argmax over it matches and_popcount_argmax's scores
-    and tie-breaking exactly. With neither (root entry without dynamic
-    reduction) the fused pivot-select kernel scores the universe, or, for
-    'hybrid', whose density test needs the whole degree vector, one
-    AND+popcount sweep of A."""
-    in_p = fr.bitset_to_mask(P, ctx.u)
-    if cfg.backend == "revised":
-        pool = in_p
-    else:
-        pool = in_p | fr.bitset_to_mask(Xp, ctx.u)
-
+    the only setting the port has): every `full` vertex was adjacent to
+    ALL of P', so the degree over the final P is degP2 − n_full for the
+    pool. With dynamic reduction off, `deg` (the fused frame-step degree
+    vector over this very P) plays the same role. With neither (root
+    entry without dynamic reduction) the kernel sweeps A itself."""
+    n_full = None
     if red is not None:
-        # §Perf: every `full` vertex was adjacent to ALL of P', so deg over
-        # the final P is exactly degP2 − n_full for surviving P members —
-        # reuse instead of a third AND+popcount sweep of A.
-        deg_vec = red.degP2 - red.n_full.unsqueeze(-1)
-    elif deg is not None:
-        deg_vec = deg
-    elif cfg.backend == "hybrid":
-        deg_vec = bitops.and_popcount_rows(ctx.A, P)
-    else:
-        deg_vec = None
-    if deg_vec is not None:
-        uni_scores = torch.where(pool, deg_vec, -1)
-        best_u = uni_scores.argmax(-1)
-        su = uni_scores.gather(-1, best_u.unsqueeze(-1)).squeeze(-1)
-    else:
-        best_u, su = bitops.and_popcount_argmax(ctx.A, P, pool)
-    best_x, sx = bitops.and_popcount_argmax(ctx.x_rows, P,
-                                            fr.bitset_to_mask(xal, ctx.xc))
-    use_x = (sx > su).unsqueeze(-1)
-    pivot_row = torch.where(use_x, ctx.x_rows[ctx.ar, best_x.long()],
-                            ctx.A[ctx.ar, best_u.long()])
-    B = P & ~pivot_row
-    if cfg.backend == "hybrid":
-        # per-node branch selection (Wang et al.): on a near-clique P the
-        # pivot prunes almost nothing while its children early-terminate
-        # at once, so branch on every vertex (B = P). Σ_{v∈P} deg_P(v) =
-        # 2|E[P]|, so the trigger is sum_deg ≥ HYBRID_DENSITY·|P|·(|P|−1),
-        # in the reference's float32 expression and order (counts stay
-        # below 2^24, exact in float32). |P| is its member count: P holds
-        # universe vertices only, bits 0..U-1.
-        psize = in_p.sum(-1, dtype=torch.int32)
-        sum_deg = torch.where(in_p, deg_vec, 0).sum(-1)
-        dense = (sum_deg.to(torch.float32)
-                 >= HYBRID_DENSITY * psize.to(torch.float32)
-                 * (psize - 1).to(torch.float32))
-        B = torch.where(dense.unsqueeze(-1), P, B)
-    return B
+        deg, n_full = red.degP2, red.n_full
+    return bitops.pivot_select(ctx.A, ctx.x_rows, P, Xp, xal, deg, n_full,
+                               revised=cfg.backend == "revised",
+                               hybrid=cfg.backend == "hybrid")
 
 
 def hybrid_early_term(carry, cfg, ctx: fr.RootContext, P, Xp, xal, Rb, rsz,

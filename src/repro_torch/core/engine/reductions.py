@@ -2,8 +2,9 @@
 
 The paper's Lemmas 5 (degree-0), 7 (relaxed degree-1) and 8 (degree-|P|−1)
 become bitset algebra over the frame: every degree vector is one fused
-AND+popcount sweep through `bitset_ops.ops`, every report is a masked
-multi-row append to the carry. No control flow — callers gate side-effects
+AND+popcount sweep through `bitset_ops.ops` (Lemma 8 whole is one launch,
+`ops.lemma8_reduce`), every report is a masked multi-row append to the
+carry. No control flow — callers gate side-effects
 with `enable` so the DFS body stays straight-line over the root batch.
 All tensors carry the root batch R first (see `frames`).
 """
@@ -81,23 +82,8 @@ def dynamic_reduce(carry, cfg, ctx: fr.RootContext, P, Xp, xal, rsz, Rb,
     removed = deg0 | rem1
     P = P & ~fr.mask_to_bitset(removed, W)
 
-    # dynamic degree-(|P|-1) (Lemma 8)
-    degP2 = bitops.and_popcount_rows(A, P)
-    in_p2 = fr.bitset_to_mask(P, U)
-    psize = fr.popcount(P).unsqueeze(-1)
-    full = in_p2 & (degP2 == psize - 1) & (psize > 0)
-    any_full = full.any(-1)
-    n_full = full.sum(-1, dtype=torch.int32)
-    full_bits = fr.mask_to_bitset(full, W)
-    common = fr.and_reduce(A, full)                      # C(S) over universe
-    sub_ok = bitops.and_popcount_rows(ctx.not_x_rows, full_bits) == 0
-    af = any_full.unsqueeze(-1)
-    P, Xp, xal, Rb, rsz = (
-        torch.where(af, P & ~full_bits, P),
-        torch.where(af, Xp & common, Xp),
-        torch.where(af, xal & fr.mask_to_bitset(sub_ok, ctx.xc_words), xal),
-        torch.where(af, Rb | full_bits, Rb),
-        torch.where(any_full, rsz + n_full, rsz),
-    )
+    # dynamic degree-(|P|-1) (Lemma 8): one launch on the frame's operands
+    P, Xp, xal, Rb, rsz, degP2, n_full = bitops.lemma8_reduce(
+        A, ctx.x_rows, P, Xp, xal, Rb, rsz)
     return carry, ReducedFrame(P=P, Xp=Xp, xal=xal, Rb=Rb, rsz=rsz,
                                degP2=degP2, n_full=n_full)

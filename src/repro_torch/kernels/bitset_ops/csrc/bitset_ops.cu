@@ -16,10 +16,13 @@
 // Bounds on an H100 SXM (3.35 TB/s HBM): the integer work of the row
 // kernels, the census and the many-mask sweep is a few ALU ops per word,
 // far below the card's integer rate, so they are bound by bytes, and at
-// the engine's shapes by the launch itself (3-5 us), which only fewer
-// launches will lower. The window walk is bound by the latency of its
-// dependent frame-steps; its design (a warp group per lane, each lane's
-// rows staged once per launch) is in the note above it.
+// the engine's shapes by the launch itself (2-5 us), which only fewer
+// launches will lower: the engine's entry points on the row kernels
+// (lemma8_reduce, pivot_select) and on the census (hybrid_census) each
+// take a whole block of the engine's torch ops into one launch. The
+// window walk is bound by the latency of its dependent frame-steps; its
+// design (a warp group per lane, each lane's rows staged once per
+// launch) is in the note above it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -27,96 +30,791 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBlockWarps = kThreads / 32;
+constexpr int kBig = 1 << 30;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kSmemWords = 12 * 1024;  // 48 KB: no opt-in needed
 
 // ---------------------------------------------------------------------------
-// and_popcount_rows: out[r, k] = popcount(rows[r, k, :] & mask[r, :])
-//
-// Replaces repro/kernels/bitset_ops/kernel.py::and_popcount_rows
-// (_and_popcount_kernel). Bound: bytes, R*K*W*4 read + R*K*4 written.
-// Design: one thread per row looping over its W words; the block's root
-// mask is staged once in shared memory, so the row words are the only
-// device-memory traffic. Grid (R, ceil(K / 256)).
+// Helpers shared by the kernels below.
 // ---------------------------------------------------------------------------
-__global__ void and_popcount_rows_kernel(const uint32_t* __restrict__ rows,
-                                         const uint32_t* __restrict__ mask,
-                                         int32_t* __restrict__ out,
-                                         int K, int W) {
-  extern __shared__ uint32_t smask[];
-  const int64_t r = blockIdx.x;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    smask[w] = mask[r * W + w];
+
+// word j of a register bitset of WT words; a select, so the array stays in
+// registers
+template <int WT>
+__device__ __forceinline__ uint32_t word_of(const uint32_t (&v)[WT], int j) {
+  uint32_t out = 0;
+#pragma unroll
+  for (int i = 0; i < WT; ++i) out = i == j ? v[i] : out;
+  return out;
+}
+
+template <int WT>
+__device__ __forceinline__ void load_words(const uint32_t* p,
+                                           uint32_t (&w)[WT]) {
+  if constexpr (WT == 4) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (WT == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < WT; ++i) w[i] = __ldg(p + i);
   }
-  __syncthreads();
-  const int k = blockIdx.y * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  const uint32_t* row = rows + (r * K + k) * static_cast<int64_t>(W);
-  int c = 0;
-  for (int w = 0; w < W; ++w) c += __popc(row[w] & smask[w]);
-  out[r * K + k] = c;
+}
+
+// A root's mask of WT words in every thread's registers: lane i < WT loads
+// word i and the warp shares it, so the mask needs no alignment.
+template <int WT>
+__device__ __forceinline__ void mask_words(const uint32_t* m, int lane,
+                                           uint32_t (&w)[WT]) {
+  const uint32_t v = lane < WT ? __ldg(m + lane) : 0u;
+#pragma unroll
+  for (int i = 0; i < WT; ++i) w[i] = __shfl_sync(kFullMask, v, i);
+}
+
+// Rows of 1, 2 or 4 words read as one 4-, 8- or 16-byte vector: W of those
+// and rows aligned to 4W bytes.
+inline bool vector_rows(int W, const void* p) {
+  return (W == 1 || W == 2 || W == 4) &&
+         reinterpret_cast<uintptr_t>(p) % (4 * W) == 0;
+}
+
+// Barrier of a group of G warps: its warp, or named barrier group + 1
+// (barrier 0 is __syncthreads').
+__device__ __forceinline__ void group_sync(int group, int G) {
+  if (G == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(32 * G)
+                 : "memory");
+  }
+}
+
+// An argmax candidate: score s and row index i. The larger score wins, then
+// the lower index, as torch.argmax and jnp.argmax take the first maximum. A
+// thread with no row holds (kNoScore, kNoIndex).
+struct Best {
+  int s, i;
+};
+constexpr int kNoScore = -0x7fffffff - 1;
+constexpr int kNoIndex = 0x7fffffff;
+
+__device__ __forceinline__ Best warp_best(Best b) {
+  const int s = __reduce_max_sync(kFullMask, b.s);
+  const unsigned i = __reduce_min_sync(
+      kFullMask, b.s == s ? static_cast<unsigned>(b.i) : 0xffffffffu);
+  return Best{s, static_cast<int>(i)};
+}
+
+__device__ __forceinline__ Best better(Best a, Best b) {
+  return b.s > a.s || (b.s == a.s && b.i < a.i) ? b : a;
+}
+
+// Whether the key (score + 1) * K + (K - 1 - index) of scores in [-1, 32 W]
+// over K rows fits 32 bits.
+inline bool packs(long long K, long long W) {
+  return K > 0 && K * (32 * W + 2) <= (1ll << 32);
+}
+
+// The warp's best of K rows. Packed (every score in [-1, 32 W] and `packs`):
+// one __reduce_max_sync over the key; a thread with no row gives key 0,
+// read back as (-1, K - 1), which a real row of the warp's always matches
+// or beats. Otherwise two steps: the largest score, then the lowest index
+// holding it.
+__device__ __forceinline__ Best warp_argmax(Best b, bool packed, uint32_t K) {
+  if (!packed) return warp_best(b);
+  const uint32_t key = __reduce_max_sync(
+      kFullMask, b.s < -1 ? 0u
+                          : static_cast<uint32_t>(b.s + 1) * K +
+                                (K - 1u - static_cast<uint32_t>(b.i)));
+  return Best{static_cast<int>(key / K) - 1,
+              static_cast<int>(K - 1u - key % K)};
 }
 
 // ---------------------------------------------------------------------------
+// and_popcount_rows: out[r, k] = popcount(rows[r, k, :] & mask[r, :])
 // and_popcount_argmax: per root, the first row of maximal score, where
 // score[k] = valid[k] ? popcount(rows[k] & mask) : -1.
 //
-// Replaces repro/kernels/bitset_ops/kernel.py::and_popcount_argmax
-// (_and_popcount_argmax_kernel), fusing the argmax that the TPU version
-// left to jnp after the kernel: the function is the same. Bound: bytes,
-// R*K*W*4 + R*K (valid) read + R*8 written. Design: one block per root;
-// threads stride over K, each keeping (best score, lowest index); a
-// shared-memory tree reduction prefers the larger score, then the lower
-// index, so ties go to the first row exactly as torch/jnp argmax. Threads
-// start from score -2, below every real score, so any K >= 1 yields a real
-// row: an all-invalid root gives (0, -1).
+// Replace repro/kernels/bitset_ops/kernel.py::and_popcount_rows
+// (_and_popcount_kernel, :67) and
+// repro/kernels/bitset_ops/kernel.py::and_popcount_argmax
+// (_and_popcount_argmax_kernel, :103), fusing the argmax that the TPU
+// version left to jnp after its kernel: the function is the same. Bound:
+// bytes, R*K*W*4 read (+ R*K valid bytes, R*W mask words) and R*K*4 (the
+// rows) or R*8 (the argmax) written. At the engine's shapes (K = U = 32-128
+// adjacency rows or XC = 128-2,048 X0 rows of W = 1-4 words, a bucket's
+// roots or 64 lanes) that is 0.1-3 MB, under a microsecond on this card,
+// so what they pay is the launch and the chain inside one root from the
+// launch to its last write.
+//
+// Design, for a short chain and few blocks:
+// - A group of G warps reads one root, G = 1, 2 or 4 by K (row_group: at
+//   most two rows a thread up to K = 256), and a 256-thread block holds
+//   8 / G roots: the U = 64 bucket's 623 roots are 78 blocks.
+// - The root's mask lives in every thread's registers (W = 1, 2, 4) or is
+//   read word by word through L1 (any other W); nothing is staged in shared
+//   memory and no barrier spans the block.
+// - A thread issues the loads of kRowBatch rows at once, as 4-, 8- or
+//   16-byte vectors at W = 1, 2 or 4 (rows aligned to 4W bytes); any other
+//   W, or rows off that alignment, take the word-by-word instance (WT = 0).
+//   The argmax loads its rows with their valid bytes, whatever the bytes
+//   say: reading the valid bytes first and only the valid rows costs a
+//   round of loads more than the bytes it saves, on an H100 at every
+//   scale-12 bucket.
+// - The argmax: each thread keeps its first best row (its rows come in
+//   order); the warp reduces the packed key (score + 1, ~index) with one
+//   __reduce_max_sync (warp_argmax), or, where K * (32 W + 2) does not fit
+//   32 bits, in two steps (the largest score, then the lowest index holding
+//   it); a group of G > 1 warps combines its warps' bests in shared memory
+//   behind a named barrier of its own. An all-invalid root gives (0, -1).
 // ---------------------------------------------------------------------------
-__global__ void and_popcount_argmax_kernel(const uint32_t* __restrict__ rows,
-                                           const uint32_t* __restrict__ mask,
-                                           const uint8_t* __restrict__ valid,
-                                           int32_t* __restrict__ idx_out,
-                                           int32_t* __restrict__ best_out,
-                                           int K, int W) {
-  extern __shared__ uint32_t smask[];
-  __shared__ int s_score[kThreads];
-  __shared__ int s_idx[kThreads];
-  const int64_t r = blockIdx.x;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    smask[w] = mask[r * W + w];
-  }
-  __syncthreads();
-  int best = -2;
-  int best_i = 0x7fffffff;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    int score = -1;
-    if (valid[r * K + k]) {
-      const uint32_t* row = rows + (r * K + k) * static_cast<int64_t>(W);
-      score = 0;
-      for (int w = 0; w < W; ++w) score += __popc(row[w] & smask[w]);
-    }
-    if (score > best) {  // k increases: strict > keeps the first max
-      best = score;
-      best_i = k;
-    }
-  }
-  s_score[threadIdx.x] = best;
-  s_idx[threadIdx.x] = best_i;
-  __syncthreads();
-  for (int stride = blockDim.x / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) {
-      const int os = s_score[threadIdx.x + stride];
-      const int oi = s_idx[threadIdx.x + stride];
-      const int ms = s_score[threadIdx.x];
-      const int mi = s_idx[threadIdx.x];
-      if (os > ms || (os == ms && oi < mi)) {
-        s_score[threadIdx.x] = os;
-        s_idx[threadIdx.x] = oi;
+constexpr int kRowBatch = 4;
+
+struct RowArgs {
+  const uint32_t* rows;  // (R, K, W)
+  const uint32_t* mask;  // (R, W)
+  const uint8_t* valid;  // the argmax: (R, K)
+  int32_t* out;          // the rows: (R, K)
+  int32_t* idx;          // the argmax: (R,) each
+  int32_t* best;
+  long long R;
+  int K, W;
+  int G;       // warps a root (row_group)
+  int packed;  // packs(K, W)
+};
+
+// Warps a root of K rows: at most two rows a thread up to K = 256. (More
+// warps a root past K = 1,024, or batches of 8 rows, were slower at every
+// scale-12 bucket on an H100.)
+inline int row_group(int K) { return K <= 64 ? 1 : K <= 128 ? 2 : 4; }
+
+template <int WT, bool ARGMAX>
+__global__ void __launch_bounds__(kThreads) row_kernel(const RowArgs a) {
+  __shared__ Best s_best[kBlockWarps];
+  constexpr int WR = WT > 0 ? WT : 1;
+  const int G = a.G;
+  const int gsize = 32 * G;
+  const int group = threadIdx.x / gsize;
+  const int gt = threadIdx.x % gsize;
+  const int lane = threadIdx.x & 31;
+  const long long r =
+      static_cast<long long>(blockIdx.x) * (kBlockWarps / G) + group;
+  if (r >= a.R) return;
+  const int K = a.K;
+  const int W = WT > 0 ? WT : a.W;
+  const uint32_t* rows = a.rows + r * K * static_cast<long long>(W);
+  const uint32_t* mrow = a.mask + r * W;
+  uint32_t m[WR];
+  if constexpr (WT > 0) mask_words<WT>(mrow, lane, m);
+
+  Best b{kNoScore, kNoIndex};
+  for (int k0 = gt; k0 < K; k0 += kRowBatch * gsize) {
+    uint32_t w[kRowBatch][WR];
+    bool ok[kRowBatch];
+#pragma unroll
+    for (int j = 0; j < kRowBatch; ++j) {
+      const int k = k0 + j * gsize;
+      ok[j] = k < K && (!ARGMAX || a.valid[r * K + k] != 0);
+      if constexpr (WT > 0) {
+        if (k < K) load_words<WT>(rows + static_cast<long long>(k) * WT, w[j]);
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kRowBatch; ++j) {
+      const int k = k0 + j * gsize;
+      if (k >= K) continue;
+      if (ARGMAX && !ok[j]) {  // score -1
+        if (-1 > b.s) b = Best{-1, k};
+        continue;
+      }
+      int pc = 0;
+      if constexpr (WT > 0) {
+#pragma unroll
+        for (int i = 0; i < WT; ++i) pc += __popc(w[j][i] & m[i]);
+      } else {
+        const uint32_t* row = rows + static_cast<long long>(k) * W;
+        for (int i = 0; i < W; ++i) {
+          pc += __popc(__ldg(row + i) & __ldg(mrow + i));
+        }
+      }
+      if constexpr (ARGMAX) {
+        if (pc > b.s) b = Best{pc, k};  // k increases: strict > keeps the first
+      } else {
+        a.out[r * K + k] = pc;
+      }
+    }
   }
-  if (threadIdx.x == 0) {
-    idx_out[r] = s_idx[0];
-    best_out[r] = s_score[0];
+  if constexpr (ARGMAX) {
+    b = warp_argmax(b, a.packed != 0, static_cast<uint32_t>(K));
+    if (G > 1) {
+      if (lane == 0) s_best[threadIdx.x >> 5] = b;
+      group_sync(group, G);
+      for (int g = group * G; g < group * G + G; ++g) b = better(b, s_best[g]);
+    }
+    if (gt == 0) {
+      a.idx[r] = b.i;
+      a.best[r] = b.s;
+    }
   }
+}
+
+template <bool ARGMAX>
+int launch_rows(RowArgs a, cudaStream_t stream) {
+  a.G = row_group(a.K);
+  a.packed = packs(a.K, a.W);
+  const long long per = kBlockWarps / a.G;
+  const long long blocks = (a.R + per - 1) / per;
+  if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  switch (vector_rows(a.W, a.rows) ? a.W : 0) {
+    case 1:
+      row_kernel<1, ARGMAX><<<grid, kThreads, 0, stream>>>(a);
+      break;
+    case 2:
+      row_kernel<2, ARGMAX><<<grid, kThreads, 0, stream>>>(a);
+      break;
+    case 4:
+      row_kernel<4, ARGMAX><<<grid, kThreads, 0, stream>>>(a);
+      break;
+    default:
+      row_kernel<0, ARGMAX><<<grid, kThreads, 0, stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The engine's two entry points on the row kernels, each one launch on the
+// frame's own operands: A (R, U, W), the X0 rows (R, XC, W), P, Xp and Rb
+// (R, W), xal (R, XCW) bits over the X0 rows, with U <= 32 W.
+//
+// lemma8_reduce (counted as and_popcount_rows): the Lemma-8 block of
+// repro/core/engine/reductions.py, whose two calls of
+// repro/kernels/bitset_ops/kernel.py::and_popcount_rows (:67) it replaces:
+// degP2[u] = popcount(A[u] & P), and the X-subset test of the X0 rows
+// against the full set. With psize = |P|, full = {u in P : degP2[u] ==
+// psize - 1}, psize > 0; where full is not empty, P loses it, Rb gains it,
+// rsz grows by n_full = |full|, Xp keeps the vertices adjacent to all of it
+// (the AND of its rows) and xal keeps the alive X0 rows x < XC with
+// full ⊆ N(x), and loses every bit past XC.
+//
+// pivot_select (counted as and_popcount_argmax): the body of
+// repro/core/engine/pivot.py::branch_set, whose X0 argmax is
+// repro/kernels/bitset_ops/kernel.py::and_popcount_argmax (:103): the
+// first best universe row over the pool P ∪ Xp (P alone, revised) with
+// scores deg - n_full, deg, or its own sweep of A; the first best alive X0
+// row against P (XC = 0: none); the X row is the pivot only if its score
+// is strictly higher; B = P & ~pivot_row; hybrid: B = P where sum_deg >=
+// density * psize * (psize - 1) in float32, in that order (psize = |P|,
+// sum_deg: the scores of P's bits below U).
+//
+// Bound: bytes. lemma8: A, the frame's vectors in and out, degP2, and the
+// alive X0 rows of the roots with a full vertex; pivot_select: deg (or A),
+// the vectors, the alive X0 rows and the pivot row. At the engine's shapes
+// that is well under a microsecond; what the two save is the torch ops
+// around the launches they replace, on a loop the host holds back.
+//
+// Design: a warp per root, 8 roots a block, nothing staged in shared memory.
+// - Every operand a root reads whatever its data (A's rows, P, Xp, Rb, xal,
+//   rsz, the given scores) is loaded in one first round, so the chain from
+//   the launch to the last write holds at most two rounds of device loads:
+//   that one and the alive X0 rows.
+// - W = 1, 2 or 4 with A and the X0 rows aligned to 4W bytes: P, Xp and A's
+//   rows in registers (row 32j + lane in slot j; U <= 32 W gives at most W
+//   rows a lane), read once though lemma8 uses them twice (degP2, then the
+//   AND of the full rows) and pivot_select takes its pivot row from them
+//   (or from the winning lane's X0 row) with one shuffle a word. Word j of
+//   full_bits is one __ballot_sync over
+//   rows 32j .. 32j + 31, n_full their popcount, common a per-lane AND of the
+//   lane's full rows and one __reduce_and_sync a word. Any other W, or rows
+//   off that alignment: the word-by-word instance (WT = 0), lemma8's
+//   full_bits in shared memory (W words a warp) and common read back from A
+//   a word a lane.
+// - The X0 rows are read only where they matter: the alive ones (set bits
+//   of xal below XC), and in lemma8 only on roots with a full vertex. Both
+//   skips are exact: a dead row's bit is 0 in and out, and a root with no
+//   full vertex keeps xal. Each lane issues the loads of its rows in
+//   kXBatch chunks of 32 rows at once (32 / W: one round at the engine's
+//   W = 2 and 4, two at W = 1 with XC = 2,048), and a batch none of whose
+//   chunks has an alive row below XC (one ballot over the xal words marks
+//   them) is skipped whole; lemma8's new xal words are ballots, 0 for a
+//   skipped batch. (Visiting the chunks with an alive row one by one, their
+//   indices scanned from the mask, was slower at the U = 64 and U = 128
+//   buckets on an H100.)
+// - The argmaxes reduce the packed key (warp_argmax) where every score is
+//   in [-1, 32 W] and the key fits: the X0 rows and pivot_select's own
+//   sweep. Scores given as deg may be any int, so that argmax takes two
+//   steps.
+// ---------------------------------------------------------------------------
+struct FrameArgs {
+  const uint32_t* a;       // (R, U, W)
+  const uint32_t* x_rows;  // (R, XC, W)
+  const uint32_t* p;       // (R, W) each
+  const uint32_t* xp;
+  const uint32_t* rb;      // lemma8
+  const uint32_t* xal;     // (R, XCW)
+  const int32_t* rsz;      // lemma8: (R,)
+  const int32_t* deg;      // pivot_select: (R, U) or null (its own sweep)
+  const int32_t* n_full;   // pivot_select: (R,) or null
+  uint32_t* p_out;         // lemma8: P'; pivot_select: B
+  uint32_t* xp_out;        // lemma8, as the four below
+  uint32_t* rb_out;
+  uint32_t* xal_out;
+  int32_t* rsz_out;
+  int32_t* deg_out;        // degP2 (R, U)
+  int32_t* n_full_out;
+  long long R;
+  int U, XC, XCW, W;
+  int warps;               // roots a block
+  int revised, hybrid;
+  int packed_u, packed_x;  // packs(U, W), packs(XC, W)
+  float density;
+};
+
+// X0 chunks of 32 rows whose loads a lane issues at once: up to 32 words
+// of rows a lane in flight.
+template <int WT>
+constexpr int kXBatch = WT > 0 ? 32 / WT : 1;
+
+// The root's xal words, read in the kernel's first round of loads: lane l
+// holds words l and l + 32 (words past 64, XC > 2,048, are read when
+// needed). live() marks the chunks c < 64 with an alive row below XC; call
+// it once the first round's loads are used, since its ballots wait for
+// these. word(c) needs c warp-uniform.
+struct XalWords {
+  const uint32_t* xal;
+  uint32_t lo, hi;
+  __device__ __forceinline__ XalWords(const uint32_t* p, int XCW, int lane)
+      : xal(p),
+        lo(lane < XCW ? __ldg(p + lane) : 0u),
+        hi(lane + 32 < XCW ? __ldg(p + lane + 32) : 0u) {}
+  __device__ __forceinline__ uint64_t live(int XC, int lane) const {
+    const uint32_t l = __ballot_sync(kFullMask, (lo & below(lane, XC)) != 0u);
+    const uint32_t h =
+        __ballot_sync(kFullMask, (hi & below(lane + 32, XC)) != 0u);
+    return (static_cast<uint64_t>(h) << 32) | l;
+  }
+  // the bits of chunk c below XC
+  __device__ __forceinline__ static uint32_t below(int c, int XC) {
+    const int n = XC - 32 * c;
+    return n >= 32 ? kFullMask : n > 0 ? (1u << n) - 1u : 0u;
+  }
+  __device__ __forceinline__ uint32_t word(int c) const {
+    return c < 32   ? __shfl_sync(kFullMask, lo, c)
+           : c < 64 ? __shfl_sync(kFullMask, hi, c - 32)
+                    : __ldg(xal + c);
+  }
+  // word c of the lane's own (c = lane, lane + 32, ...)
+  __device__ __forceinline__ uint32_t own(int c) const {
+    return c < 32 ? lo : c < 64 ? hi : __ldg(xal + c);
+  }
+};
+
+// Whether chunks c0 .. c0 + n - 1 may hold an alive row, by the `live` mask
+// of chunks below 64 (c0 >= 64: yes; a batch never straddles chunk 64:
+// kXBatch divides it).
+__device__ __forceinline__ bool visit(uint64_t live, int c0, int n) {
+  return c0 >= 64 || ((live >> c0) & (n >= 64 ? ~0ull : (1ull << n) - 1u));
+}
+
+// Chunks c0 .. c0 + NB - 1 of the X0 rows: the lane's row x = 32c + lane is
+// alive iff c < XCW, x < XC and bit `lane` of xal word c is set; WT > 0
+// loads the alive rows' words, all before any use.
+template <int WT, int NB>
+__device__ __forceinline__ void x_batch(const uint32_t* X, const XalWords& xw,
+                                        int c0, int XCW, int XC, int lane,
+                                        bool (&alive)[NB],
+                                        uint32_t (&xr)[NB][WT > 0 ? WT : 1]) {
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const int c = c0 + b;
+    alive[b] = c < XCW && ((xw.word(c) >> lane) & 1u) && 32 * c + lane < XC;
+  }
+  if constexpr (WT > 0) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const long long x = 32ll * (c0 + b) + lane;
+      if (alive[b]) {
+        load_words<WT>(X + x * WT, xr[b]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < WT; ++i) xr[b][i] = 0u;
+      }
+    }
+  }
+}
+
+template <int WT>
+__global__ void __launch_bounds__(kThreads) lemma8_kernel(const FrameArgs a) {
+  extern __shared__ uint32_t s_full[];  // WT = 0: full_bits, W words a warp
+  constexpr int WR = WT > 0 ? WT : 1;
+  constexpr int NB = kXBatch<WT>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long r = static_cast<long long>(blockIdx.x) * a.warps + warp;
+  if (r >= a.R) return;
+  const int U = a.U, XC = a.XC, XCW = a.XCW;
+  const int W = WT > 0 ? WT : a.W;
+  const long long fw = r * W;
+  const uint32_t* A = a.a + r * U * static_cast<long long>(W);
+  const uint32_t* P = a.p + fw;
+  const int chunks = (U + 31) >> 5;  // <= W
+
+  // one round of loads: A's rows (W <= 4), P, the lane's words of Xp and
+  // Rb, xal and rsz
+  uint32_t pw[WR], rows[WR][WR];
+  int psize = 0;
+  if constexpr (WT > 0) {
+#pragma unroll
+    for (int j = 0; j < WT; ++j) {
+      const int u = 32 * j + lane;
+      if (u < U) load_words<WT>(A + static_cast<long long>(u) * WT, rows[j]);
+    }
+  }
+  const uint32_t xp_l = WT > 0 && lane < W ? __ldg(a.xp + fw + lane) : 0u;
+  const uint32_t rb_l = WT > 0 && lane < W ? __ldg(a.rb + fw + lane) : 0u;
+  const XalWords xw(a.xal + r * XCW, XCW, lane);
+  const int rsz = a.rsz[r];
+  if constexpr (WT > 0) {
+    mask_words<WT>(P, lane, pw);
+#pragma unroll
+    for (int i = 0; i < WT; ++i) psize += __popc(pw[i]);
+  } else {
+    for (int i = lane; i < W; i += 32) psize += __popc(__ldg(P + i));
+    psize = __reduce_add_sync(kFullMask, psize);
+  }
+
+  // degP2, the full set (a ballot a word) and, W <= 4, the AND of its rows
+  uint32_t* sfull = s_full + static_cast<long long>(warp) * W;
+  uint32_t full_w[WR], common[WR];
+#pragma unroll
+  for (int i = 0; i < WR; ++i) {
+    full_w[i] = 0u;
+    common[i] = kFullMask;
+  }
+  int n_full = 0;
+  auto chunk = [&](int j) {
+    const int u = 32 * j + lane;
+    int deg = 0;
+    if (u < U) {
+      if constexpr (WT > 0) {
+#pragma unroll
+        for (int i = 0; i < WT; ++i) deg += __popc(rows[j][i] & pw[i]);
+      } else {
+        const uint32_t* row = A + static_cast<long long>(u) * W;
+        for (int i = 0; i < W; ++i) deg += __popc(__ldg(row + i) & __ldg(P + i));
+      }
+      a.deg_out[r * U + u] = deg;
+    }
+    const uint32_t pj = WT > 0 ? word_of<WR>(pw, j) : __ldg(P + j);
+    const bool full =
+        u < U && ((pj >> lane) & 1u) && deg == psize - 1 && psize > 0;
+    const uint32_t f = __ballot_sync(kFullMask, full);
+    n_full += __popc(f);
+    if constexpr (WT > 0) {
+      full_w[j] = f;
+      if (full) {
+#pragma unroll
+        for (int i = 0; i < WT; ++i) common[i] &= rows[j][i];
+      }
+    } else if (lane == 0) {
+      sfull[j] = f;
+    }
+  };
+  if constexpr (WT > 0) {
+#pragma unroll
+    for (int j = 0; j < WT; ++j) {
+      if (j < chunks) chunk(j);
+    }
+#pragma unroll
+    for (int i = 0; i < WT; ++i) {
+      common[i] = __reduce_and_sync(kFullMask, common[i]);
+    }
+  } else {
+    for (int j = 0; j < chunks; ++j) chunk(j);
+    for (int j = chunks + lane; j < W; j += 32) sfull[j] = 0u;
+    __syncwarp();
+  }
+
+  // the frame's words: P \ full, Xp ∩ common, Rb ∪ full (the identity where
+  // full is empty: common is then all ones), lane i < W writing word i
+  for (int i = lane; i < W; i += 32) {
+    uint32_t f, c, xp, rb;
+    if constexpr (WT > 0) {
+      f = word_of<WR>(full_w, i);
+      c = word_of<WR>(common, i);
+      xp = xp_l;
+      rb = rb_l;
+    } else {
+      f = sfull[i];
+      c = kFullMask;
+      for (int j = 0; j < chunks && n_full > 0; ++j) {
+        for (uint32_t bits = sfull[j]; bits; bits &= bits - 1u) {
+          const int u = 32 * j + __ffs(static_cast<int>(bits)) - 1;
+          c &= __ldg(A + static_cast<long long>(u) * W + i);
+        }
+      }
+      xp = __ldg(a.xp + fw + i);
+      rb = __ldg(a.rb + fw + i);
+    }
+    a.p_out[fw + i] = __ldg(P + i) & ~f;
+    a.xp_out[fw + i] = xp & c;
+    a.rb_out[fw + i] = rb | f;
+  }
+  if (lane == 0) {
+    a.rsz_out[r] = rsz + n_full;
+    a.n_full_out[r] = n_full;
+  }
+
+  // the X0 alive set: with no full vertex, as it is (bits past XC too)
+  uint32_t* xal_out = a.xal_out + r * XCW;
+  if (n_full == 0) {
+    for (int c = lane; c < XCW; c += 32) xal_out[c] = xw.own(c);
+    return;
+  }
+  const uint64_t live = xw.live(XC, lane);
+  const uint32_t* X = a.x_rows + r * XC * static_cast<long long>(W);
+  for (int c0 = 0; c0 < XCW; c0 += NB) {
+    if (!visit(live, c0, NB)) {  // no alive row in the batch: its words 0
+      if (lane < NB && c0 + lane < XCW) xal_out[c0 + lane] = 0u;
+      continue;
+    }
+    bool alive[NB];
+    uint32_t xr[NB][WR];
+    x_batch<WT, NB>(X, xw, c0, XCW, XC, lane, alive, xr);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      bool ok = alive[b];  // full ⊆ N(x): no bit of full outside the row
+      if constexpr (WT > 0) {
+#pragma unroll
+        for (int i = 0; i < WT; ++i) ok = ok && (full_w[i] & ~xr[b][i]) == 0u;
+      } else if (ok) {
+        const uint32_t* row =
+            X + (32ll * (c0 + b) + lane) * static_cast<long long>(W);
+        for (int i = 0; i < W && ok; ++i) {
+          ok = (sfull[i] & ~__ldg(row + i)) == 0u;
+        }
+      }
+      const uint32_t v = __ballot_sync(kFullMask, ok);
+      if (lane == b && c0 + b < XCW) xal_out[c0 + b] = v;
+    }
+  }
+}
+
+template <int WT>
+__global__ void __launch_bounds__(kThreads) pivot_kernel(const FrameArgs a) {
+  constexpr int WR = WT > 0 ? WT : 1;
+  constexpr int NB = kXBatch<WT>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long r = static_cast<long long>(blockIdx.x) * a.warps + warp;
+  if (r >= a.R) return;
+  const int U = a.U, XC = a.XC, XCW = a.XCW;
+  const int W = WT > 0 ? WT : a.W;
+  const long long fw = r * W;
+  const uint32_t* A = a.a + r * U * static_cast<long long>(W);
+  const uint32_t* P = a.p + fw;
+  const uint32_t* Xp = a.xp + fw;
+  const bool own = a.deg == nullptr;  // score by its own sweep of A
+  const int chunks = (U + 31) >> 5;
+
+  // one round of loads: A's rows (W <= 4: the pivot row is taken from
+  // them), the scores, P, Xp and xal
+  uint32_t pw[WR], xpw[WR], rows[WR][WR];
+  if constexpr (WT > 0) {
+#pragma unroll
+    for (int j = 0; j < WT; ++j) {
+      const int u = 32 * j + lane;
+      if (u < U) load_words<WT>(A + static_cast<long long>(u) * WT, rows[j]);
+    }
+  }
+  int dl[WR];
+  if (!own) {
+#pragma unroll
+    for (int j = 0; j < WR; ++j) {
+      const int u = 32 * j + lane;
+      dl[j] = j < chunks && u < U ? a.deg[r * U + u] : 0;
+    }
+  }
+  const int nf = a.n_full != nullptr ? a.n_full[r] : 0;
+  const XalWords xw(a.xal + r * XCW, XCW, lane);
+  if constexpr (WT > 0) {
+    mask_words<WT>(P, lane, pw);
+    mask_words<WT>(Xp, lane, xpw);
+  }
+
+  // the universe: each lane's first best pool row, and P's scores
+  Best bu{kNoScore, kNoIndex};
+  long long sum_deg = 0;
+  auto chunk = [&](int j) {
+    const int u = 32 * j + lane;
+    if (u >= U) return;
+    const uint32_t pj = WT > 0 ? word_of<WR>(pw, j) : __ldg(P + j);
+    const uint32_t xj = WT > 0 ? word_of<WR>(xpw, j) : __ldg(Xp + j);
+    const bool in_p = (pj >> lane) & 1u;
+    const bool pool = in_p || (!a.revised && ((xj >> lane) & 1u));
+    int d = 0;
+    if (!own) {  // deg - n_full, wrapping as the int32 tensors do
+      const int dj = WT > 0 ? dl[j] : a.deg[r * U + u];
+      d = static_cast<int>(static_cast<uint32_t>(dj) -
+                           static_cast<uint32_t>(nf));
+    } else if constexpr (WT > 0) {
+#pragma unroll
+      for (int i = 0; i < WT; ++i) d += __popc(rows[j][i] & pw[i]);
+    } else {
+      const uint32_t* row = A + static_cast<long long>(u) * W;
+      for (int i = 0; i < W; ++i) d += __popc(__ldg(row + i) & __ldg(P + i));
+    }
+    const int s = pool ? d : -1;
+    if (s > bu.s || bu.i == kNoIndex) bu = Best{s, u};  // u increases
+    if (in_p) sum_deg += d;
+  };
+  if constexpr (WT > 0) {
+#pragma unroll
+    for (int j = 0; j < WT; ++j) {
+      if (j < chunks) chunk(j);
+    }
+  } else {
+    for (int j = 0; j < chunks; ++j) chunk(j);
+  }
+
+  // the X0 rows: each lane's first best alive row against P (W <= 4: and
+  // its words, for the pivot row)
+  Best bx{kNoScore, kNoIndex};
+  const uint64_t live = xw.live(XC, lane);
+  uint32_t bx_row[WR];
+#pragma unroll
+  for (int i = 0; i < WR; ++i) bx_row[i] = 0u;
+  const uint32_t* X = a.x_rows + r * XC * static_cast<long long>(W);
+  for (int c0 = 0; c0 < XCW; c0 += NB) {
+    if (!visit(live, c0, NB)) continue;
+    bool alive[NB];
+    uint32_t xr[NB][WR];
+    x_batch<WT, NB>(X, xw, c0, XCW, XC, lane, alive, xr);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (!alive[b]) continue;
+      const int x = 32 * (c0 + b) + lane;
+      int s = 0;
+      if constexpr (WT > 0) {
+#pragma unroll
+        for (int i = 0; i < WT; ++i) s += __popc(xr[b][i] & pw[i]);
+      } else {
+        const uint32_t* row = X + static_cast<long long>(x) * W;
+        for (int i = 0; i < W; ++i) s += __popc(__ldg(row + i) & __ldg(P + i));
+      }
+      if (s > bx.s) {
+        bx = Best{s, x};
+        if constexpr (WT > 0) {
+#pragma unroll
+          for (int i = 0; i < WT; ++i) bx_row[i] = xr[b][i];
+        }
+      }
+    }
+  }
+  bu = warp_argmax(bu, own && a.packed_u, static_cast<uint32_t>(U));
+  bx = warp_argmax(bx, a.packed_x != 0, static_cast<uint32_t>(XC));
+  const bool x_none = bx.s < 0;  // no alive row: the all-invalid (0, -1)
+  if (x_none) bx = Best{-1, 0};
+  const bool use_x = XC > 0 && bx.s > bu.s;
+
+  // hybrid: vertex branching (B = P) on a dense P
+  bool dense = false;
+  if (a.hybrid) {
+    int psize = 0;  // |P|: every bit of its words
+    if constexpr (WT > 0) {
+#pragma unroll
+      for (int i = 0; i < WT; ++i) psize += __popc(pw[i]);
+    } else {
+      for (int i = lane; i < W; i += 32) psize += __popc(__ldg(P + i));
+      psize = __reduce_add_sync(kFullMask, psize);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sum_deg += __shfl_xor_sync(kFullMask, sum_deg, o);
+    }
+    dense = __ll2float_rn(sum_deg) >=
+            __fmul_rn(__fmul_rn(a.density, __int2float_rn(psize)),
+                      __int2float_rn(psize - 1));
+  }
+
+  // B = P & ~pivot_row; W <= 4: the pivot row from the registers of the
+  // lane that holds it
+  if constexpr (WT > 0) {
+    const int src = (use_x ? bx.i : bu.i) & 31;
+    const int slot = bu.i >> 5;
+    uint32_t bw = 0u;
+#pragma unroll
+    for (int i = 0; i < WT; ++i) {
+      // X0 row 0 wins only against scores below -1: no lane holds it
+      uint32_t mine = use_x && x_none ? __ldg(X + i) : bx_row[i];
+      if (!use_x) {
+#pragma unroll
+        for (int j = 0; j < WT; ++j) mine = j == slot ? rows[j][i] : mine;
+      }
+      const uint32_t prow = __shfl_sync(kFullMask, mine, src);
+      bw = lane == i ? (dense ? pw[i] : pw[i] & ~prow) : bw;
+    }
+    if (lane < WT) a.p_out[fw + lane] = bw;
+  } else {
+    const uint32_t* prow = use_x ? X + static_cast<long long>(bx.i) * W
+                                 : A + static_cast<long long>(bu.i) * W;
+    for (int i = lane; i < W; i += 32) {
+      const uint32_t p = __ldg(P + i);
+      a.p_out[fw + i] = dense ? p : p & ~__ldg(prow + i);
+    }
+  }
+}
+
+// One engine launch: the register instance at W = 1, 2 or 4 with A and the
+// X0 rows aligned to 4W bytes, else word by word (WT = 0), where lemma8
+// keeps W words of full_bits a warp in shared memory (fewer roots a block
+// past W = 1,536; refused past kSmemWords).
+template <bool LEMMA8>
+int launch_frame(FrameArgs a, cudaStream_t stream) {
+  if (a.U < 1 || a.W < 1 || a.U > 32ll * a.W || a.XC < 0 || a.XCW < 0 ||
+      32ll * a.XCW < a.XC) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int wt = vector_rows(a.W, a.a) && vector_rows(a.W, a.x_rows) ? a.W : 0;
+  a.warps = kBlockWarps;
+  size_t smem = 0;
+  if (LEMMA8 && wt == 0) {
+    const int fit = kSmemWords / a.W;
+    if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
+    a.warps = fit < kBlockWarps ? fit : kBlockWarps;
+    smem = sizeof(uint32_t) * a.warps * a.W;
+  }
+  a.packed_u = packs(a.U, a.W);
+  a.packed_x = packs(a.XC, a.W);
+  const long long blocks = (a.R + a.warps - 1) / a.warps;
+  if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const int nt = 32 * a.warps;
+  switch (wt) {
+    case 1:
+      if (LEMMA8) lemma8_kernel<1><<<grid, nt, smem, stream>>>(a);
+      else pivot_kernel<1><<<grid, nt, smem, stream>>>(a);
+      break;
+    case 2:
+      if (LEMMA8) lemma8_kernel<2><<<grid, nt, smem, stream>>>(a);
+      else pivot_kernel<2><<<grid, nt, smem, stream>>>(a);
+      break;
+    case 4:
+      if (LEMMA8) lemma8_kernel<4><<<grid, nt, smem, stream>>>(a);
+      else pivot_kernel<4><<<grid, nt, smem, stream>>>(a);
+      break;
+    default:
+      if (LEMMA8) lemma8_kernel<0><<<grid, nt, smem, stream>>>(a);
+      else pivot_kernel<0><<<grid, nt, smem, stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -168,9 +866,6 @@ __global__ void frame_step_kernel(const uint32_t* __restrict__ rows,
 }
 
 
-constexpr int kBig = 1 << 30;
-constexpr unsigned kFullMask = 0xffffffffu;
-
 // ---------------------------------------------------------------------------
 // clique_counts: per root, with pc[k] = popcount(rows[k] & mask),
 // n_full = #{k : in_p[k] && pc[k] == |mask| - 1} and
@@ -221,35 +916,6 @@ struct CensusArgs {
   int32_t* psize;           // the hybrid census: |P| below U
   int K, U, XC, XCW, W;
 };
-
-// word j of a register bitset of WT words; a select, so the array stays in
-// registers
-template <int WT>
-__device__ __forceinline__ uint32_t word_of(const uint32_t (&v)[WT], int j) {
-  uint32_t out = 0;
-#pragma unroll
-  for (int i = 0; i < WT; ++i) out = i == j ? v[i] : out;
-  return out;
-}
-
-template <int WT>
-__device__ __forceinline__ void load_words(const uint32_t* p,
-                                           uint32_t (&w)[WT]) {
-  if constexpr (WT == 4) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
-  } else if constexpr (WT == 2) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-    w[0] = v.x;
-    w[1] = v.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < WT; ++i) w[i] = __ldg(p + i);
-  }
-}
 
 // WT: W words as registers (1, 2 or 4; rows 16-byte aligned at W = 4, 8 at
 // W = 2), or 0 for a runtime W read word by word. HYB: the hybrid census.
@@ -431,12 +1097,11 @@ int launch_census(const CensusArgs& a, long long R, int threads,
 // maximality check (rows = P with K = 1, masks = ~X0 rows stacked on ~A).
 // Bound: bytes, R*(M + K)*W*4 read and R*M*K*4 written. Design: one thread
 // per output element (m, k), looping over the W words; the root's K rows
-// are staged in shared memory when K*W words fit in kManySmemWords (always
+// are staged in shared memory when K*W words fit in kSmemWords (always
 // at the engine's K = 1, where each thread then sweeps one mask row
 // against one staged word vector). Grid (R, up to 65535 element blocks),
 // each block striding over the root's M*K elements.
 // ---------------------------------------------------------------------------
-constexpr int kManySmemWords = 12 * 1024;  // 48 KB: no opt-in needed
 
 __global__ void __launch_bounds__(kThreads)
 and_popcount_many_kernel(const uint32_t* __restrict__ rows,
@@ -613,18 +1278,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// Barrier of one lane's group: its warp, or its G warps (named barrier
-// group + 1; barrier 0 is __syncthreads').
-template <int G>
-__device__ __forceinline__ void group_sync(int group) {
-  if constexpr (G == 1) {
-    __syncwarp();
-  } else {
-    asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "n"(32 * G)
-                 : "memory");
-  }
-}
-
 // The child sets of a step: registers for a compile-time W, the group's
 // shared memory for the runtime-W instance (WT = 0).
 template <int WT>
@@ -683,11 +1336,8 @@ __device__ __forceinline__ void row_pops(const uint32_t* row,
   }
 }
 
-// A pivot candidate: s = score + 1 (>= 0; -1 for no row), i = row index.
-struct Best {
-  int s, i;
-};
-
+// The window walk's pivot candidate is a Best with s = score + 1 (>= 0; -1
+// for no row).
 __device__ __forceinline__ uint32_t best_key(Best b, int ib, uint32_t imask) {
   return b.s < 0 ? 0u : (static_cast<uint32_t>(b.s) << ib) |
                             (imask - static_cast<uint32_t>(b.i));
@@ -697,17 +1347,6 @@ __device__ __forceinline__ Best key_best(uint32_t key, int ib,
                                          uint32_t imask) {
   return Best{static_cast<int>(key >> ib),
               static_cast<int>(imask - (key & imask))};
-}
-
-__device__ __forceinline__ Best warp_best(Best b) {
-  const int s = __reduce_max_sync(kFullMask, b.s);
-  const unsigned i = __reduce_min_sync(
-      kFullMask, b.s == s ? static_cast<unsigned>(b.i) : 0xffffffffu);
-  return Best{s, static_cast<int>(i)};
-}
-
-__device__ __forceinline__ Best better(Best a, Best b) {
-  return b.s > a.s || (b.s == a.s && b.i < a.i) ? b : a;
 }
 
 // The group's best adjacency row (u), best X0 row (x) and alive count, from
@@ -727,7 +1366,7 @@ __device__ __forceinline__ void group_pivot(Best& u, Best& x, int& nal,
         red[8 * warp + 1] = static_cast<int>(kx);
         red[8 * warp + 2] = nal;
       }
-      group_sync<G>(group);
+      group_sync(group, G);
       nal = 0;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
@@ -749,7 +1388,7 @@ __device__ __forceinline__ void group_pivot(Best& u, Best& x, int& nal,
         red[8 * warp + 3] = x.i;
         red[8 * warp + 4] = nal;
       }
-      group_sync<G>(group);
+      group_sync(group, G);
       u = x = Best{-1, 0x7fffffff};
       nal = 0;
 #pragma unroll
@@ -838,7 +1477,7 @@ dfs_step_window_kernel(const WinArgs args) {
     const bool bulk_a = ((reinterpret_cast<uintptr_t>(A) | bytes_a) & 15) == 0;
     const bool bulk_x = ((reinterpret_cast<uintptr_t>(X) | bytes_x) & 15) == 0;
     if (gt == 0) mbar_init(bar);
-    group_sync<G>(group);
+    group_sync(group, G);
     if (gt == 0) {
       mbar_expect_tx(bar, (bulk_a ? bytes_a : 0u) + (bulk_x ? bytes_x : 0u));
       if (bulk_a) bulk_load(sA, A, bytes_a, bar);
@@ -865,7 +1504,7 @@ dfs_step_window_kernel(const WinArgs args) {
   }
   for (int i = gt; i < T; i += kGroup) sRsz[i] = args.win_rsz[lane * T + i];
   if constexpr (STAGED) mbar_wait(bar, 0);
-  group_sync<G>(group);
+  group_sync(group, G);
 
   ChildSets<WT> c;
   if constexpr (WT == 0) {
@@ -920,7 +1559,7 @@ dfs_step_window_kernel(const WinArgs args) {
         c.x[i] = sXp[d * W + i] & wr;
         c.rb[i] = sRb[d * W + i] | (i == ww ? wbit : 0u);
       }
-      group_sync<G>(group);
+      group_sync(group, G);
       for (int i = 0; i < W; ++i) {
         pc_p += __popc(c.p[i]);
         pc_x += __popc(c.x[i]);
@@ -998,11 +1637,11 @@ dfs_step_window_kernel(const WinArgs args) {
       }
     }
     if (push && gt == 0) sRsz[cd] = crsz;
-    group_sync<G>(group);
+    group_sync(group, G);
     if (push) ++dl;
   }
 
-  group_sync<G>(group);
+  group_sync(group, G);
 #pragma unroll
   for (int f = 0; f < 4; ++f) {
     for (int i = gt; i < TW; i += kGroup) args.out[f][wbase + i] = swin[f * TW + i];
@@ -1061,24 +1700,89 @@ extern "C" {
 
 int bitset_and_popcount_rows(const void* rows, const void* mask, void* out,
                              long long R, int K, int W, void* stream) {
-  const dim3 grid(static_cast<unsigned>(R), blocks_for(K));
-  and_popcount_rows_kernel<<<grid, kThreads, W * sizeof(uint32_t),
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rows), static_cast<const uint32_t*>(mask),
-      static_cast<int32_t*>(out), K, W);
-  return static_cast<int>(cudaGetLastError());
+  RowArgs a{};
+  a.rows = static_cast<const uint32_t*>(rows);
+  a.mask = static_cast<const uint32_t*>(mask);
+  a.out = static_cast<int32_t*>(out);
+  a.R = R;
+  a.K = K;
+  a.W = W;
+  return launch_rows<false>(a, static_cast<cudaStream_t>(stream));
 }
 
 int bitset_and_popcount_argmax(const void* rows, const void* mask,
                                const void* valid, void* idx, void* best,
                                long long R, int K, int W, void* stream) {
-  and_popcount_argmax_kernel<<<static_cast<unsigned>(R), kThreads,
-                               W * sizeof(uint32_t),
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rows), static_cast<const uint32_t*>(mask),
-      static_cast<const uint8_t*>(valid), static_cast<int32_t*>(idx),
-      static_cast<int32_t*>(best), K, W);
-  return static_cast<int>(cudaGetLastError());
+  RowArgs a{};
+  a.rows = static_cast<const uint32_t*>(rows);
+  a.mask = static_cast<const uint32_t*>(mask);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.idx = static_cast<int32_t*>(idx);
+  a.best = static_cast<int32_t*>(best);
+  a.R = R;
+  a.K = K;
+  a.W = W;
+  return launch_rows<true>(a, static_cast<cudaStream_t>(stream));
+}
+
+// The Lemma-8 pass: reads A, the X0 rows, P, Xp, xal, Rb and rsz; writes
+// P', Xp', xal', Rb', rsz', degP2 (R, U) and n_full (R,).
+int bitset_lemma8_reduce(const void* a_rows, const void* x_rows,
+                         const void* p, const void* xp, const void* xal,
+                         const void* rb, const void* rsz, void* p_out,
+                         void* xp_out, void* xal_out, void* rb_out,
+                         void* rsz_out, void* deg_out, void* n_full_out,
+                         long long R, int U, int XC, int XCW, int W,
+                         void* stream) {
+  FrameArgs a{};
+  a.a = static_cast<const uint32_t*>(a_rows);
+  a.x_rows = static_cast<const uint32_t*>(x_rows);
+  a.p = static_cast<const uint32_t*>(p);
+  a.xp = static_cast<const uint32_t*>(xp);
+  a.xal = static_cast<const uint32_t*>(xal);
+  a.rb = static_cast<const uint32_t*>(rb);
+  a.rsz = static_cast<const int32_t*>(rsz);
+  a.p_out = static_cast<uint32_t*>(p_out);
+  a.xp_out = static_cast<uint32_t*>(xp_out);
+  a.xal_out = static_cast<uint32_t*>(xal_out);
+  a.rb_out = static_cast<uint32_t*>(rb_out);
+  a.rsz_out = static_cast<int32_t*>(rsz_out);
+  a.deg_out = static_cast<int32_t*>(deg_out);
+  a.n_full_out = static_cast<int32_t*>(n_full_out);
+  a.R = R;
+  a.U = U;
+  a.XC = XC;
+  a.XCW = XCW;
+  a.W = W;
+  return launch_frame<true>(a, static_cast<cudaStream_t>(stream));
+}
+
+// The pivot select: reads A, the X0 rows, P, Xp, xal and, given (non-null),
+// deg (R, U) and n_full (R,); writes B (R, W). `density` is the hybrid
+// switch's threshold as float32.
+int bitset_pivot_select(const void* a_rows, const void* x_rows, const void* p,
+                        const void* xp, const void* xal, const void* deg,
+                        const void* n_full, void* b_out, long long R, int U,
+                        int XC, int XCW, int W, int revised, int hybrid,
+                        float density, void* stream) {
+  FrameArgs a{};
+  a.a = static_cast<const uint32_t*>(a_rows);
+  a.x_rows = static_cast<const uint32_t*>(x_rows);
+  a.p = static_cast<const uint32_t*>(p);
+  a.xp = static_cast<const uint32_t*>(xp);
+  a.xal = static_cast<const uint32_t*>(xal);
+  a.deg = static_cast<const int32_t*>(deg);
+  a.n_full = static_cast<const int32_t*>(n_full);
+  a.p_out = static_cast<uint32_t*>(b_out);
+  a.R = R;
+  a.U = U;
+  a.XC = XC;
+  a.XCW = XCW;
+  a.W = W;
+  a.revised = revised;
+  a.hybrid = hybrid;
+  a.density = density;
+  return launch_frame<false>(a, static_cast<cudaStream_t>(stream));
 }
 
 int bitset_frame_step(const void* rows, const void* p, const void* xp,
@@ -1110,8 +1814,7 @@ int bitset_clique_counts(const void* rows, const void* mask, const void* in_p,
   a.K = K;
   a.U = K;
   a.W = W;
-  const bool vec_ok = reinterpret_cast<uintptr_t>(rows) % (4 * W) == 0;
-  return launch_census<false>(a, R, threads, vec_ok,
+  return launch_census<false>(a, R, threads, vector_rows(W, rows),
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -1136,9 +1839,7 @@ int bitset_hybrid_census(const void* a_rows, const void* x_rows,
   a.XC = XC;
   a.XCW = XCW;
   a.W = W;
-  const bool vec_ok =
-      reinterpret_cast<uintptr_t>(a_rows) % (4 * W) == 0 &&
-      reinterpret_cast<uintptr_t>(x_rows) % (4 * W) == 0;
+  const bool vec_ok = vector_rows(W, a_rows) && vector_rows(W, x_rows);
   return launch_census<true>(a, R, threads, vec_ok,
                              static_cast<cudaStream_t>(stream));
 }
@@ -1146,7 +1847,7 @@ int bitset_hybrid_census(const void* a_rows, const void* x_rows,
 int bitset_and_popcount_many(const void* rows, const void* masks, void* out,
                              long long R, int K, int M, int W, void* stream) {
   const long long kw = static_cast<long long>(K) * W;
-  const bool staged = kw <= kManySmemWords;
+  const bool staged = kw <= kSmemWords;
   const long long mk_blocks =
       (static_cast<long long>(M) * K + kThreads - 1) / kThreads;
   const dim3 grid(static_cast<unsigned>(R),

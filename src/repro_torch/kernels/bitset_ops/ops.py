@@ -14,7 +14,10 @@ Dispatch is by the device of the tensors handed in, and by nothing else:
   is an error.
 
 Each kernel wrapper adds one to `LAUNCHES[name]` where it launches, and
-nowhere else, so a run can show that it went through the kernels.
+nowhere else, so a run can show that it went through the kernels. The
+engine's entry points on a kernel count under that kernel's name:
+`lemma8_reduce` as "and_popcount_rows", `pivot_select` as
+"and_popcount_argmax", `hybrid_census` as "clique_counts".
 
 Shapes: rows (..., K, W) int32 bit words, masks (..., W), valid (..., K)
 bool, with the same leading root-batch dims; the kernels see them
@@ -23,6 +26,7 @@ flattened to (R, K, W). The window walks take per-lane windows
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
 
@@ -31,8 +35,10 @@ import torch
 from repro_torch.kernels._build import Launches, on_cpu, raise_on, stream
 from repro_torch.kernels.bitset_ops import ref
 from repro_torch.kernels.bitset_ops.build import LIBRARY
+from repro_torch.kernels.bitset_ops.ref import HYBRID_DENSITY  # noqa: F401
 from repro_torch.kernels.bitset_ops.words import (  # noqa: F401
-    and_rows, bits_to_mask, popcount, popcount_words)
+    and_reduce, and_rows, bits_to_mask, mask_to_bits, or_reduce, popcount,
+    popcount_words)
 
 LAUNCHES = Launches({"frame_step": 0, "and_popcount_rows": 0,
                      "and_popcount_argmax": 0, "clique_counts": 0,
@@ -149,6 +155,26 @@ def _check_mask(name, m, lead, w):
                          f"{m.dtype} {tuple(m.shape)}")
 
 
+def _check_frame(name, a, x_rows, xal, *vecs):
+    """Validate the engine's operands of one call per root: a (..., U, W),
+    x_rows (..., XC, W), xal (..., XCW) bits with 32·XCW >= XC and U <=
+    32·W, all int32 and contiguous, and `vecs` (the frame's (..., W)
+    masks) beside them. Returns (lead, R, U, W, XC, XCW)."""
+    lead, r, u, w = _check(name, a, x_rows, xal, *vecs)
+    xc = x_rows.shape[-2] if x_rows.dim() >= 2 else -1
+    xcw = xal.shape[-1] if xal.dim() else -1
+    if (x_rows.dtype != torch.int32 or tuple(x_rows.shape) != lead + (xc, w)
+            or xal.dtype != torch.int32 or tuple(xal.shape) != lead + (xcw,)
+            or 32 * xcw < xc or u > 32 * w):
+        raise ValueError(f"{name}: x_rows must be int32 {lead + ('XC', w)} "
+                         f"and the X0 bits int32 {lead + ('XCW',)} with "
+                         f"32*XCW >= XC, U <= 32*W; got "
+                         f"{tuple(x_rows.shape)}, {tuple(xal.shape)}")
+    for v in vecs:
+        _check_mask(name, v, lead, w)
+    return lead, r, u, w, xc, xcw
+
+
 def and_popcount_rows(rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """out[..., k] = popcount(rows[..., k, :] & mask[..., :]) as int32."""
     if on_cpu(rows, mask):
@@ -260,19 +286,8 @@ def hybrid_census(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
     and builds no selector."""
     if on_cpu(a, x_rows, P, Xp, x_alive):
         return ref.hybrid_census(a, x_rows, P, Xp, x_alive)
-    lead, r, u, w = _check("hybrid_census", a, x_rows, P, Xp, x_alive)
-    xc = x_rows.shape[-2]
-    xcw = x_alive.shape[-1] if x_alive.dim() else 0
-    if (x_rows.dtype != torch.int32 or tuple(x_rows.shape) != lead + (xc, w)
-            or x_alive.dtype != torch.int32
-            or tuple(x_alive.shape) != lead + (xcw,) or 32 * xcw < xc
-            or u > 32 * w):
-        raise ValueError(f"hybrid_census: x_rows must be int32 "
-                         f"{lead + ('XC', w)} and x_alive int32 "
-                         f"{lead + ('XCW',)} with 32*XCW >= XC, U <= 32*W; "
-                         f"got {tuple(x_rows.shape)}, {tuple(x_alive.shape)}")
-    for v in (P, Xp):
-        _check_mask("hybrid_census", v, lead, w)
+    lead, r, u, w, xc, xcw = _check_frame("hybrid_census", a, x_rows,
+                                          x_alive, P, Xp)
     outs = tuple(torch.empty(lead, dtype=torch.int32, device=a.device)
                  for _ in range(3))
     if r:
@@ -281,6 +296,73 @@ def hybrid_census(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
             r, u, xc, xcw, w, threads, stream()))
         LAUNCHES["clique_counts"] += 1
     return outs
+
+
+def lemma8_reduce(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
+                  Xp: torch.Tensor, xal: torch.Tensor, Rb: torch.Tensor,
+                  rsz: torch.Tensor):
+    """The dynamic degree-(|P|−1) reduction (Lemma 8) in one launch on the
+    engine's operands: (P, Xp, xal, Rb, rsz, degP2, n_full), new tensors,
+    as `ref.lemma8_reduce` (the contract). a (..., U, W), x_rows (..., XC,
+    W), P/Xp/Rb (..., W), xal (..., XCW) bits with 32·XCW >= XC, rsz (...)
+    int32, U <= 32·W. Counted in LAUNCHES["and_popcount_rows"]: its two
+    sweeps are that kernel's."""
+    if on_cpu(a, x_rows, P, Xp, xal, Rb, rsz):
+        return ref.lemma8_reduce(a, x_rows, P, Xp, xal, Rb, rsz)
+    lead, r, u, w, xc, xcw = _check_frame("lemma8_reduce", a, x_rows, xal,
+                                          P, Xp, Rb)
+    _check("lemma8_reduce", a, rsz)
+    if rsz.dtype != torch.int32 or tuple(rsz.shape) != lead:
+        raise ValueError(f"lemma8_reduce: rsz must be int32 {lead}")
+    dev = a.device
+    outs = tuple(torch.empty_like(t) for t in (P, Xp, xal, Rb, rsz)) + (
+        torch.empty(lead + (u,), dtype=torch.int32, device=dev),
+        torch.empty(lead, dtype=torch.int32, device=dev))
+    if r:
+        raise_on("lemma8_reduce", LIBRARY.load().bitset_lemma8_reduce(
+            *(t.data_ptr() for t in (a, x_rows, P, Xp, xal, Rb, rsz) + outs),
+            r, u, xc, xcw, w, stream()))
+        LAUNCHES["and_popcount_rows"] += 1
+    return outs
+
+
+def pivot_select(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
+                 Xp: torch.Tensor, xal: torch.Tensor,
+                 deg: Optional[torch.Tensor] = None,
+                 n_full: Optional[torch.Tensor] = None, *,
+                 revised: bool = False, hybrid: bool = False
+                 ) -> torch.Tensor:
+    """The pivot backends' branch set B (..., W) in one launch on the
+    engine's operands, as `ref.pivot_select` (the contract): the universe
+    scores deg − n_full, deg, or the kernel's own sweep of a, the alive X0
+    rows' argmax against P, B = P & ~pivot_row, and `hybrid`'s density
+    switch. a (..., U, W), x_rows (..., XC, W), P/Xp (..., W), xal (...,
+    XCW) bits with 32·XCW >= XC; deg (..., U) and n_full (...) int32 or
+    None (n_full only with deg). Counted in
+    LAUNCHES["and_popcount_argmax"]."""
+    given = tuple(t for t in (deg, n_full) if t is not None)
+    if on_cpu(a, x_rows, P, Xp, xal, *given):
+        return ref.pivot_select(a, x_rows, P, Xp, xal, deg, n_full,
+                                revised=revised, hybrid=hybrid)
+    lead, r, u, w, xc, xcw = _check_frame("pivot_select", a, x_rows, xal,
+                                          P, Xp)
+    _check("pivot_select", a, *given)
+    if deg is not None and (deg.dtype != torch.int32
+                            or tuple(deg.shape) != lead + (u,)):
+        raise ValueError(f"pivot_select: deg must be int32 {lead + (u,)}")
+    if n_full is not None and (deg is None or n_full.dtype != torch.int32
+                               or tuple(n_full.shape) != lead):
+        raise ValueError(f"pivot_select: n_full must be int32 {lead}, and "
+                         f"comes with deg")
+    B = torch.empty_like(P)
+    if r:
+        raise_on("pivot_select", LIBRARY.load().bitset_pivot_select(
+            *(t.data_ptr() for t in (a, x_rows, P, Xp, xal)),
+            *(None if t is None else t.data_ptr() for t in (deg, n_full)),
+            B.data_ptr(), r, u, xc, xcw, w, int(revised), int(hybrid),
+            ctypes.c_float(HYBRID_DENSITY), stream()))
+        LAUNCHES["and_popcount_argmax"] += 1
+    return B
 
 
 def and_popcount_many(rows: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:

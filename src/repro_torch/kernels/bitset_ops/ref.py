@@ -16,15 +16,16 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.kernels.bitset_ops.words import (  # noqa: F401
-    WORD, and_rows, bits_to_mask, popcount, popcount_words)
+    WORD, and_reduce, and_rows, bits_to_mask, mask_to_bits, onehot,
+    popcount, popcount_words)
 
-# one-hot word of each bit position (bit 31 is INT_MIN)
-_ONEHOT = torch.from_numpy(
-    (np.uint32(1) << np.arange(WORD, dtype=np.uint32)).view(np.int32))
+# The 'hybrid' backend's switch to vertex branching (B = P): the induced
+# density 2|E[P]| / (|P|·(|P|−1)) at which `pivot_select` takes it, the
+# reference's default and the one value its run() uses.
+HYBRID_DENSITY = 0.9
 
 
 def and_popcount_rows(rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -95,6 +96,94 @@ def hybrid_census(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
     return n_full, n_dom, psize
 
 
+def lemma8_reduce(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
+                  Xp: torch.Tensor, xal: torch.Tensor, Rb: torch.Tensor,
+                  rsz: torch.Tensor):
+    """The dynamic degree-(|P|−1) reduction (Lemma 8) of one call per root,
+    on the engine's operands: exactly the Lemma-8 block of the reference's
+    `reductions.dynamic_reduce` (two `and_popcount_rows` sweeps and the
+    torch ops around them).
+
+    a: (..., U, W), x_rows: (..., XC, W), P/Xp/Rb: (..., W), xal: (...,
+    XCW) bits over the X0 rows, rsz: (...) int32. Returns (P, Xp, xal, Rb,
+    rsz, degP2, n_full): degP2[u] = popcount(a[u] & P) over the P handed
+    in, and full = {u ∈ P : degP2[u] = |P| − 1} (|P| > 0) of size n_full.
+    Where full is not empty, P loses it, Rb gains it, rsz grows by n_full,
+    Xp keeps the vertices adjacent to all of it, and xal keeps the alive
+    X0 rows x < XC with full ⊆ N(x) and loses its bits past XC; elsewhere
+    the frame is returned as it is."""
+    u, w = a.shape[-2:]
+    degP2 = and_popcount_rows(a, P)
+    psize = popcount_words(P).unsqueeze(-1)
+    full = bits_to_mask(P, u) & (degP2 == psize - 1) & (psize > 0)
+    any_full = full.any(-1)
+    n_full = full.sum(-1, dtype=torch.int32)
+    full_bits = mask_to_bits(full, w)
+    common = and_reduce(a, full)                     # C(S) over the universe
+    sub_ok = and_popcount_rows(~x_rows, full_bits) == 0
+    af = any_full.unsqueeze(-1)
+    return (torch.where(af, P & ~full_bits, P),
+            torch.where(af, Xp & common, Xp),
+            torch.where(af, xal & mask_to_bits(sub_ok, xal.shape[-1]), xal),
+            torch.where(af, Rb | full_bits, Rb),
+            torch.where(any_full, rsz + n_full, rsz),
+            degP2, n_full)
+
+
+def _row_at(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """rows[..., idx[...], :]: (..., K, W), (...) -> (..., W)."""
+    return rows.gather(-2, idx.long()[..., None, None].expand(
+        idx.shape + (1, rows.shape[-1]))).squeeze(-2)
+
+
+def pivot_select(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
+                 Xp: torch.Tensor, xal: torch.Tensor,
+                 deg: Optional[torch.Tensor] = None,
+                 n_full: Optional[torch.Tensor] = None, *,
+                 revised: bool = False, hybrid: bool = False
+                 ) -> torch.Tensor:
+    """The branch set B of the pivot backends on the engine's operands:
+    exactly the body of the reference's `pivot.branch_set`.
+
+    a: (..., U, W), x_rows: (..., XC, W), P/Xp: (..., W), xal: (..., XCW)
+    bits over the X0 rows; deg: (..., U) and n_full: (...) int32, or None.
+    The universe scores are deg − n_full (both given), deg, or, with
+    neither, popcount(a[u] & P); a pool row (P ∪ Xp, or P alone when
+    `revised`) scores its degree, any other −1, and the first best wins.
+    The first best alive X0 row (the bits of xal below XC) scores
+    popcount(x & P) and is the pivot if it scores strictly higher (XC = 0:
+    never). B = P & ~pivot_row; with `hybrid`, B = P where the scores of
+    P's members below U sum to at least HYBRID_DENSITY·|P|·(|P| − 1), |P|
+    the popcount of P's words, in float32 and in that order."""
+    u, xc = a.shape[-2], x_rows.shape[-2]
+    in_p = bits_to_mask(P, u)
+    pool = in_p if revised else in_p | bits_to_mask(Xp, u)
+    if deg is None:
+        deg = and_popcount_rows(a, P)
+    elif n_full is not None:
+        deg = deg - n_full.unsqueeze(-1)
+    scores = torch.where(pool, deg, -1)
+    best_u = scores.argmax(-1)
+    su = scores.gather(-1, best_u.unsqueeze(-1)).squeeze(-1)
+    pivot_row = _row_at(a, best_u)
+    if xc:
+        best_x, sx = and_popcount_argmax(x_rows, P, bits_to_mask(xal, xc))
+        pivot_row = torch.where((sx > su).unsqueeze(-1),
+                                _row_at(x_rows, best_x), pivot_row)
+    B = P & ~pivot_row
+    if hybrid:
+        # Σ_{v∈P} deg_P(v) = 2|E[P]|, so the trigger is sum_deg ≥
+        # HYBRID_DENSITY·|P|·(|P|−1), in the reference's float32 expression
+        # and order (counts stay below 2^24, exact in float32)
+        psize = popcount_words(P)
+        sum_deg = torch.where(in_p, deg, 0).sum(-1)
+        dense = (sum_deg.to(torch.float32)
+                 >= HYBRID_DENSITY * psize.to(torch.float32)
+                 * (psize - 1).to(torch.float32))
+        B = torch.where(dense.unsqueeze(-1), P, B)
+    return B
+
+
 def and_popcount_many(rows: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     """One row matrix against a batch of masks.
 
@@ -160,7 +249,7 @@ def dfs_step_window_lanes(a: torch.Tensor, x_rows: torch.Tensor,
     lane = torch.arange(L, device=dev)
     iota_w = torch.arange(W, dtype=torch.int32, device=dev)
     iota_u = torch.arange(U, device=dev)
-    onehot = _ONEHOT.to(dev)
+    bit = onehot(dev)
     alive0 = alive0 != 0
     dl = dloc.to(torch.int32).clone()
     done = torch.zeros(L, dtype=torch.bool, device=dev)
@@ -183,7 +272,7 @@ def dfs_step_window_lanes(a: torch.Tensor, x_rows: torch.Tensor,
         first = torch.where(fB != 0, WORD * iota_w + pos, 1 << 30).amin(-1)
         w = first.clamp(0, U - 1).long()
         wbit = torch.where(iota_w == (w // WORD).unsqueeze(-1),
-                           onehot[w % WORD].unsqueeze(-1), 0)
+                           bit[w % WORD].unsqueeze(-1), 0)
         wrow = a[lane, w]
         childP = fP & wrow
         childXp = fXp & wrow

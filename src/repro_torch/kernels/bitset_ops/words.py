@@ -2,14 +2,16 @@
 
 These have no kernel behind them in either package (the reference runs
 them as plain jnp on every backend): an elementwise SWAR popcount, its
-sum over the word axis, the broadcast AND of rows with a mask, and the
-unpacking of bitsets to bool masks. Words
-are int32 holding the reference's uint32 bit patterns (see `ref`).
+sum over the word axis, the broadcast AND of rows with a mask, the
+unpacking of bitsets to bool masks and the packing back, and the OR and
+AND of selected rows. Words are int32 holding the reference's uint32 bit
+patterns (see `ref`).
 """
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 WORD = 32
@@ -48,3 +50,55 @@ def bits_to_mask(bits: torch.Tensor, n: int) -> torch.Tensor:
     """(..., W) bitsets -> (..., n) bool: bit i of the words, i < n."""
     word_idx, shift = _mask_layout(n, bits.device)
     return ((bits[..., word_idx] >> shift) & 1) != 0
+
+
+@functools.lru_cache(maxsize=64)
+def onehot(device: torch.device) -> torch.Tensor:
+    """The 32 one-hot word values (bit 31 is INT_MIN), cached per device;
+    callers must not write to it."""
+    return torch.from_numpy(
+        (np.uint32(1) << np.arange(WORD, dtype=np.uint32)).view(np.int32)
+    ).to(device)
+
+
+def mask_to_bits(mask: torch.Tensor, words: int) -> torch.Tensor:
+    """(..., K) bool -> (..., words) bitsets (bit k set iff mask[k]),
+    K <= 32·words; the bits past K are 0.
+
+    The bits are disjoint, so the OR over them is their wrapping int32
+    sum: one multiply-and-sum instead of the reference's OR reduction over
+    one-hot rows."""
+    k = mask.shape[-1]
+    bit = onehot(mask.device)
+    if k <= WORD and words == 1:
+        return (mask * bit[:k]).sum(-1, keepdim=True, dtype=torch.int32)
+    if k > WORD * words:
+        raise ValueError(f"mask of {k} bits does not fit {words} words")
+    if k < WORD * words:
+        mask = torch.nn.functional.pad(mask, (0, WORD * words - k))
+    m = mask.reshape(mask.shape[:-1] + (words, WORD))
+    return (m * bit).sum(-1, dtype=torch.int32)
+
+
+def _or_fold(x: torch.Tensor) -> torch.Tensor:
+    """OR over axis -2 by pairwise halving (log2(K) rounds); torch has no
+    bitwise reduction, and unpacking to bits would cost 8x the bytes."""
+    while x.shape[-2] > 1:
+        k = x.shape[-2]
+        h = k // 2
+        y = x[..., :h, :] | x[..., h:2 * h, :]
+        if k % 2:
+            y[..., :1, :] |= x[..., 2 * h:, :]
+        x = y
+    return x.squeeze(-2)
+
+
+def or_reduce(rows: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """OR of the rows selected by sel: (..., K, W), (..., K) -> (..., W)."""
+    return _or_fold(rows * sel.unsqueeze(-1))
+
+
+def and_reduce(rows: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """AND of the selected rows (all-ones when none is selected), by De
+    Morgan over the same fold."""
+    return ~_or_fold(~rows * sel.unsqueeze(-1))

@@ -5,6 +5,8 @@ are held bit-exact against the reference's jnp versions and against its
 Pallas kernels in interpret mode, on the same numpy inputs made from a
 seed: ties, all-invalid rows, words with the top bit set, K off the
 block size, W across one word to 32 and past the 128-lane line. The
+engine's two entry points (`lemma8_reduce`, `pivot_select`) are held
+against the reference's Lemma-8 block and its `branch_set`. The
 dispatcher takes the plain version only for CPU tensors and refuses any
 other device; the CUDA kernels themselves run in
 tests/test_torch_cuda_kernels.py (skipped without a card) and in
@@ -15,10 +17,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.engine import frames as jfr
+from repro.core.engine import pivot as jpiv
+from repro.core.engine import reductions as jred
 from repro.kernels.bitset_ops import kernel as jkernel
+from repro.kernels.bitset_ops import ops as jops
 from repro.kernels.bitset_ops import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitset_ops import build, ops, ref, words
+from torch_census_inputs import frame_inputs
 
 pytest_plugins = ["torch_jax_executables"]
 
@@ -117,6 +124,128 @@ def test_frame_step_matches_reference(r, k, w):
                                 block_k=_pick_block(k), interpret=True)
         for g, w_ in zip(got, pk):
             assert np.array_equal(_u32(g)[i], np.asarray(w_).reshape(-1))
+
+
+# (R, U, XC, W) of the engine's entry points: XC past one word, U not a
+# multiple of 32, XC = 0, W = 3 and 4
+FRAME_SHAPES = [(7, 32, 40, 1), (8, 50, 33, 2), (7, 64, 0, 2),
+                (7, 96, 70, 3), (7, 128, 5, 4)]
+
+
+def _frame(r, u, xc, w):
+    return frame_inputs(r, u, xc, w, seed=r + u + xc + w)
+
+
+def _reference_lemma8(a, x_rows, P, Xp, xal, Rb, rsz):
+    """The reference's Lemma-8 block (`reductions.dynamic_reduce`, its
+    dynamic degree-(|P|-1) step) on its own helpers, for one root."""
+    A, X = jnp.asarray(a), jnp.asarray(x_rows)
+    P, Xp, xal, Rb = (jnp.asarray(v) for v in (P, Xp, xal, Rb))
+    U, W = A.shape
+    eye, eye_x = jfr.eye_bits(U, W), jfr.eye_bits(X.shape[0], xal.shape[0])
+    degP2 = jops.and_popcount_rows(A, P)
+    psize = jfr.popcount(P)
+    full = jfr.bitset_to_mask(P, U) & (degP2 == psize - 1) & (psize > 0)
+    any_full = jnp.any(full)
+    n_full = jnp.sum(full.astype(jnp.int32))
+    full_bits = jfr.mask_to_bitset(full, eye)
+    common = jfr.and_reduce(A, full)
+    sub_ok = jops.and_popcount_rows(jnp.bitwise_not(X), full_bits) == 0
+    return (jnp.where(any_full, P & ~full_bits, P),
+            jnp.where(any_full, Xp & common, Xp),
+            jnp.where(any_full, xal & jfr.mask_to_bitset(sub_ok, eye_x), xal),
+            jnp.where(any_full, Rb | full_bits, Rb),
+            jnp.where(any_full, rsz + n_full, rsz), degP2, n_full)
+
+
+@pytest.mark.parametrize("r,u,xc,w", FRAME_SHAPES)
+def test_lemma8_reduce_matches_reference(r, u, xc, w):
+    """`ops.lemma8_reduce` on CPU tensors (the plain version) against the
+    reference's Lemma-8 block: roots whose P is empty, one bit, a clique or
+    inside one vertex's neighbourhood (Lemma 8 fires), tied rows, xal with
+    bits past XC (cleared where Lemma 8 fires, kept elsewhere), XC = 0."""
+    a, x_rows, P, Xp, xal, Rb, rsz, _, _ = _frame(r, u, xc, w)
+    ops.LAUNCHES.reset()
+    got = ops.lemma8_reduce(*(_t(v) for v in (a, x_rows, P, Xp, xal, Rb,
+                                              rsz)))
+    assert set(ops.LAUNCHES.values()) == {0}
+    n_full = got[6].numpy()
+    assert n_full[3] > 0 and n_full[6] > 0 and n_full[0] == 0
+    for i in range(r):
+        want = _reference_lemma8(a[i], x_rows[i], P[i], Xp[i], xal[i], Rb[i],
+                                 rsz[i])
+        for g, w_ in zip(got, want):
+            assert g.dtype == torch.int32
+            assert np.array_equal(_u32(g[i]), np.asarray(w_)), i
+
+
+@pytest.mark.parametrize("backend", ["pivot", "revised", "hybrid"])
+@pytest.mark.parametrize("scores", ["reduced", "deg", "sweep"])
+@pytest.mark.parametrize("r,u,xc,w", FRAME_SHAPES)
+def test_pivot_select_matches_reference(r, u, xc, w, scores, backend):
+    """`ops.pivot_select` on CPU tensors against the reference's
+    `branch_set`, with the reduced frame's degrees (deg − n_full), the
+    frame step's (deg) and its own sweep: an empty pool, tied scores,
+    scores below −1 (which lose even to the all-invalid X0 argmax), xal
+    with bits past XC. The reference cannot take
+    XC = 0, so there the port is held to itself and the reference at
+    XC = 1 with that row dead, which is what "no X0 row" means."""
+    a, x_rows, P, Xp, xal, _, _, deg, n_full = _frame(r, u, xc, w)
+    if xc == 0:
+        x_one = np.zeros((r, 1, w), np.uint32)
+        xal_one = np.zeros((r, 1), np.uint32)
+    jcfg = jfr.EngineConfig(backend=backend)
+    kw = dict(revised=backend == "revised", hybrid=backend == "hybrid")
+    given = {"reduced": (deg, n_full), "deg": (deg, None),
+             "sweep": (None, None)}[scores]
+    tgiven = tuple(None if v is None else _t(v) for v in given)
+    got = ops.pivot_select(*(_t(v) for v in (a, x_rows, P, Xp, xal)),
+                           *tgiven, **kw)
+    if xc == 0:
+        one = ops.pivot_select(*(_t(v) for v in (a, x_one, P, Xp, xal_one)),
+                               *tgiven, **kw)
+        assert torch.equal(got, one)
+        x_rows, xal = x_one, xal_one
+    elif r > 7 and scores != "sweep" and backend == "pivot":
+        # root 7: scores below -1 lose to the all-invalid X0 argmax, row 0
+        assert np.array_equal(_u32(got[7]), P[7] & ~x_rows[7, 0])
+    for i in range(r):
+        jctx = jfr.make_context(jnp.asarray(a[i]), jnp.asarray(x_rows[i]))
+        red = deg_i = None
+        if scores == "reduced":
+            red = jred.ReducedFrame(P=None, Xp=None, xal=None, Rb=None,
+                                    rsz=None, degP2=jnp.asarray(deg[i]),
+                                    n_full=jnp.int32(n_full[i]))
+        elif scores == "deg":
+            deg_i = jnp.asarray(deg[i])
+        want = jpiv.branch_set(jcfg, jctx, jnp.asarray(P[i]),
+                               jnp.asarray(Xp[i]), jnp.asarray(xal[i]), red,
+                               deg=deg_i)
+        assert np.array_equal(_u32(got[i]), np.asarray(want)), i
+
+
+@pytest.mark.parametrize("total,dense", [(81, True), (80, False)])
+def test_pivot_select_hybrid_density_at_the_threshold(total, dense):
+    """|P| = 10 puts the hybrid switch at float32(0.9)·10·9 = 81 exactly:
+    scores summing to 81 branch on all of P, 80 on the pivot set, as in
+    the reference."""
+    u, w, xc = 64, 2, 40
+    a, x_rows, P, Xp, xal, _, _, deg, _ = frame_inputs(7, u, xc, w, seed=3)
+    P[:] = 0
+    P[:, 0] = np.uint32(0x3FF)                      # |P| = 10, bits 0..9
+    Xp &= ~P
+    deg[:, :10] = 8
+    deg[:, 0] = total - 8 * 9
+    got = ops.pivot_select(*(_t(v) for v in (a, x_rows, P, Xp, xal)),
+                           _t(deg), hybrid=True)
+    jcfg = jfr.EngineConfig(backend="hybrid")
+    for i in range(7):
+        jctx = jfr.make_context(jnp.asarray(a[i]), jnp.asarray(x_rows[i]))
+        want = jpiv.branch_set(jcfg, jctx, jnp.asarray(P[i]),
+                               jnp.asarray(Xp[i]), jnp.asarray(xal[i]), None,
+                               deg=jnp.asarray(deg[i]))
+        assert np.array_equal(_u32(got[i]), np.asarray(want))
+        assert np.array_equal(_u32(got[i]), P[i]) == dense
 
 
 def test_frame_step_partner_is_the_single_bit():

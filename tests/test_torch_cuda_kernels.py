@@ -4,7 +4,10 @@ substrate kernels (common_neighbor, embedding_bag, dense_spmm,
 flash_attention) are held against their plain versions at the reference
 tests' edge shapes and a few more (D past one staged tile, L past one
 warp, N > 32, Sq != Sk, bfloat16), and flash_attention's tensor-core
-kernel at D = 64 and 128 from one row to several ragged tiles.
+kernel at D = 64 and 128 from one row to several ragged tiles. The row
+kernels' every instance (W = 1-5, G = 1, 2, 4, rows off the vector
+loads' alignment, the two-step argmax) and the engine's two entry points
+on them (`lemma8_reduce`, `pivot_select`) are held bit for bit.
 
 Every test here needs a CUDA device and nvcc (the kernels have no CPU
 mode); without a card they skip. The file imports neither JAX nor the
@@ -30,7 +33,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.segment_spmm import ops as sp_ops
 from repro_torch.kernels.segment_spmm import ref as sp_ref
-from torch_census_inputs import census_inputs, hybrid_inputs
+from torch_census_inputs import (census_inputs, frame_inputs,
+                                 hybrid_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -156,6 +160,123 @@ def test_cuda_census_entry_points_match_plain_versions(cuda_device, r, u,
     assert ops.LAUNCHES["clique_counts"] == before + calls + 2
     with pytest.raises(RuntimeError, match="cudaError"):
         ops.hybrid_census(a, xr, P, Xp, xal, threads=48)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("k", [33, 100, 600, 1500])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5])
+def test_cuda_row_kernels_every_instance(cuda_device, w, k, aligned):
+    """and_popcount_rows and and_popcount_argmax at W = 1-5 (the vector
+    instances and the word-by-word one), K giving G = 1, 2 and 4 warps a
+    root (one batch of rows a thread, and several), 9 roots (blocks of 8 /
+    G roots and a ragged last one), rows one
+    word off the vector loads' alignment, tied rows and an all-invalid
+    root."""
+    r = 9
+    rng = np.random.default_rng(k * w)
+    rows = _words((r, k, w), k + w, cuda_device)
+    rows[1] = rows[1, :1]                              # every score tied
+    mask = _words((r, w), 7, cuda_device)
+    valid = torch.from_numpy(rng.random((r, k)) < 0.5).to(cuda_device)
+    valid[0] = False                                   # all-invalid root
+    if not aligned:
+        rows = _unaligned(rows)
+    before = dict(ops.LAUNCHES)
+    assert torch.equal(ops.and_popcount_rows(rows, mask),
+                       ref.and_popcount_rows(rows, mask))
+    got = ops.and_popcount_argmax(rows, mask, valid)
+    for g, w_ in zip(got, ref.and_popcount_argmax(rows, mask, valid)):
+        assert torch.equal(g, w_)
+    assert int(got[0][0]) == 0 and int(got[1][0]) == -1
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["and_popcount_rows"] == before["and_popcount_rows"] + 1
+    assert (ops.LAUNCHES["and_popcount_argmax"]
+            == before["and_popcount_argmax"] + 1)
+
+
+def test_cuda_argmax_two_step_reduce(cuda_device):
+    """K·(32·W + 2) past 2^32: the argmax cannot pack (score + 1, ~index)
+    into 32 bits and reduces in two steps (131,072 rows of 1,024 words,
+    512 MiB), with the best score tied across rows far apart."""
+    r, k, w = 1, 131_072, 1_024
+    assert k * (32 * w + 2) > 2**32
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    rows = torch.randint(-2**31, 2**31, (r, k, w), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    mask = torch.full((r, w), -1, dtype=torch.int32, device=cuda_device)
+    rows[0, [5, 70_000, k - 1]] = -1                  # three tied maxima
+    valid = torch.rand((r, k), generator=gen, device=cuda_device) < 0.5
+    valid[0, [5, 70_000, k - 1]] = torch.tensor([False, True, True],
+                                                device=cuda_device)
+    got = ops.and_popcount_argmax(rows, mask, valid)
+    want = ref.and_popcount_argmax(rows, mask, valid)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    assert int(got[0][0]) == 70_000 and int(got[1][0]) == 32 * w
+
+
+# (R, U, XC, W) of the engine's entry points: W = 1-5, U off 32 and
+# U = 128, XC = 0, 1, 33 and 2,048, and the U = 64 bucket's 623 roots
+FRAME_CASES = [(7, 32, 0, 1), (9, 32, 2048, 1), (8, 50, 33, 2),
+               (623, 64, 512, 2), (7, 96, 1, 3), (9, 128, 33, 4),
+               (7, 128, 128, 4), (8, 160, 70, 5), (7, 20, 2048, 1)]
+
+
+@pytest.mark.parametrize("r,u,xc,w", FRAME_CASES)
+def test_cuda_lemma8_and_pivot_select_match_plain_versions(cuda_device, r,
+                                                           u, xc, w):
+    """lemma8_reduce and pivot_select bit for bit against their plain
+    versions (frame_inputs: empty P and empty pool, tied rows, a clique, P
+    inside a neighbourhood so Lemma 8 fires, scores below −1, xal bits
+    past XC), every scoring mode and backend, and with A and the X0 rows
+    one word off the vector loads' alignment (the word-by-word
+    instance)."""
+    a, xr, P, Xp, xal, Rb, rsz, deg, n_full = (
+        torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x)
+        .to(cuda_device)
+        for x in frame_inputs(r, u, xc, w, seed=r + u + xc + w))
+    before = dict(ops.LAUNCHES)
+    calls = 0
+    for rows_a, rows_x in ((a, xr), (_unaligned(a), _unaligned(xr))):
+        got = ops.lemma8_reduce(rows_a, rows_x, P, Xp, xal, Rb, rsz)
+        want = ref.lemma8_reduce(a, xr, P, Xp, xal, Rb, rsz)
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_)
+        assert int(got[6][3]) > 0 and int(got[6][6]) > 0
+        for given in ((deg, n_full), (deg, None), (None, None)):
+            for backend in ("pivot", "revised", "hybrid"):
+                kw = dict(revised=backend == "revised",
+                          hybrid=backend == "hybrid")
+                assert torch.equal(
+                    ops.pivot_select(rows_a, rows_x, P, Xp, xal, *given,
+                                     **kw),
+                    ref.pivot_select(a, xr, P, Xp, xal, *given, **kw)), \
+                    (backend, given[0] is None, given[1] is None)
+                calls += 1
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["and_popcount_rows"] == before["and_popcount_rows"] + 2
+    assert (ops.LAUNCHES["and_popcount_argmax"]
+            == before["and_popcount_argmax"] + calls)
+
+
+@pytest.mark.parametrize("total,dense", [(81, True), (80, False)])
+def test_cuda_pivot_select_hybrid_density_at_the_threshold(cuda_device,
+                                                           total, dense):
+    """|P| = 10: scores summing to float32(0.9)·10·9 = 81 branch on all of
+    P, 80 on the pivot set, as the plain version."""
+    a, xr, P, Xp, xal, _, _, deg, _ = frame_inputs(7, 64, 40, 2, seed=3)
+    P[:] = 0
+    P[:, 0] = np.uint32(0x3FF)
+    Xp &= ~P
+    deg[:, :10] = 8
+    deg[:, 0] = total - 8 * 9
+    a, xr, P, Xp, xal, deg = (
+        torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x)
+        .to(cuda_device) for x in (a, xr, P, Xp, xal, deg))
+    got = ops.pivot_select(a, xr, P, Xp, xal, deg, hybrid=True)
+    assert torch.equal(got, ref.pivot_select(a, xr, P, Xp, xal, deg,
+                                             hybrid=True))
+    assert all(torch.equal(got[i], P[i]) == dense for i in range(7))
 
 
 @pytest.mark.parametrize("backend", ["hybrid", "rcd"])

@@ -145,20 +145,57 @@ def _bucket(g, u):
     return next(b for b in prep.buckets if b.u_pad == u)
 
 
-@pytest.mark.parametrize("dynamic_red", [True, False])
-@pytest.mark.parametrize("backend", ["pivot", "revised"])
-def test_dynamic_reduce_and_branch_set_on_one_frame(dynamic_red, backend):
-    b = _bucket(jgen.erdos_renyi(150, 0.15, seed=4), 32)
+# Frames of one bucket each: (graph, bucket U, how P is drawn, whether the
+# X0 rows cross a word boundary). "split": P and Xp a random split of the
+# root's universe; "neighbourhood": P drawn inside N(v) ∪ {v} of a vertex v
+# of the universe, so v is adjacent to the rest of P and Lemma 8 fires.
+FRAMES = {
+    "er_u32": (lambda: jgen.erdos_renyi(150, 0.15, seed=4), 32, "split",
+               False),
+    "er_u64": (lambda: jgen.erdos_renyi(150, 0.3, seed=4), 64, "split",
+               False),
+    "caveman_lemma8": (lambda: jgen.caveman(60, 8, 0.12, seed=7), 32,
+                       "neighbourhood", False),
+    "er_lemma8": (lambda: jgen.erdos_renyi(150, 0.3, seed=4), 32,
+                  "neighbourhood", True),
+}
+
+def _frame(name):
+    """A mid-search frame per root of FRAMES[name]'s bucket: (bucket, P,
+    Xp, X0 alive mask, Rb, rsz, enable)."""
+    graph, u, family, _ = FRAMES[name]
+    b = _bucket(graph(), u)
     R, U, W = b.a.shape
     rng = np.random.default_rng(0)
-    # a mid-search frame per root: P, Xp a split of the root's universe,
-    # a random X0 alive subset and base
     keep = _words((R, W), 1, density=0.6)
+    if family == "neighbourhood":
+        eye = jfr.eye_bits(U, W)
+        for r in range(R):
+            members = np.flatnonzero(np.unpackbits(
+                b.p0[r].view(np.uint8), bitorder="little")[:U])
+            v = int(rng.choice(members))
+            keep[r] = ((b.a[r, v] & _words((W,), r, density=0.8))
+                       | np.asarray(eye[v]))
     P, Xp = b.p0 & keep, b.p0 & ~keep & _words((R, W), 2, density=0.3)
     alive = b.x_alive0 & (rng.random(b.x_alive0.shape) < 0.7)
     Rb = _words((R, W), 3, density=0.05) & ~b.p0
     rsz = b.rsz0 + 1
     en = rng.random(R) < 0.8
+    return b, P, Xp, alive, Rb, rsz, en
+
+
+@pytest.mark.parametrize("dynamic_red", [True, False])
+@pytest.mark.parametrize("backend", ["pivot", "revised", "hybrid"])
+@pytest.mark.parametrize("frame", sorted(FRAMES))
+def test_dynamic_reduce_and_branch_set_on_one_frame(frame, backend,
+                                                    dynamic_red):
+    """dynamic_reduce (the Lemma-8 pass one `lemma8_reduce`) and
+    branch_set (one `pivot_select`) on one frame per root, against the
+    reference's: at U = 32 (W = 1) and U = 64 (W = 2), and on frames where
+    Lemma 8 fires (some roots have n_full > 0), one with its X0 rows past
+    one word."""
+    b, P, Xp, alive, Rb, rsz, en = _frame(frame)
+    R, U, W = b.a.shape
     tcfg = fr.EngineConfig(out_cap=64, dynamic_red=dynamic_red,
                            backend=backend)
     jcfg = jfr.EngineConfig(out_cap=64, dynamic_red=dynamic_red,
@@ -167,6 +204,7 @@ def test_dynamic_reduce_and_branch_set_on_one_frame(dynamic_red, backend):
         dict(a=b.a, p0=b.p0, x_rows=b.x_rows, x_alive0=alive, rsz0=b.rsz0),
         CPU).values()
     ctx = fr.make_context(a, xr)
+    assert (ctx.xc_words > 1) == FRAMES[frame][3]
     xal = fr.mask_to_bitset(xa, ctx.xc_words)
     carry = fr.carry_init(tcfg, R, W, CPU)
     rf = None
@@ -174,6 +212,8 @@ def test_dynamic_reduce_and_branch_set_on_one_frame(dynamic_red, backend):
         carry, rf = reductions.dynamic_reduce(
             carry, tcfg, ctx, _t(P), _t(Xp), xal, _t(rsz), _t(Rb), _t(en))
         tP, tXp, txal = rf.P, rf.Xp, rf.xal
+        if FRAMES[frame][2] == "neighbourhood":
+            assert (rf.n_full > 0).sum() > R // 4
     else:
         tP, tXp, txal = _t(P), _t(Xp), xal
     tB = pivot.branch_set(tcfg, ctx, tP, tXp, txal, rf)

@@ -89,3 +89,45 @@ def hybrid_inputs(r, u, xc, w, seed):
     for k in np.flatnonzero(bits_of(P[3], u)):
         a[3, k] = (a[3, k] | P[3]) & ~one_bit(w, int(k))
     return a, x_rows, P, Xp, x_alive
+
+
+def frame_inputs(r, u, xc, w, seed):
+    """The engine's operands of the Lemma-8 pass and the pivot select:
+    `hybrid_inputs`' a, x_rows, P, Xp and xal (garbage past bit xc) with
+    Rb (r, w) and rsz (r,) int32, deg (r, u) and n_full (r,) int32 scores
+    near the true degrees (negative ones too). Beyond hybrid_inputs' first
+    four roots: root 4's rows all equal (every score ties), root 5's pool
+    empty (P = Xp = 0), root 6's P inside N(v) ∪ {v} of a vertex v, which
+    makes v full (deg |P| − 1) wherever Lemma 8 looks, and, given eight
+    roots, root 7's pool the whole universe with given scores below −1 and
+    no alive X0 row, so that the all-invalid X0 argmax (row 0, score −1)
+    wins the pivot."""
+    assert r >= 7
+    rng = np.random.default_rng(seed + 1)
+    a, x_rows, P, Xp, xal = hybrid_inputs(r, u, xc, w, seed)
+    below = np.packbits(np.arange(32 * w) < u, bitorder="little") \
+        .view(np.uint32)
+    a[4] = a[4, :1]
+    x_rows[4] = x_rows[4, :1]
+    P[5] = 0
+    Xp[5] = 0
+    v = int(rng.integers(u))
+    a[6, v] &= ~one_bit(w, v)
+    P[6] = (a[6, v] | one_bit(w, v)) & below
+    Xp[6] &= ~P[6]
+    Rb = rng.integers(0, 2**32, (r, w), dtype=np.uint64).astype(np.uint32)
+    Rb &= ~P
+    rsz = rng.integers(0, 9, r).astype(np.int32)
+    deg = np.zeros((r, u), np.int32)
+    for i in range(r):
+        both = a[i] & P[i]
+        deg[i] = np.unpackbits(both.view(np.uint8).reshape(u, -1), axis=1) \
+            .sum(1)
+    deg += rng.integers(-2, 3, (r, u)).astype(np.int32)
+    n_full = rng.integers(0, 3, r).astype(np.int32)
+    if r > 7:
+        Xp[7] = below & ~P[7]
+        Rb[7] &= ~Xp[7]
+        deg[7] = -5
+        xal[7] = 0
+    return a, x_rows, P, Xp, xal, Rb, rsz, deg, n_full

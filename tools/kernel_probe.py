@@ -1,28 +1,31 @@
 #!/usr/bin/env python3
-"""Same-call measurements of the census and dense_spmm kernels against an
-earlier tree's, on one NVIDIA GPU.
+"""Same-call measurements of the row kernels and their engine entry points
+against an earlier tree's, on one NVIDIA GPU.
 
-They stand behind rows 4 and 10 of the kernel table in PERF.md §6:
+They stand behind rows 2-3 of the kernel table in PERF.md §6:
 
     python3 tools/kernel_probe.py --export-earlier DIR [--rev REV]
     python3 tools/kernel_probe.py --earlier DIR
     python3 tools/kernel_probe.py --hybrid-lanes [--src DIR]
+    python3 tools/kernel_probe.py --profiles [--src DIR]
 
 1. --export-earlier (no card needed): writes REV's (default HEAD~1)
-   `bitset_ops.cu` and `segment_spmm.cu` into DIR with `git show`, for a
-   machine whose copy of the checkout has no git history.
-2. --earlier: builds DIR's two sources beside this tree's (one nvcc each,
+   `bitset_ops.cu` into DIR with `git show`, for a machine whose copy of
+   the checkout has no git history.
+2. --earlier: builds DIR's source beside this tree's (the two nvcc runs
    started together) and times, in turns in this process (this, earlier,
    earlier, this; each a median of chip_smoke.py's CUDA-event timing):
-   - the census (`clique_counts`, the reference's contract) at each
-     Graph500 scale-12 bucket's roots and at the hybrid lanes' 64, held
-     bit for bit to the plain version, with this tree's `hybrid_census`
-     (the engine's entry point, the same kernel) and each census block
-     size beside it;
-   - `dense_spmm` at the molecule cell (128 graphs of 30 nodes, F = 128
-     and 32) and at chip_smoke.py's ring and plain-load shapes, held
-     within 1e-5 of the plain version, with `torch.bmm` (TF32 off) beside
-     it;
+   - `and_popcount_rows` (A against P, and the X-subset shape: ~X0 rows
+     against P) and `and_popcount_argmax` (the X0 rows) at each Graph500
+     scale-12 bucket's roots, held bit for bit to the plain version;
+   - the engine's two entry points, `lemma8_reduce` and `pivot_select`,
+     against the earlier tree's composition of them (its torch ops around
+     its two `and_popcount_rows` launches, and around its one
+     `and_popcount_argmax` launch, with `not_x_rows` hoisted as it was)
+     on the U = 64 bucket's own operands (chip_smoke.py's `real_frames`,
+     roots and lanes): device ms, host µs a call (the enqueue of 50
+     calls), and CUDA kernels a call (torch.profiler), both held bit for
+     bit to the plain version;
 3. --hybrid-lanes: the hybrid lanes path of the `repro_torch` package
    under DIR (default: this checkout's `src`), so that two trees can be
    run in turns, each in a process of its own: `run()` on kronecker(12,
@@ -30,6 +33,10 @@ They stand behind rows 4 and 10 of the kernel table in PERF.md §6:
    reference's counters and stats (chip_smoke.py's `drive`) and timed on
    the host's clock, then chip_smoke.py's trip profile of that path on
    the U = 64 bucket (ms, torch kernels and device busy ms a trip).
+4. --profiles: chip_smoke.py's step and trip profiles (the pivot
+   per-root step; the pivot, hybrid and rcd lane trips) on the U = 64
+   bucket of kronecker(12, 16, seed=0), of the `repro_torch` under
+   --src's DIR, for trees run in turns, a process each.
 
 Run from the root of a checkout with a CUDA card and nvcc. Prints one JSON
 line per result; a failed check raises. Imports nothing of JAX or of the
@@ -50,39 +57,29 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (puts this checkout's src on the path)
 
-SOURCES = {"bitset_ops": "src/repro_torch/kernels/bitset_ops/csrc/"
-                         "bitset_ops.cu",
-           "segment_spmm": "src/repro_torch/kernels/segment_spmm/csrc/"
-                           "segment_spmm.cu"}
+SOURCE = "src/repro_torch/kernels/bitset_ops/csrc/bitset_ops.cu"
 
 
 def export_earlier(out: Path, rev: str) -> None:
-    """REV's two kernel sources into `out`, by `git show`."""
+    """REV's bitset kernel source into `out`, by `git show`."""
     out.mkdir(parents=True, exist_ok=True)
-    for name, path in SOURCES.items():
-        text = subprocess.run(["git", "show", f"{rev}:{path}"], cwd=ROOT,
-                              capture_output=True, text=True,
-                              check=True).stdout
-        (out / f"{name}.cu").write_text(text)
-        print(f"{rev}:{path} -> {out / f'{name}.cu'}")
+    text = subprocess.run(["git", "show", f"{rev}:{SOURCE}"], cwd=ROOT,
+                          capture_output=True, text=True, check=True).stdout
+    (out / "bitset_ops.cu").write_text(text)
+    print(f"{rev}:{SOURCE} -> {out / 'bitset_ops.cu'}")
 
 
-def build(src: Path) -> dict:
-    """This tree's and the earlier tree's libraries of the two kernels, the
-    four nvcc runs started together; the earlier ones declare only the C
-    entry points this probe calls, with the earlier signatures (its census
-    takes no block size)."""
+def build(src: Path):
+    """This tree's and the earlier tree's bitset libraries, the two nvcc
+    runs started together; the earlier one declares only the two C entry
+    points this probe calls (their signatures have not changed)."""
     from repro_torch.kernels._build import CudaLibrary
-    from repro_torch.kernels.bitset_ops.build import LIBRARY as bitset_lib
-    from repro_torch.kernels.segment_spmm.ops import LIBRARY as spmm_lib
+    from repro_torch.kernels.bitset_ops.build import LIBRARY
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    libs = {"bitset_ops": bitset_lib, "segment_spmm": spmm_lib,
-            "earlier bitset_ops": CudaLibrary(
-                (src / "bitset_ops.cu").resolve(),
-                {"bitset_clique_counts": [p] * 6 + [ll, i, i, p]}),
-            "earlier segment_spmm": CudaLibrary(
-                (src / "segment_spmm.cu").resolve(),
-                {"dense_spmm": [p, p, p, ll, i, i, p]})}
+    earlier = CudaLibrary((src / "bitset_ops.cu").resolve(), {
+        "bitset_and_popcount_rows": [p, p, p, ll, i, i, p],
+        "bitset_and_popcount_argmax": [p] * 5 + [ll, i, i, p]})
+    libs = {"bitset_ops": LIBRARY, "earlier bitset_ops": earlier}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(lib.build) for lib in libs.values()]:
@@ -94,7 +91,7 @@ def build(src: Path) -> dict:
                  nvcc_seconds={n: lib.build_seconds
                                for n, lib in libs.items()},
                  build_and_load_seconds=time.perf_counter() - t0))
-    return libs
+    return earlier
 
 
 def in_turns(this, earlier) -> dict:
@@ -104,98 +101,168 @@ def in_turns(this, earlier) -> dict:
                 earlier_ms=statistics.mean(turns[1:3]), turns_ms=turns)
 
 
-def census(dev, lib) -> None:
-    """The census at each scale-12 bucket's roots and lanes, in turns."""
+class Earlier:
+    """The earlier tree's two row kernels behind its wrappers' checks
+    (`ops._check`, unchanged) and allocations."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def and_popcount_rows(self, rows, mask):
+        import torch
+        from repro_torch.kernels._build import stream
+        from repro_torch.kernels.bitset_ops import ops
+        lead, r, k, w = ops._check("and_popcount_rows", rows, mask)
+        ops._check_mask("and_popcount_rows", mask, lead, w)
+        out = torch.empty(lead + (k,), dtype=torch.int32, device=rows.device)
+        cs.check(self.lib.load().bitset_and_popcount_rows(
+            rows.data_ptr(), mask.data_ptr(), out.data_ptr(), r, k, w,
+            stream()) == 0, "the earlier and_popcount_rows did not launch")
+        return out
+
+    def and_popcount_argmax(self, rows, mask, valid):
+        import torch
+        from repro_torch.kernels._build import stream
+        from repro_torch.kernels.bitset_ops import ops
+        lead, r, k, w = ops._check("and_popcount_argmax", rows, mask, valid)
+        ops._check_mask("and_popcount_argmax", mask, lead, w)
+        idx = torch.empty(lead, dtype=torch.int32, device=rows.device)
+        best = torch.empty(lead, dtype=torch.int32, device=rows.device)
+        cs.check(self.lib.load().bitset_and_popcount_argmax(
+            rows.data_ptr(), mask.data_ptr(), valid.data_ptr(),
+            idx.data_ptr(), best.data_ptr(), r, k, w, stream()) == 0,
+            "the earlier and_popcount_argmax did not launch")
+        return idx, best
+
+    def lemma8_reduce(self, a, not_x, P, Xp, xal, Rb, rsz):
+        """The earlier reductions.py's Lemma-8 block."""
+        import torch
+        from repro_torch.kernels.bitset_ops import ops
+        U, W = a.shape[-2:]
+        degP2 = self.and_popcount_rows(a, P)
+        in_p2 = ops.bits_to_mask(P, U)
+        psize = ops.popcount_words(P).unsqueeze(-1)
+        full = in_p2 & (degP2 == psize - 1) & (psize > 0)
+        any_full = full.any(-1)
+        n_full = full.sum(-1, dtype=torch.int32)
+        full_bits = ops.mask_to_bits(full, W)
+        common = ops.and_reduce(a, full)
+        sub_ok = self.and_popcount_rows(not_x, full_bits) == 0
+        af = any_full.unsqueeze(-1)
+        return (torch.where(af, P & ~full_bits, P),
+                torch.where(af, Xp & common, Xp),
+                torch.where(af, xal & ops.mask_to_bits(sub_ok, xal.shape[-1]),
+                            xal),
+                torch.where(af, Rb | full_bits, Rb),
+                torch.where(any_full, rsz + n_full, rsz), degP2, n_full)
+
+    def pivot_select(self, a, x_rows, P, Xp, xal, deg, n_full, ar):
+        """The earlier pivot.py's branch_set (pivot backend, reduced
+        frame)."""
+        import torch
+        from repro_torch.kernels.bitset_ops import ops
+        U, XC = a.shape[-2], x_rows.shape[-2]
+        in_p = ops.bits_to_mask(P, U)
+        pool = in_p | ops.bits_to_mask(Xp, U)
+        uni = torch.where(pool, deg - n_full.unsqueeze(-1), -1)
+        best_u = uni.argmax(-1)
+        su = uni.gather(-1, best_u.unsqueeze(-1)).squeeze(-1)
+        best_x, sx = self.and_popcount_argmax(x_rows, P,
+                                              ops.bits_to_mask(xal, XC))
+        use_x = (sx > su).unsqueeze(-1)
+        pivot_row = torch.where(use_x, x_rows[ar, best_x.long()],
+                                a[ar, best_u.long()])
+        return P & ~pivot_row
+
+
+def row_kernels(dev, old) -> None:
+    """Rows 2-3 at each scale-12 bucket's roots, in turns."""
     import numpy as np
-    import torch
     from repro_torch.core.engine.prepare import prepare
     from repro_torch.graph.generators import kronecker
-    from repro_torch.kernels._build import stream
     from repro_torch.kernels.bitset_ops import ops, ref
     rng = np.random.default_rng(1)
     for b in prepare(kronecker(12, 16, seed=0), device=dev).buckets:
         o = cs.bucket_operands(b, dev, rng)
-        for form, n in (("roots", b.num_roots), ("lanes", 64)):
-            t = {k: v[:n].contiguous() for k, v in o.items()}
-            rows, P, in_p, in_x = t["census"], t["P"], t["in_p"], t["in_x"]
-            R, K, W = rows.shape
-            want = ref.clique_counts(rows, P, in_p, in_x)
-            outs = [torch.empty_like(want[0]) for _ in range(2)]
-            hybrid = (t["a"], t["x_rows"], P, t["Xp"], t["xal"])
-
+        not_x = ~o["x_rows"]
+        for name, args in (
+                ("and_popcount_rows", (o["a"], o["P"])),
+                ("and_popcount_rows", (not_x, o["P"])),
+                ("and_popcount_argmax", (o["x_rows"], o["P"],
+                                         o["x_alive0"]))):
             def this():
-                return ops.clique_counts(rows, P, in_p, in_x)
+                out = getattr(ops, name)(*args)
+                return out if isinstance(out, tuple) else (out,)
 
             def earlier():
-                cs.check(lib.load().bitset_clique_counts(
-                    rows.data_ptr(), P.data_ptr(), in_p.data_ptr(),
-                    in_x.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-                    R, K, W, stream()) == 0,
-                    "the earlier census's launch failed")
-                return outs
-            err = cs.exact("clique_counts", this(), want, rows.shape)
-            err = max(err, cs.exact("earlier clique_counts", earlier(), want,
-                                    rows.shape))
-            err = max(err, cs.exact(
-                "hybrid_census", ops.hybrid_census(*hybrid),
-                ref.hybrid_census(*hybrid), rows.shape))
-            threads_ms = {}
-            for nt in cs.CENSUS_THREADS:
-                def forced(nt=nt):
-                    return ops.clique_counts(rows, P, in_p, in_x, threads=nt)
-                cs.exact(f"clique_counts threads={nt}", forced(), want,
-                         rows.shape)
-                threads_ms[nt] = cs.cuda_ms(forced)[0]
-            nbytes, nops = cs.kernel_cost("clique_counts", rows, P)
+                out = getattr(old, name)(*args)
+                return out if isinstance(out, tuple) else (out,)
+            want = getattr(ref, name)(*args)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(cs.exact(name, this(), want, args[0].shape),
+                      cs.exact(f"earlier {name}", earlier(), want,
+                               args[0].shape))
+            nbytes, nops = cs.kernel_cost(name, *args[:2], args[2:])
             cs.emit(dict(
-                phase="census_in_turns", bucket_u=b.u_pad, bucket_xc=b.x_pad,
-                form=form, shape=[R, K, W], max_abs_err=err,
-                **in_turns(this, earlier),
-                hybrid_census_ms=cs.cuda_ms(
-                    lambda: ops.hybrid_census(*hybrid))[0],
-                threads_ms=threads_ms,
-                bound_ms=1e3 * max(nbytes / cs.HBM_BYTES_PER_S,
-                                   nops / cs.OPS_PER_S)))
+                phase="rows_in_turns", name=name, bucket_u=b.u_pad,
+                bucket_xc=b.x_pad, shape=list(args[0].shape),
+                max_abs_err=err, **in_turns(this, earlier),
+                bound_ms=cs.bound(nbytes, nops)[0]))
 
 
-def dense_spmm(dev, lib) -> None:
-    """dense_spmm at the molecule cell and the ring and plain-load
-    shapes, in turns, with torch.bmm beside."""
-    import numpy as np
+def per_call(fn, calls=50) -> dict:
+    """Host µs a call (the enqueue of `calls` calls, then one sync) and
+    CUDA kernels a call (torch.profiler over `calls` calls)."""
     import torch
-    from repro_torch.kernels._build import stream
-    from repro_torch.kernels.segment_spmm import ops, ref
-    torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(3)
-    for b, n, f in [(128, 30, 128), (128, 30, 32), (3, 400, 128),
-                    (2, 333, 64), (4, 7, 3), (2, 100, 130)]:
-        adj = torch.from_numpy((rng.random((b, n, n)) < 0.15).astype(
-            np.float32)).to(dev)
-        x = torch.from_numpy(rng.normal(size=(b, n, f)).astype(
-            np.float32)).to(dev)
-        want = ref.dense_spmm(adj, x)
-        out = torch.empty_like(want)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return dict(host_us=1e6 * host / calls, kernels=len(kernels) / calls)
 
-        def this():
-            return ops.dense_spmm(adj, x)
 
-        def earlier():
-            cs.check(lib.load().dense_spmm(
-                adj.data_ptr(), x.data_ptr(), out.data_ptr(), b, n, f,
-                stream()) == 0, "the earlier dense_spmm's launch failed")
-            return out
-        errs = []
-        for fn in (this, earlier):
-            err, rel, ok = cs.close(fn(), want, 1e-5, 1e-5)
-            cs.check(ok, f"dense_spmm differs by {err} at {(b, n, f)}")
-            errs.append(err)
-        nbytes, nops = 4 * (b * n * n + 2 * b * n * f), 2 * b * n * n * f
-        bound_ms, bound_by = cs.bound(nbytes, nops)
-        cs.emit(dict(phase="dense_spmm_in_turns", shape=[b, n, f],
-                     path=ops.kernel_path(adj, x), max_abs_err=max(errs),
-                     **in_turns(this, earlier),
-                     library_ms=cs.cuda_ms(lambda: torch.bmm(adj, x))[0],
-                     bound_ms=bound_ms, bound_by=bound_by))
+def entry_points(dev, old) -> None:
+    """lemma8_reduce and pivot_select against the earlier composition on
+    the U = 64 bucket's own operands (roots and lanes), in turns."""
+    import torch
+    from repro_torch.core.engine.prepare import prepare
+    from repro_torch.graph.generators import kronecker
+    from repro_torch.kernels.bitset_ops import ops, ref
+    prep = prepare(kronecker(12, 16, seed=0), device=dev)
+    for b, form, l8, piv in cs.real_frames(dev, prep):
+        a, x_rows = l8[0], l8[1]
+        not_x = ~x_rows                       # hoisted, as the earlier did
+        ar = torch.arange(a.shape[0], device=dev)
+        calls = {
+            "lemma8_reduce": (lambda: ops.lemma8_reduce(*l8),
+                              lambda: old.lemma8_reduce(a, not_x, *l8[2:]),
+                              ref.lemma8_reduce(*l8)),
+            "pivot_select": (lambda: (ops.pivot_select(*piv),),
+                             lambda: (old.pivot_select(*piv, ar),),
+                             (ref.pivot_select(*piv),))}
+        for name, (this, earlier, want) in calls.items():
+            err = max(cs.exact(name, this(), want, a.shape),
+                      cs.exact(f"earlier {name}", earlier(), want, a.shape))
+            args = l8 if name == "lemma8_reduce" else piv
+            nbytes, nops = cs.kernel_cost(name, a, args[2],
+                                          (x_rows,) + tuple(args[3:]))
+            cs.emit(dict(
+                phase="entry_in_turns", name=name, form=form,
+                bucket_u=b.u_pad, bucket_xc=b.x_pad, shape=list(a.shape),
+                max_abs_err=err, **in_turns(this, earlier),
+                this_call=per_call(this), earlier_call=per_call(earlier),
+                bound_ms=cs.bound(nbytes, nops)[0]))
 
 
 def hybrid_lanes(dev) -> None:
@@ -210,24 +277,36 @@ def hybrid_lanes(dev) -> None:
                     paths=("hybrid_persistent",))
 
 
+def profiles(dev) -> None:
+    """The per-root step and lane trip profiles of the U = 64 bucket."""
+    from repro_torch.core.engine.prepare import prepare
+    from repro_torch.graph.generators import kronecker
+    prep = prepare(kronecker(12, 16, seed=0), device=dev)
+    cs.step_profile(dev, prep)
+    cs.trip_profile(dev, prep, paths=("persistent", "hybrid_persistent",
+                                      "rcd_persistent"))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--earlier", type=Path, metavar="DIR",
                         help="a directory holding an earlier tree's "
-                             "bitset_ops.cu and segment_spmm.cu")
+                             "bitset_ops.cu")
     parser.add_argument("--export-earlier", type=Path, metavar="DIR",
-                        help="write REV's two sources into DIR and stop")
+                        help="write REV's bitset_ops.cu into DIR and stop")
     parser.add_argument("--rev", default="HEAD~1")
     parser.add_argument("--hybrid-lanes", action="store_true",
                         help="run the hybrid lanes path of --src's tree")
+    parser.add_argument("--profiles", action="store_true",
+                        help="profile --src's tree's step and lane trips")
     parser.add_argument("--src", type=Path, default=ROOT / "src",
                         help="the src directory whose repro_torch to run")
     opts = parser.parse_args()
     if opts.export_earlier is not None:
         export_earlier(opts.export_earlier, opts.rev)
         return 0
-    if opts.earlier is None and not opts.hybrid_lanes:
-        parser.error("give --earlier DIR, --hybrid-lanes or "
+    if opts.earlier is None and not (opts.hybrid_lanes or opts.profiles):
+        parser.error("give --earlier DIR, --hybrid-lanes, --profiles or "
                      "--export-earlier DIR")
     sys.path.insert(0, str(opts.src.resolve()))
     import torch
@@ -235,15 +314,18 @@ def main() -> int:
         print("kernel_probe: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    if opts.hybrid_lanes:
+    if opts.hybrid_lanes or opts.profiles:
         import repro_torch
         cs.emit(dict(phase="probe", repro_torch=repro_torch.__file__,
                      name_power=cs.nvidia_smi("name,power.limit")))
-        hybrid_lanes(dev)
+        if opts.hybrid_lanes:
+            hybrid_lanes(dev)
+        if opts.profiles:
+            profiles(dev)
         return 0
-    libs = build(opts.earlier)
-    census(dev, libs["earlier bitset_ops"])
-    dense_spmm(dev, libs["earlier segment_spmm"])
+    old = Earlier(build(opts.earlier))
+    row_kernels(dev, old)
+    entry_points(dev, old)
     return 0
 
 
