@@ -15,10 +15,13 @@ together) and then, printing one JSON line per phase:
    PyTorch version on the same CUDA tensors, at edge shapes and at the
    shapes of the Graph500 scale-12 buckets (the row kernels on A and on
    the X0 rows; the Lemma-8 pass `lemma8_reduce` and the pivot select
-   `pivot_select`, the engine's entry points on them, at each bucket's
-   roots and the lanes' 64, on random operands and on the U = 64
-   bucket's own, recorded from the engine's first launches, each line
-   with its roots that have a full vertex; the hybrid census over A
+   `pivot_select`, the engine's entry points on them, and the DFS step's
+   branch half `branch_step` (on `frame_step`, the stack compared after
+   its in-place write) and the rcd maximality test `rcd_dominated` (on
+   `and_popcount_many`), at each bucket's roots and the lanes' 64, on
+   random operands and on the U = 64 bucket's own, recorded from the
+   engine's first launches, each line with its roots that have a full
+   vertex, branch or are blocked; the hybrid census over A
    stacked on the X0 rows, through both its entry points, `clique_counts`
    and `hybrid_census`, at each bucket's roots and at the hybrid lanes'
    64, timed at each block size too; the rcd sweep of P against ~X0 rows
@@ -55,15 +58,16 @@ together) and then, printing one JSON line per phase:
    (`backend="hybrid", engine="persistent"`), the lanes' fused window walk
    (`window_steps=16`, dynamic reduction off) and the per-root window
    walk, against the reference's counters and stats;
-7. step and trip profiles: where a per-root step's and a persistent
-   trip's time goes (host against device).
+7. step and trip profiles: where a per-root step's (pivot and rcd) and
+   a persistent trip's time goes (host against device).
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after, and fails if a kernel of that path was not launched.
 
 Every check raises on failure (exit code 1). The last two lines are the
-kernel table (all eleven kernels) as JSON and `{"ok": true, "device":
-{...}}`. It imports nothing of JAX or of the reference package `repro`.
+kernel table (all eleven kernels, launches summed over every path) as
+JSON and `{"ok": true, "device": {...}}`. It imports nothing of JAX or
+of the reference package `repro`.
 """
 from __future__ import annotations
 
@@ -233,7 +237,8 @@ def kernel_cost(name, rows, mask, extra=()):
         words = R * K * W
         nbytes = 4 * (words + 2 * R * W + x_alive.numel()) + 12 * R
         ops = 3 * words + 4 * R * K + 2 * R * W   # + selector bits, |P|
-    elif name in ("lemma8_reduce", "pivot_select"):
+    elif name in ("lemma8_reduce", "pivot_select", "branch_step",
+                  "rcd_dominated"):
         return frame_cost(name, rows, mask, extra)
     elif name == "and_popcount_many":
         M = mask.shape[-2]                    # mask: the (R, M, W) masks
@@ -267,8 +272,11 @@ def frame_cost(name, a, P, extra):
     degP2 and n_full, and the alive X0 rows of the roots with a full
     vertex (what the Lemma-8 X-subset test must read); pivot_select: deg
     and n_full (or A for its own sweep), P, Xp and xal in, the alive X0
-    rows, the pivot row and B out."""
+    rows, the pivot row and B out; branch_step and rcd_dominated:
+    `step_cost`."""
     from repro_torch.kernels.bitset_ops import ref
+    if name in ("branch_step", "rcd_dominated"):
+        return step_cost(name, a, P, extra)
     R, U, W = (1,) * (3 - a.dim()) + tuple(a.shape)
     x_rows, Xp, xal = extra[:3]
     xcw = xal.shape[-1]
@@ -285,9 +293,55 @@ def frame_cost(name, a, P, extra):
     return nbytes, 3 * rows * W + 3 * R * U * (1 if deg is not None else W)
 
 
+def step_cost(name, a, P, extra):
+    """(bytes, operations) of the DFS step's two entry points on these
+    inputs. branch_step: A, the slot's P, B, Xp, Rb, rsz and xal, depth,
+    live (and w), word w / 32 of each alive X0 row of the slot, the child
+    frame, deg and partner out, and the three slot words of each branching
+    root written back; its operations frame_step's over A. rcd_dominated:
+    P, Xp and xal, the rows the test must read (every selected row of an
+    unblocked root, one of a blocked one) and the two outputs."""
+    import torch
+    from repro_torch.kernels.bitset_ops import ref
+    R, U, W = a.shape
+    x_rows = extra[0]
+    if name == "rcd_dominated":                # P: the mask
+        Xp, xal = extra[1:3]
+        blocked = ref.rcd_dominated(a, x_rows, P, Xp, xal)[0]
+        sel = (ref.bits_to_mask(xal, x_rows.shape[1]).sum(-1)
+               + ref.bits_to_mask(Xp, U).sum(-1))
+        rows = int(torch.where(blocked, sel.clamp(max=1), sel).sum())
+        nbytes = 4 * (2 * R * W + xal.numel() + rows * W + R) + R
+        return nbytes, 2 * rows * W
+    sxal, depth, live, w = extra[6:10]
+    xal = sxal[torch.arange(R, device=a.device), depth.clamp(min=0)]
+    hb = ref.branch_step(a, x_rows, *(t.clone() for t in extra[1:7]),
+                         depth, live, w)[0]
+    xcw = xal.shape[-1]
+    nbytes = (4 * (R * U * W + 4 * R * W + R + R * xcw
+                   + alive_rows(x_rows, xal)
+                   + 3 * R * W + R * xcw + R + 2 * R * U
+                   + 3 * int(hb.sum()) * W)
+              + 8 * R + R + (4 * R if w is not None else 0) + R)
+    return nbytes, 6 * R * U * W
+
+
 def run_kernel(name, rows, mask, extra, impl, **kw):
     """One call of kernel `name` through `impl` (ops or ref); `kw` (the
-    census's `threads`) goes to ops only."""
+    census's `threads`) goes to ops only. branch_step runs on a copy of
+    the stack it is given (it writes the stack in place) and returns the
+    copy's six buffers after its outputs; `fresh=False` runs it on the
+    given stack itself, as the timing does."""
+    fresh = kw.pop("fresh", True)
+    if name == "branch_step":                 # rows: A, mask: unused
+        x_rows, *stack, depth, live, w = extra
+        if fresh:
+            stack = [t.clone() for t in stack]
+        return tuple(impl.branch_step(rows, x_rows, *stack, depth, live,
+                                      w)) + tuple(stack)
+    if name == "rcd_dominated":               # rows: A, mask: P
+        x_rows, Xp, xal = extra
+        return impl.rcd_dominated(rows, x_rows, mask, Xp, xal)
     if name == "and_popcount_rows":
         return (impl.and_popcount_rows(rows, mask),)
     if name == "clique_counts":
@@ -347,6 +401,17 @@ def compare(name, rows, mask, extra, timed=False):
                    alive_x_rows=alive_rows(
                        extra[0], extra[2],
                        full if name == "lemma8_reduce" else None))
+    if name == "branch_step":
+        # roots that branch (their slot is written back in place), and the
+        # alive X0 rows of the slots, whose column word w / 32 it reads
+        import torch
+        xal = extra[6][torch.arange(rows.shape[0], device=rows.device),
+                       extra[7].clamp(min=0)]
+        out.update(xc=extra[0].shape[-2], branching_roots=int(want[0].sum()),
+                   alive_x_rows=alive_rows(extra[0], xal))
+    if name == "rcd_dominated":
+        out.update(xc=extra[0].shape[-2], blocked_roots=int(want[0].sum()),
+                   alive_x_rows=alive_rows(extra[0], extra[2]))
     if timed and name in ("clique_counts", "hybrid_census"):
         threads_ms = {}
         for t in CENSUS_THREADS:
@@ -357,10 +422,12 @@ def compare(name, rows, mask, extra, timed=False):
         out.update(threads_ms=threads_ms)
     if timed:
         nbytes, nops = kernel_cost(name, rows, mask, extra)
+        # (branch_step: on the stack it was given, whose slots each call
+        # writes; a root stops branching once its B or P is spent)
         ms, call_ms = cuda_ms(lambda: run_kernel(name, rows, mask, extra,
-                                                 ops))
+                                                 ops, fresh=False))
         plain_ms, plain_call_ms = cuda_ms(
-            lambda: run_kernel(name, rows, mask, extra, ref))
+            lambda: run_kernel(name, rows, mask, extra, ref, fresh=False))
         out.update(
             ms=ms, plain_ms=plain_ms, call_ms=call_ms,
             plain_call_ms=plain_call_ms,
@@ -411,8 +478,9 @@ def edge_cases(dev):
 
 
 def frame_edge_cases(dev):
-    """lemma8_reduce and pivot_select (every scoring mode and backend) at
-    edge shapes: XC = 0, 1, 33 and 2,048, U off 32 and U = 128, W = 1-5,
+    """lemma8_reduce and pivot_select (every scoring mode and backend),
+    and branch_step (pivot family and 'rcd') and rcd_dominated, at edge
+    shapes: XC = 0, 1, 33 and 2,048, U off 32 and U = 128, W = 1-5,
     A and the X0 rows one word off the vector loads' alignment, an empty P
     and pool, P inside N(v) ∪ {v} (Lemma 8 fires), tied rows, xal with
     bits past XC."""
@@ -461,6 +529,25 @@ def frame_edge_cases(dev):
                         (ref.pivot_select(a, x_rows, P, Xp, xal, deg,
                                           n_full, **kw),), a.shape)
                     n += 1
+        # the DFS step's entry points: branch_step for the pivot family and
+        # for 'rcd' (w given; the stack compared after its in-place write),
+        # and rcd_dominated
+        for given in (False, True):
+            step = stack_operands(a, x_rows, P, Xp, xal, Rb, rsz, r + u,
+                                  w_given=given)
+            want = run_kernel("branch_step", a, P, step, ref)
+            for rows_a, rows_x in ((a, x_rows),
+                                   (unaligned(a), unaligned(x_rows))):
+                exact(f"branch_step w_given={given}", run_kernel(
+                    "branch_step", rows_a, P, (rows_x,) + step[1:], ops),
+                    want, a.shape)
+                n += 1
+        want = ref.rcd_dominated(a, x_rows, P, Xp, xal)
+        for rows_a, rows_x in ((a, x_rows), (unaligned(a), unaligned(x_rows))):
+            exact("rcd_dominated",
+                  ops.rcd_dominated(rows_a, rows_x, P, Xp, xal), want,
+                  a.shape)
+            n += 1
     return n
 
 
@@ -545,6 +632,43 @@ def bucket_operands(b, dev, rng):
         xal=fr.mask_to_bitset(x_alive0, -(-x_rows.shape[1] // 32)))
 
 
+def stack_operands(a, x_rows, P, Xp, xal, Rb, rsz, seed, w_given=False):
+    """branch_step's operands around one frame a root: a DFS stack of
+    D = U + 2 slots of random words holding (P, B, Xp, Rb, rsz, xal) at a
+    random depth 0-3 of each root, B a random part of P; where R > 2 root
+    0's B is empty (w clamps) and root 1 is dead at depth -1; live is
+    depth >= 0, and w (R,) int32 below U when `w_given` ('rcd'), else
+    None. Returns branch_step's `extra`: (x_rows, sP, sB, sXp, sRb, srsz,
+    sxal, depth, live, w)."""
+    import numpy as np
+    import torch
+    R, U, W = a.shape
+    dev = a.device
+    D = U + 2
+    rng = np.random.default_rng(seed)
+
+    def words(*shape):
+        return torch.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint64)
+                                .astype(np.uint32).view(np.int32)).to(dev)
+    sP, sB, sXp, sRb = (words(R, D, W) for _ in range(4))
+    srsz = torch.from_numpy(rng.integers(1, 9, (R, D)).astype(np.int32)) \
+        .to(dev)
+    sxal = words(R, D, xal.shape[-1])
+    depth = torch.from_numpy(rng.integers(0, min(4, D), R)).to(dev)
+    B = P & words(R, W)
+    if R > 2:
+        B[0] = 0
+    ar = torch.arange(R, device=dev)
+    for buf, v in zip((sP, sB, sXp, sRb, srsz, sxal), (P, B, Xp, Rb, rsz,
+                                                        xal)):
+        buf[ar, depth] = v
+    if R > 2:
+        depth[1] = -1
+    w = (torch.from_numpy(rng.integers(0, U, R).astype(np.int32)).to(dev)
+         if w_given else None)
+    return (x_rows, sP, sB, sXp, sRb, srsz, sxal, depth, depth >= 0, w)
+
+
 def bucket_cases(prep, dev):
     """Each Graph500 bucket's own rows, with masks drawn from its p0 — the
     shapes the slice's main path hands every kernel: the row kernels on A
@@ -581,8 +705,16 @@ def bucket_cases(prep, dev):
         l8 = (x_rows, Xp, xal, Rb, rsz)
         red = ref.lemma8_reduce(a, x_rows, P, Xp, xal, Rb, rsz)
         piv = (x_rows, red[1], red[2], red[5], red[6])
+        step = stack_operands(a, x_rows, P, Xp, xal, Rb, rsz, U)
+        step_lanes = stack_operands(*lanes(a, x_rows, P, Xp, xal, Rb, rsz),
+                                    U + 1)
         for name, rows, mask, extra, form in [
                 ("frame_step", a, P, (Xp, wrow), "roots"),
+                ("branch_step", a, P, step, "roots"),
+                ("branch_step", *lanes(a, P), step_lanes, "lanes"),
+                ("rcd_dominated", a, P, (x_rows, Xp, xal), "roots"),
+                ("rcd_dominated", *lanes(a, P), lanes(x_rows, Xp, xal),
+                 "lanes"),
                 ("and_popcount_rows", a, P, (), "roots"),
                 ("and_popcount_rows", not_x, P, (), "x_subset"),
                 ("and_popcount_argmax", x_rows, P, (x_alive0,), "roots"),
@@ -665,19 +797,53 @@ def real_frames(dev, prep, u=64, first=8):
         yield b, form, l8[i][:7], seen["pivot_select"][i][:7]
 
 
+def real_steps(dev, prep, u=64, first=8):
+    """The engine's own operands of the DFS step's entry points at the U =
+    64 bucket: branch_step from the pivot slice (`run_bucket`, run()
+    defaults; form "roots") and the pivot lanes (64 persistent lanes;
+    form "lanes"), rcd_dominated from the same two with backend="rcd";
+    each the last of its first `first` launches (max_iters = first), its
+    inputs as the engine handed them over (the stack before the launch's
+    in-place write), as (bucket, form, name, (rows, mask, extra)) for
+    `compare`."""
+    from repro_torch.core.engine import frames as fr
+    from repro_torch.core.engine import loop
+    from repro_torch.core.engine.loop import bucket_tensors
+    b = next(b for b in prep.buckets if b.u_pad == u)
+    args = bucket_tensors(b.a, b.p0, b.x_rows, b.x_alive0, b.rsz0, dev)
+    for backend, name in (("pivot", "branch_step"), ("rcd", "rcd_dominated")):
+        cfg = fr.EngineConfig(backend=backend, max_iters=first)
+        for form, drive in (
+                ("roots", lambda: loop.run_bucket(*args, cfg)),
+                ("lanes", lambda: loop.run_bucket_persistent(
+                    *args, cfg, lanes=min(64, b.num_roots)))):
+            seen = launched((name,), drive)[name]
+            a, x_rows, *rest = seen[min(first, len(seen)) - 1][:-1]
+            if name == "branch_step":         # rest: the stack, depth, live, w
+                yield b, form, name, (a, rest[0], (x_rows, *rest))
+            else:                             # rest: P, Xp, xal
+                yield b, form, name, (a, rest[0], (x_rows, *rest[1:]))
+
+
 def real_frame_cases(dev, prep):
-    """lemma8_reduce and pivot_select on the engine's own operands
-    (`real_frames`), each held bit for bit to its plain version and
-    timed; each line says how many roots had a full vertex."""
+    """lemma8_reduce and pivot_select (`real_frames`), and branch_step and
+    rcd_dominated (`real_steps`), on the engine's own operands, each held
+    bit for bit to its plain version and timed; each line says how many
+    roots had a full vertex, branched or were blocked."""
     lines = []
+
+    def run(b, form, name, rows, mask, extra):
+        line = compare(name, rows, mask, extra, timed=True)
+        line.update(phase="kernels", bucket_u=b.u_pad, bucket_xc=b.x_pad,
+                    roots=b.num_roots, form=form, operands="real")
+        emit(line)
+        lines.append(line)
     for b, form, l8, piv in real_frames(dev, prep):
         for name, (a, x_rows, P, *rest) in (("lemma8_reduce", l8),
                                            ("pivot_select", piv)):
-            line = compare(name, a, P, (x_rows, *rest), timed=True)
-            line.update(phase="kernels", bucket_u=b.u_pad, bucket_xc=b.x_pad,
-                        roots=b.num_roots, form=form, operands="real")
-            emit(line)
-            lines.append(line)
+            run(b, form, name, a, P, (x_rows, *rest))
+    for b, form, name, call in real_steps(dev, prep):
+        run(b, form, name, *call)
     return lines
 
 
@@ -1461,17 +1627,19 @@ def device_profile(run_once):
     return out, plain_wall, wall, busy, len(kernels)
 
 
-def step_profile(dev, prep, u=64, steps=64):
-    """A batched per-root step of one slice bucket, over `steps` steps."""
+def step_profile(dev, prep, u=64, steps=64, backend="pivot"):
+    """A batched per-root step of one slice bucket, over `steps` steps,
+    with the slice's defaults and `backend`."""
     from repro_torch.core.engine import frames as fr
     from repro_torch.core.engine.loop import bucket_tensors, run_bucket
     b = next(b for b in prep.buckets if b.u_pad == u)
     args = bucket_tensors(b.a, b.p0, b.x_rows, b.x_alive0, b.rsz0, dev)
-    cfg = fr.EngineConfig(max_iters=steps)
+    cfg = fr.EngineConfig(backend=backend, max_iters=steps)
     out, plain_wall, wall, busy, n_k = device_profile(
         lambda: run_bucket(*args, cfg))
     n = out["steps"]
-    emit(dict(phase="step_profile", bucket_u=u, roots=b.num_roots, steps=n,
+    emit(dict(phase="step_profile", backend=backend, bucket_u=u,
+              roots=b.num_roots, steps=n,
               ms_per_step=1e3 * plain_wall / n,
               profiled_ms_per_step=1e3 * wall / n,
               device_busy_ms_per_step=1e3 * busy / n,
@@ -1573,22 +1741,16 @@ def main() -> int:
                       "kron:scale=14,ef=16": kronecker(14, 16, seed=0)})
     paths = scale11_paths(dev, kronecker(11, 16, seed=0))
     step_profile(dev, prep)
+    step_profile(dev, prep, backend="rcd")
     paths.update(scale12_paths(dev, g12))
     trip_profile(dev, prep)
 
     # kernel table: each kernel at the bucket shape the main path launches
     # it most often (the U=64 bucket: most steps and trips), the row
-    # kernels in their adjacency-row form; launches over the path that
-    # carries the kernel (the per-root slice for the row kernels, the
-    # hybrid lanes for the census, the rcd lanes for the many-mask sweep,
-    # the fused-window runs for the window walks)
-    launches = dict(paths["slice"])
-    launches["clique_counts"] = paths["hybrid_persistent"]["clique_counts"]
-    launches["and_popcount_many"] = \
-        paths["rcd_persistent"]["and_popcount_many"]
-    launches["dfs_step_window_lanes"] = \
-        paths["persistent_window"]["dfs_step_window_lanes"]
-    launches["dfs_step_window"] = paths["perroot_window"]["dfs_step_window"]
+    # kernels in their adjacency-row form; launches summed over every
+    # path that launches the kernel (each path's are in path_launches)
+    launches = {name: sum(p.get(name, 0) for p in paths.values())
+                for name in REPLACES}
     us = {b.u_pad for b in prep.buckets}
     main_u = 64 if 64 in us else prep.buckets[0].u_pad
     table = []
@@ -1601,20 +1763,25 @@ def main() -> int:
 
     def timing(line):
         return {k: line[k] for k in ("shape", "xc", "full_roots",
+                                     "branching_roots", "blocked_roots",
                                      "alive_x_rows", "ms", "plain_ms",
-                                     "bound_ms", "bound_by") if k in line}
+                                     "call_ms", "bound_ms", "bound_by")
+                if k in line}
     # each kernel's engine entry point, counted under its name
-    entry = {"and_popcount_rows": "lemma8_reduce",
+    entry = {"frame_step": "branch_step",
+             "and_popcount_rows": "lemma8_reduce",
              "and_popcount_argmax": "pivot_select",
-             "clique_counts": "hybrid_census"}
+             "clique_counts": "hybrid_census",
+             "and_popcount_many": "rcd_dominated"}
     for name in REPLACES:
         line = at_main(name)
         # the census: row 4 keeps the reference's contract at the bucket's
         # roots; the hybrid lanes' shape and the engine's entry point
-        # (`hybrid_census`, the same kernel) stand beside it. Rows 2-3
-        # likewise keep their reference form (A against P; the X0 rows'
-        # argmax) beside the X-subset shape and their engine entry points
-        # on the engine's own operands and on random ones
+        # (`hybrid_census`, the same kernel) stand beside it. Rows 1-3 and
+        # 5 likewise keep their reference form (A against P; the X0 rows'
+        # argmax; P against the stacked complements) beside their engine
+        # entry points on the engine's own operands and on random ones,
+        # and row 2 beside the X-subset shape
         census = name == "clique_counts"
         table.append(dict(
             name=name, route="cuda", source=SOURCE,
@@ -1634,7 +1801,8 @@ def main() -> int:
                 f"{form}_{ops_}": timing(at_main(entry[name], form, ops_))
                 for form in ("roots", "lanes")
                 for ops_ in ("real", "random")}}
-               if name in ("and_popcount_rows", "and_popcount_argmax")
+               if name in ("frame_step", "and_popcount_rows",
+                           "and_popcount_argmax", "and_popcount_many")
                else {}),
             **({"lanes_ms": at_main(name, "lanes")["ms"],
                 "hybrid_census_ms": at_main("hybrid_census")["ms"],

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,16 +38,8 @@ def any_bit(bits):
     return (bits != 0).any(-1)
 
 
-def first_bit_index(bits):
-    """Index of the lowest set bit of each (..., W) bitset, int64.
-
-    An all-zero bitset gives 32 (word 0, position 32), as in the
-    reference: callers that gather with it clamp first (torch raises on an
-    out-of-range index where jax clamps silently)."""
-    w = (bits != 0).to(torch.int32).argmax(-1)
-    word = bits.gather(-1, w.unsqueeze(-1)).squeeze(-1)
-    pos = bitops.popcount((word & -word) - 1)
-    return w * WORD + pos
+# (..., W) bitsets -> (...,) index of the lowest set bit (32 when empty)
+first_bit_index = bitops.first_bit_index
 
 
 # (..., W) bitsets -> (..., u) bool membership masks
@@ -135,11 +127,6 @@ class RootContext(NamedTuple):
     x_rows: torch.Tensor     # (R, XC, W) X0 row bitsets
     eye: torch.Tensor        # (U, W) one-hot bitsets over the universe
     ar: torch.Tensor         # (R,) root index, for per-root gathers
-    # The stacked rows of the 'rcd' maximality check, hoisted out of the
-    # loop (None for the other backends): ~X0 rows on ~A, (R, XC + U, W).
-    # The Lemma-8 pass, the pivot select and the 'hybrid' census read A and
-    # x_rows as they are.
-    not_xa_rows: Optional[torch.Tensor] = None
 
     @property
     def u(self) -> int:
@@ -158,16 +145,14 @@ class RootContext(NamedTuple):
         return max(-(-self.xc // WORD), 1)
 
 
-def make_context(a, x_rows, backend: str = "pivot") -> RootContext:
-    # The stacked rows of the 'rcd' per-call sweep are the same on every
-    # step: eager torch would not hoist them (the reference concatenates
-    # them on every call).
+def make_context(a, x_rows) -> RootContext:
+    # Every kernel entry point reads A and x_rows as they are: the context
+    # holds no derived rows ('rcd's maximality test takes its complement
+    # in the kernel).
     return RootContext(
         A=a, x_rows=x_rows,
         eye=eye_bits(a.shape[1], a.shape[2], a.device),
-        ar=torch.arange(a.shape[0], device=a.device),
-        not_xa_rows=(torch.cat([~x_rows, ~a], 1) if backend == "rcd"
-                     else None))
+        ar=torch.arange(a.shape[0], device=a.device))
 
 
 class Frame(NamedTuple):

@@ -110,54 +110,36 @@ def dfs_step(cfg, ctx: fr.RootContext, depth, stack, carry, live):
     `has_branch`, and stack writes land in frames that are DEAD on the pop
     path (slots > new depth), so they need no gating at all.
 
-    `live` (R,) bool: a root that is not live reads/writes its clamped
-    slot max(depth, 0), every side-effect is masked off, and its depth
-    passes through unchanged. Its slot write stores the frame's own values
-    back, and its child push lands above its depth, in a dead slot."""
+    `live` (R,) bool: a root that is not live reads its clamped slot
+    max(depth, 0), every side-effect is masked off, and its depth passes
+    through unchanged. Its slot keeps its values (`branch_step` writes
+    only where a root branches), and its child push lands above its
+    depth, in a dead slot."""
     ar = ctx.ar
     d = depth.clamp(min=0)
-    f = stack.read(ar, d)
-
-    pivot_family = cfg.backend in fr.PIVOT_BACKENDS
-    if pivot_family:
-        has_branch = fr.any_bit(f.B) & live
-        # on an all-zero B, first_bit_index gives 32 (past U when U == 32):
-        # jax clamps that gather, torch raises and a kernel would read out
-        # of bounds — clamp; every use is masked by has_branch
-        w = fr.first_bit_index(f.B).clamp(max=ctx.u - 1)
-    else:
+    w, branch_live = None, live
+    if cfg.backend not in fr.PIVOT_BACKENDS:
         # rcd: clique test decides report-and-pop vs min-degree branch
+        f = stack.read(ar, d)
         hb, w = piv.rcd_select(ctx, f.P)
-        has_branch = hb & live
-        w = w.long()
-
-    # ---- pop path: rcd maximality check + report (gated) ----
-    if cfg.backend == "rcd":
+        branch_live = hb & live
+        # ---- pop path: rcd maximality check + report (gated) ----
         carry = piv.rcd_maximality_report(carry, cfg, ctx, f.P, f.Xp, f.xal,
-                                          f.Rb, f.rsz, has_branch | ~live)
+                                          f.Rb, f.rsz, branch_live | ~live)
 
     # ---- branch path: always computed, side-effects gated ----
-    wbit = ctx.eye[w]
-    # fused frame step: child sets + child degree sweep + Lemma-7 partner
-    # in one kernel pass over A (threaded into enter_call as `pre`)
-    childP, childXp, deg, partner = bitops.frame_step(ctx.A, f.P, f.Xp,
-                                                      ctx.A[ar, w])
-    # X0 rows stay alive iff adjacent to w (bit w of their row)
-    row_word = ctx.x_rows[ar, :, w // WORD]                     # (R, XC)
-    adj_w = ((row_word >> (w % WORD).to(torch.int32).unsqueeze(-1)) & 1) != 0
-    childxal = f.xal & fr.mask_to_bitset(adj_w, ctx.xc_words)
+    # one launch: the slot's first bit of B (the pivot family; the given w
+    # for rcd), the child sets with the fused degree sweep and Lemma-7
+    # partner (threaded into enter_call as `pre`), the X0 rows adjacent to
+    # w, and the current slot's P \ w, X ∪ w, B \ w written in place where
+    # the root branches (a dead slot on the pop path)
+    (has_branch, childP, childXp, childxal, childRb, child_rsz, deg,
+     partner) = bitops.branch_step(ctx.A, ctx.x_rows, *stack, depth,
+                                   branch_live, w)
     carry["branches"] = carry["branches"] + has_branch.to(torch.int32)
     carry, push, child = enter_call(carry, cfg, ctx, childP, childXp,
-                                    childxal, f.rsz + 1, f.Rb | wbit,
+                                    childxal, child_rsz, childRb,
                                     enable=has_branch, pre=(deg, partner))
-    # update current frame (dead slot on the pop path — no gating):
-    # P \ w, X ∪ w, B \ w (rcd carries no B)
-    hb = has_branch.unsqueeze(-1)
-    cur = dict(P=torch.where(hb, f.P & ~wbit, f.P),
-               Xp=torch.where(hb, f.Xp | wbit, f.Xp))
-    if pivot_family:
-        cur["B"] = torch.where(hb, f.B & ~wbit, f.B)
-    stack.write(ar, d, **cur)
     # write child frame (slot depth+1 is dead unless pushed)
     nd = d + 1
     stack.push(ar, nd, child)
@@ -196,7 +178,7 @@ def run_root_windowed(a, p0, x_rows, x_alive0, rsz0, cfg: EngineConfig):
     R, U, W = a.shape
     T = bitops.WINDOW_FRAMES
     dev = a.device
-    ctx = fr.make_context(a, x_rows, cfg.backend)
+    ctx = fr.make_context(a, x_rows)
     zeros = torch.zeros((R, W), dtype=torch.int32, device=dev)
     carry = fr.carry_init(cfg, R, W, dev)
     carry, push0, frame0 = enter_call(
@@ -256,7 +238,7 @@ def run_bucket(a, p0, x_rows, x_alive0, rsz0, cfg: EngineConfig):
     if _window_eligible(cfg):
         return run_root_windowed(a, p0, x_rows, x_alive0, rsz0, cfg)
     R, U, W = a.shape
-    ctx = fr.make_context(a, x_rows, cfg.backend)
+    ctx = fr.make_context(a, x_rows)
     dev = a.device
     xal0 = fr.mask_to_bitset(x_alive0, ctx.xc_words)
     zeros = torch.zeros((R, W), dtype=torch.int32, device=dev)
@@ -429,7 +411,7 @@ def _persistent_segment(a, p0, x_rows, x_alive0, rsz0, root_base: int,
             carry["cur_root"] = torch.where(claim, root_base + idx,
                                             carry["cur_root"]).to(torch.int32)
         carry, push, f0 = enter_call(
-            carry, cfg, fr.make_context(a_new, xr_new, cfg.backend), p0[idx],
+            carry, cfg, fr.make_context(a_new, xr_new), p0[idx],
             zeros_lw,
             fr.mask_to_bitset(x_alive0[idx], xc_words),
             rsz0[idx].to(torch.int32), zeros_lw, enable=claim)
@@ -607,7 +589,7 @@ def _persistent_segment(a, p0, x_rows, x_alive0, rsz0, root_base: int,
                 parked = wdep >= WT - 1
                 top = [buf[:, WT - 1].clone() for buf in wstk]
             ndep, wstk, carry = dfs_step(
-                cfg, fr.make_context(al, xrl, cfg.backend),
+                cfg, fr.make_context(al, xrl),
                 wdep.clamp(0, WT - 2), wstk, carry, live=lv)
             if not full_win:
                 for buf, old in zip(wstk, top):
@@ -652,7 +634,7 @@ def _persistent_segment(a, p0, x_rows, x_alive0, rsz0, root_base: int,
                                    device=dev)
             c1, spush, sf0 = enter_call(
                 fr.carry_init(cfg, S, words, dev), cfg,
-                fr.make_context(sa, sxr, cfg.backend), p0[s_cl], zeros_sw,
+                fr.make_context(sa, sxr), p0[s_cl], zeros_sw,
                 fr.mask_to_bitset(x_alive0[s_cl], xc_words),
                 rsz0[s_cl].to(torch.int32), zeros_sw, enable=s_ok)
             sdel = torch.stack([c1["calls"], c1["branches"], c1["sum_px"],
@@ -795,7 +777,7 @@ def _persistent_segment(a, p0, x_rows, x_alive0, rsz0, root_base: int,
             live_mask = s.depth >= 0
             s.ls += live_mask.sum()
             s.depth, s.stack, s.carry = dfs_step(
-                cfg, fr.make_context(s.al, s.xrl, cfg.backend), s.depth,
+                cfg, fr.make_context(s.al, s.xrl), s.depth,
                 s.stack, s.carry, live=live_mask)
         s.it += 1
     return s

@@ -11,7 +11,8 @@ Backends:
               vertex branching (B = P) on near-clique nodes
 
 Every score sweep is a fused AND+popcount(+argmax) dispatch through
-`bitset_ops.ops` (the whole branch-set select is one, `pivot_select`);
+`bitset_ops.ops` (the whole branch-set select is one, `pivot_select`, and
+the rcd maximality test one, `rcd_dominated`);
 nothing here touches `ref` or the kernels directly.
 All tensors carry the root batch R first (see `frames`).
 """
@@ -104,14 +105,11 @@ def rcd_maximality_report(carry, cfg, ctx: fr.RootContext, P, Xp, xal, Rb,
                           rsz, has_branch):
     """'rcd' pop-path report: R ∪ P if no forbidden vertex dominates P.
 
-    x blocks iff P ⊆ N(x) ⟺ popcount(P & ~N(x)) == 0 — one batched-mask
-    dispatch of P against the stacked ~X0 rows + ~universe adjacency
-    (`ctx.not_xa_rows`, paper Alg 3)."""
-    sub = bitops.and_popcount_many(P.unsqueeze(-2),
-                                   ctx.not_xa_rows)[..., 0]  # (R, XC + U)
-    in_x = torch.cat([fr.bitset_to_mask(xal, ctx.xc),
-                      fr.bitset_to_mask(Xp, ctx.u)], -1)
-    blocked = (in_x & (sub == 0)).any(-1)
-    size = rsz + fr.popcount(P)
-    ok = ~blocked & (size >= 2) & fr.any_bit(P) & ~has_branch
+    x blocks iff P ⊆ N(x) ⟺ popcount(P & ~N(x)) == 0 (paper Alg 3), over
+    the alive X0 rows and the universe rows of Xp: one launch
+    (`bitops.rcd_dominated`), which reads only those rows and takes their
+    complement itself, and gives |P| beside."""
+    blocked, psize = bitops.rcd_dominated(ctx.A, ctx.x_rows, P, Xp, xal)
+    size = rsz + psize
+    ok = ~blocked & (size >= 2) & (psize > 0) & ~has_branch
     return fr.report_single(carry, cfg, Rb | P, size, ok)

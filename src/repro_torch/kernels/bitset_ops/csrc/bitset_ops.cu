@@ -18,7 +18,8 @@
 // far below the card's integer rate, so they are bound by bytes, and at
 // the engine's shapes by the launch itself (2-5 us), which only fewer
 // launches will lower: the engine's entry points on the row kernels
-// (lemma8_reduce, pivot_select) and on the census (hybrid_census) each
+// (lemma8_reduce, pivot_select), on the census (hybrid_census), on
+// frame_step (branch_step) and on the many-mask sweep (rcd_dominated) each
 // take a whole block of the engine's torch ops into one launch. The
 // window walk is bound by the latency of its dependent frame-steps; its
 // design (a warp group per lane, each lane's rows staged once per
@@ -820,49 +821,410 @@ int launch_frame(FrameArgs a, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // frame_step: childp = p & wrow, childxp = xp & wrow,
 // deg[k] = popcount(rows[k] & childp),
-// partner[k] = sum over nonzero words w of (32*w + lowest set bit).
+// partner[k] = sum over nonzero words i of (32 i + lowest set bit), the
+// bit's index where deg[k] == 1 and, as the reference defines it, a sum
+// of no meaning elsewhere.
 //
 // Replaces repro/kernels/bitset_ops/kernel.py::frame_step
-// (_frame_step_kernel). Bound: bytes, R*K*W*4 read (+ the small masks)
-// and R*K*8 written. Per step of the engine's U=32 bucket this is about
-// 0.2 MB, so on this card the floor is the launch latency, not the bytes.
-// Design: one thread per row; childp is built once per block in shared
-// memory, and the blocks with blockIdx.y == 0 also write childp/childxp.
-// Grid (R, ceil(K / 256)).
+// (_frame_step_kernel, :167). Bound: bytes, R*K*W*4 read (+ the three
+// masks) and R*K*8 (+ the two child sets) written: at the engine's U = 64
+// bucket 0.66 MB, 0.2 us on this card, so what it pays is the launch and
+// the chain inside one root from the launch to its last write.
+//
+// Design: the row kernels' geometry (row_kernel above). A group of G = 1,
+// 2 or 4 warps reads one root (step_group(K)), 8 / G roots a block. Each
+// lane forms childp = p & wrow in registers (W = 1, 2, 4: lane i < W loads
+// word i and the warp shares it; nothing in shared memory, no block
+// barrier), after issuing the loads of its first kRowBatch rows, as 4-, 8-
+// or 16-byte vectors (rows aligned to 4W bytes). deg and partner come from
+// the same AND; thread i < W of the group writes word i of the two child
+// sets. Any other W, or rows off that alignment, take the word-by-word
+// instance (WT = 0), its masks read through L1.
+//
+// The engine's entry point on it is branch_step (below): the whole branch
+// half of a DFS step in one launch.
 // ---------------------------------------------------------------------------
-__global__ void frame_step_kernel(const uint32_t* __restrict__ rows,
-                                  const uint32_t* __restrict__ p,
-                                  const uint32_t* __restrict__ xp,
-                                  const uint32_t* __restrict__ wrow,
-                                  uint32_t* __restrict__ childp,
-                                  uint32_t* __restrict__ childxp,
-                                  int32_t* __restrict__ deg,
-                                  int32_t* __restrict__ partner,
-                                  int K, int W) {
-  extern __shared__ uint32_t scp[];
-  const int64_t r = blockIdx.x;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    const uint32_t wr = wrow[r * W + w];
-    const uint32_t cp = p[r * W + w] & wr;
-    scp[w] = cp;
-    if (blockIdx.y == 0) {
-      childp[r * W + w] = cp;
-      childxp[r * W + w] = xp[r * W + w] & wr;
+struct StepArgs {
+  const uint32_t* rows;  // (R, K, W)
+  const uint32_t* p;     // (R, W) each
+  const uint32_t* xp;
+  const uint32_t* wrow;
+  uint32_t* childp;      // (R, W) each
+  uint32_t* childxp;
+  int32_t* deg;          // (R, K) each
+  int32_t* partner;
+  long long R;
+  int K, W;
+  int G;  // warps a root (row_group)
+};
+
+// popcount and partner term of one AND of row and child words
+__device__ __forceinline__ void deg_partner(uint32_t anded, int i, int& d,
+                                            int& part) {
+  d += __popc(anded);
+  if (anded) part += 32 * i + __ffs(static_cast<int>(anded)) - 1;
+}
+
+// Warps a root of K rows: one row a thread up to K = 128 (faster than
+// row_group's two a thread at the U = 128 bucket on an H100), then 4.
+inline int step_group(int K) { return K <= 32 ? 1 : K <= 64 ? 2 : 4; }
+
+template <int WT>
+__global__ void __launch_bounds__(kThreads) frame_step_kernel(
+    const StepArgs a) {
+  constexpr int WR = WT > 0 ? WT : 1;
+  const int G = a.G;
+  const int gsize = 32 * G;
+  const int group = threadIdx.x / gsize;
+  const int gt = threadIdx.x % gsize;
+  const int lane = threadIdx.x & 31;
+  const long long r =
+      static_cast<long long>(blockIdx.x) * (kBlockWarps / G) + group;
+  if (r >= a.R) return;
+  const int K = a.K;
+  const int W = WT > 0 ? WT : a.W;
+  const long long fw = r * W;
+  const uint32_t* rows = a.rows + r * K * static_cast<long long>(W);
+  const uint32_t* P = a.p + fw;
+  const uint32_t* WROW = a.wrow + fw;
+
+  // first round: the thread's first rows, the mask words, the child sets
+  uint32_t w[kRowBatch][WR];
+  auto load_batch = [&](int k0) {
+    if constexpr (WT > 0) {
+#pragma unroll
+      for (int j = 0; j < kRowBatch; ++j) {
+        const int k = k0 + j * gsize;
+        if (k < K) load_words<WT>(rows + static_cast<long long>(k) * WT, w[j]);
+      }
+    }
+  };
+  load_batch(gt);
+  const uint32_t cl =
+      WT > 0 && lane < WT ? __ldg(P + lane) & __ldg(WROW + lane) : 0u;
+  for (int i = gt; i < W; i += gsize) {
+    const uint32_t wr = __ldg(WROW + i);
+    a.childp[fw + i] = __ldg(P + i) & wr;
+    a.childxp[fw + i] = __ldg(a.xp + fw + i) & wr;
+  }
+  uint32_t cp[WR];
+#pragma unroll
+  for (int i = 0; i < WR; ++i) cp[i] = __shfl_sync(kFullMask, cl, i);
+
+  for (int k0 = gt; k0 < K; k0 += kRowBatch * gsize) {
+    if (k0 != gt) load_batch(k0);
+#pragma unroll
+    for (int j = 0; j < kRowBatch; ++j) {
+      const int k = k0 + j * gsize;
+      if (k >= K) continue;
+      int d = 0, part = 0;
+      if constexpr (WT > 0) {
+#pragma unroll
+        for (int i = 0; i < WT; ++i) deg_partner(w[j][i] & cp[i], i, d, part);
+      } else {
+        const uint32_t* row = rows + static_cast<long long>(k) * W;
+        for (int i = 0; i < W; ++i) {
+          deg_partner(__ldg(row + i) & __ldg(P + i) & __ldg(WROW + i), i, d,
+                      part);
+        }
+      }
+      a.deg[r * K + k] = d;
+      a.partner[r * K + k] = part;
     }
   }
-  __syncthreads();
-  const int k = blockIdx.y * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  const uint32_t* row = rows + (r * K + k) * static_cast<int64_t>(W);
-  int d = 0;
-  int part = 0;
-  for (int w = 0; w < W; ++w) {
-    const uint32_t a = row[w] & scp[w];
-    d += __popc(a);
-    if (a) part += 32 * w + __ffs(static_cast<int>(a)) - 1;
+}
+
+int launch_frame_step(StepArgs a, cudaStream_t stream) {
+  a.G = step_group(a.K);
+  const long long per = kBlockWarps / a.G;
+  const long long blocks = (a.R + per - 1) / per;
+  if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  switch (vector_rows(a.W, a.rows) ? a.W : 0) {
+    case 1:
+      frame_step_kernel<1><<<grid, kThreads, 0, stream>>>(a);
+      break;
+    case 2:
+      frame_step_kernel<2><<<grid, kThreads, 0, stream>>>(a);
+      break;
+    case 4:
+      frame_step_kernel<4><<<grid, kThreads, 0, stream>>>(a);
+      break;
+    default:
+      frame_step_kernel<0><<<grid, kThreads, 0, stream>>>(a);
   }
-  deg[r * K + k] = d;
-  partner[r * K + k] = part;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// branch_step (counted as frame_step): the branch half of the engine's DFS
+// step (repro/core/engine/loop.py::dfs_step, apart from its call entry)
+// in one launch on the engine's own operands, with frame_step (above) at
+// its core: A (R, U, W), the X0 rows (R, XC, W), the DFS stack's buffers
+// P, B, Xp, Rb (R, D, W), rsz (R, D) and xal (R, D, XCW), depth (R,)
+// int64, live (R,) bool and, for 'rcd', the branch vertex w (R,) int32.
+//
+// Per root, on slot d = max(depth, 0): w is the first bit of B (32 for an
+// empty B) clamped to U - 1, or the given w; has_branch = (B != 0) & live,
+// or live with w given; with wbit = {w} and wrow = A[w]: childP = P & wrow,
+// childXp = Xp & wrow, deg and partner frame_step's over A against
+// childP, childxal = xal & {x < XC : bit w of X0 row x}, childRb = Rb | wbit,
+// child_rsz = rsz + 1, whatever has_branch says; where has_branch holds,
+// the slot itself loses w from P (and, pivot family, from B) and Xp gains
+// it, in place.
+//
+// Bound: bytes. A's rows, the slot's words, the alive X0 rows' word w / 32
+// (a dead row's bit stays 0 either way) and the outputs: at the U = 64
+// bucket about 0.5 MB a launch, 0.15 us. The torch ops it replaces (about
+// 60 kernels a step: the slot gathers, the first bit, the A and X0 column
+// gathers, mask_to_bitset, the where updates and their index_put) are what
+// the launch saves, on a loop the host holds back.
+//
+// Design: a warp a root, 8 roots a block, nothing in shared memory.
+// - First round: depth, live, w and, W = 1, 2 or 4 with A aligned to 4W
+//   bytes, A's rows in registers (row 32j + lane in slot j). Second: the
+//   slot's words (lane i < W loads word i; the warp shares them) and xal.
+//   wrow then comes from the registers of the lane holding row w, one
+//   shuffle a word, so the only later loads are the X0 column's.
+// - The X0 column: lane l owns xal words l, l + 32, ... (the first two
+//   loaded in the second round) and reads word w / 32 of each alive row of
+//   its words (bit set, row below XC), kColLoads loads in flight; it
+//   writes its childxal words itself, so a dead word costs no load, no
+//   ballot and no shuffle. (A row a lane, 32 chunks at once with a ballot
+//   a chunk, as lemma8_reduce reads its X0 rows, passes over every chunk
+//   of a batch with one alive row: slower at the U = 32 and U = 64
+//   buckets on an H100, most of all at U = 32's 64 xal words.)
+// - The slot is written last, by lane i < W for word i, after the warp has
+//   read it (a __syncwarp orders the word-by-word instance, whose lanes
+//   read the slot's words again for every row). The stack buffers are
+//   read with plain loads: the kernel writes them.
+// - Any other W, or A off that alignment: the word-by-word instance
+//   (WT = 0), A's and the slot's words read through L1.
+// ---------------------------------------------------------------------------
+constexpr int kColLoads = 4;
+
+struct BranchArgs {
+  const uint32_t* a;       // (R, U, W)
+  const uint32_t* x_rows;  // (R, XC, W)
+  uint32_t* sp;            // (R, D, W) each; P, B and Xp written in place
+  uint32_t* sb;
+  uint32_t* sxp;
+  const uint32_t* srb;
+  const int32_t* srsz;     // (R, D)
+  const uint32_t* sxal;    // (R, D, XCW)
+  const long long* depth;  // (R,)
+  const uint8_t* live;     // (R,)
+  const int32_t* w;        // (R,), or null: the pivot family's first bit
+  uint8_t* has_branch;     // (R,)
+  uint32_t* childp;        // (R, W) each
+  uint32_t* childxp;
+  uint32_t* childrb;
+  uint32_t* childxal;      // (R, XCW)
+  int32_t* child_rsz;      // (R,)
+  int32_t* deg;            // (R, U) each
+  int32_t* partner;
+  long long R;
+  int U, XC, XCW, W, D;
+  int warps;               // roots a block
+};
+
+template <int WT>
+__global__ void __launch_bounds__(kThreads) branch_kernel(const BranchArgs a) {
+  constexpr int WR = WT > 0 ? WT : 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long r = static_cast<long long>(blockIdx.x) * a.warps + warp;
+  if (r >= a.R) return;
+  const int U = a.U, XC = a.XC, XCW = a.XCW, D = a.D;
+  const int W = WT > 0 ? WT : a.W;
+  const bool pivot = a.w == nullptr;
+  const uint32_t* A = a.a + r * U * static_cast<long long>(W);
+
+  // first round: depth, live, the given w, A's rows (W <= 4)
+  const long long dep = a.depth[r];
+  const bool live = a.live[r] != 0;
+  const int w_in = pivot ? 0 : a.w[r];
+  uint32_t rows[WR][WR] = {};
+  if constexpr (WT > 0) {
+#pragma unroll
+    for (int j = 0; j < WT; ++j) {
+      const int u = 32 * j + lane;
+      if (u < U) load_words<WT>(A + static_cast<long long>(u) * WT, rows[j]);
+    }
+  }
+  // the slot (depth < D is the engine's invariant; kept in bounds here)
+  const long long slot =
+      r * D + (dep < 0 ? 0 : dep >= D ? D - 1 : static_cast<int>(dep));
+  const long long sw = slot * W;
+
+  // second round: the slot's words, rsz and xal
+  uint32_t pl = 0u, bl = 0u, xpl = 0u, rbl = 0u;
+  if (WT > 0 && lane < W) {
+    pl = a.sp[sw + lane];
+    bl = a.sb[sw + lane];
+    xpl = a.sxp[sw + lane];
+    rbl = a.srb[sw + lane];
+  }
+  const int rsz = a.srsz[slot];
+  const XalWords xw(a.sxal + slot * XCW, XCW, lane);
+
+  // w: the given one, or B's first bit (32 when B is empty) clamped
+  int w;
+  bool any_b = false;
+  if (!pivot) {
+    w = w_in < 0 ? 0 : w_in > U - 1 ? U - 1 : w_in;
+  } else {
+    int fb = kBig;
+    if constexpr (WT > 0) {
+#pragma unroll
+      for (int i = WT - 1; i >= 0; --i) {
+        const uint32_t b = __shfl_sync(kFullMask, bl, i);
+        if (b) fb = 32 * i + __ffs(static_cast<int>(b)) - 1;
+      }
+    } else {
+      for (int i = lane; i < W; i += 32) {
+        const uint32_t b = a.sb[sw + i];
+        if (b) {
+          fb = 32 * i + __ffs(static_cast<int>(b)) - 1;
+          break;
+        }
+      }
+      fb = static_cast<int>(__reduce_min_sync(kFullMask,
+                                              static_cast<unsigned>(fb)));
+    }
+    any_b = fb != kBig;
+    w = any_b ? (fb < U - 1 ? fb : U - 1) : (32 < U - 1 ? 32 : U - 1);
+  }
+  const bool hb = pivot ? any_b && live : live;
+  const int wj = w >> 5;
+  const uint32_t wmask = 1u << (w & 31);
+
+  // the child sets, rsz and has_branch; W <= 4: wrow from the registers of
+  // the lane holding row w
+  uint32_t cp[WR];
+  if constexpr (WT > 0) {
+#pragma unroll
+    for (int i = 0; i < WT; ++i) {
+      uint32_t mine = 0u;
+#pragma unroll
+      for (int j = 0; j < WT; ++j) mine = j == wj ? rows[j][i] : mine;
+      const uint32_t wr = __shfl_sync(kFullMask, mine, w & 31);
+      cp[i] = __shfl_sync(kFullMask, pl, i) & wr;
+      if (lane == i) {
+        const uint32_t wb = i == wj ? wmask : 0u;
+        a.childp[r * W + i] = pl & wr;
+        a.childxp[r * W + i] = xpl & wr;
+        a.childrb[r * W + i] = rbl | wb;
+      }
+    }
+  } else {
+    for (int i = lane; i < W; i += 32) {
+      const uint32_t wr = __ldg(A + static_cast<long long>(w) * W + i);
+      const uint32_t wb = i == wj ? wmask : 0u;
+      a.childp[r * W + i] = a.sp[sw + i] & wr;
+      a.childxp[r * W + i] = a.sxp[sw + i] & wr;
+      a.childrb[r * W + i] = a.srb[sw + i] | wb;
+    }
+  }
+  if (lane == 0) {
+    a.child_rsz[r] = rsz + 1;
+    a.has_branch[r] = hb;
+  }
+
+  // deg and partner over A against childP
+  const int chunks = (U + 31) >> 5;
+  auto chunk = [&](int j) {
+    const int u = 32 * j + lane;
+    if (u >= U) return;
+    int d = 0, part = 0;
+    if constexpr (WT > 0) {
+#pragma unroll
+      for (int i = 0; i < WT; ++i) deg_partner(rows[j][i] & cp[i], i, d, part);
+    } else {
+      const uint32_t* row = A + static_cast<long long>(u) * W;
+      const uint32_t* wrow = A + static_cast<long long>(w) * W;
+      for (int i = 0; i < W; ++i) {
+        deg_partner(__ldg(row + i) & a.sp[sw + i] & __ldg(wrow + i), i, d,
+                    part);
+      }
+    }
+    a.deg[r * U + u] = d;
+    a.partner[r * U + u] = part;
+  };
+  if constexpr (WT > 0) {
+#pragma unroll
+    for (int j = 0; j < WT; ++j) {
+      if (j < chunks) chunk(j);
+    }
+  } else {
+    for (int j = 0; j < chunks; ++j) chunk(j);
+  }
+
+  // childxal: bit w of the alive X0 rows below XC, lane l taking xal
+  // words l, l + 32, ...
+  uint32_t* cxal = a.childxal + r * XCW;
+  const uint32_t* X = a.x_rows + r * XC * static_cast<long long>(W) + wj;
+  for (int c = lane; c < XCW; c += 32) {
+    uint32_t bits = xw.own(c) & XalWords::below(c, XC);
+    uint32_t out = 0u;
+    while (bits) {
+      int x[kColLoads];
+      uint32_t v[kColLoads];
+#pragma unroll
+      for (int i = 0; i < kColLoads; ++i) {
+        x[i] = bits ? __ffs(static_cast<int>(bits)) - 1 : -1;
+        bits &= bits - 1u;
+        v[i] = x[i] >= 0 ? __ldg(X + (32ll * c + x[i]) * W) : 0u;
+      }
+#pragma unroll
+      for (int i = 0; i < kColLoads; ++i) {
+        if (x[i] >= 0 && (v[i] & wmask)) out |= 1u << x[i];
+      }
+    }
+    cxal[c] = out;
+  }
+
+  // the slot, in place where the root branches
+  if constexpr (WT == 0) __syncwarp();
+  if (hb) {
+    for (int i = lane; i < W; i += 32) {
+      const uint32_t wb = i == wj ? wmask : 0u;
+      if constexpr (WT > 0) {
+        a.sp[sw + i] = pl & ~wb;
+        a.sxp[sw + i] = xpl | wb;
+        if (pivot) a.sb[sw + i] = bl & ~wb;
+      } else {
+        a.sp[sw + i] = a.sp[sw + i] & ~wb;
+        a.sxp[sw + i] = a.sxp[sw + i] | wb;
+        if (pivot) a.sb[sw + i] = a.sb[sw + i] & ~wb;
+      }
+    }
+  }
+}
+
+int launch_branch(BranchArgs a, cudaStream_t stream) {
+  if (a.U < 1 || a.W < 1 || a.U > 32ll * a.W || a.XC < 0 || a.XCW < 0 ||
+      32ll * a.XCW < a.XC || a.D < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.warps = kBlockWarps;
+  const long long blocks = (a.R + a.warps - 1) / a.warps;
+  if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  switch (vector_rows(a.W, a.a) ? a.W : 0) {
+    case 1:
+      branch_kernel<1><<<grid, kThreads, 0, stream>>>(a);
+      break;
+    case 2:
+      branch_kernel<2><<<grid, kThreads, 0, stream>>>(a);
+      break;
+    case 4:
+      branch_kernel<4><<<grid, kThreads, 0, stream>>>(a);
+      break;
+    default:
+      branch_kernel<0><<<grid, kThreads, 0, stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 
@@ -1093,15 +1455,113 @@ int launch_census(const CensusArgs& a, long long R, int threads,
 // and_popcount_many: out[r, m, k] = popcount(rows[r, k] & masks[r, m]).
 //
 // Replaces repro/kernels/bitset_ops/kernel.py::and_popcount_many
-// (_and_popcount_many_kernel, :267/:277), the 'rcd' backend's pop-path
+// (_and_popcount_many_kernel, :267/:277), the reference's 'rcd' pop-path
 // maximality check (rows = P with K = 1, masks = ~X0 rows stacked on ~A).
-// Bound: bytes, R*(M + K)*W*4 read and R*M*K*4 written. Design: one thread
-// per output element (m, k), looping over the W words; the root's K rows
-// are staged in shared memory when K*W words fit in kSmemWords (always
-// at the engine's K = 1, where each thread then sweeps one mask row
-// against one staged word vector). Grid (R, up to 65535 element blocks),
-// each block striding over the root's M*K elements.
+// Bound: bytes, R*(M + K)*W*4 read and R*M*K*4 written: at the U = 64
+// bucket (M = 576, W = 2) 4.3 MB, 1.3 us on this card.
+//
+// Design. Where the K rows hold at most 4 words (K * W <= 4: the check's
+// K = 1 at W <= 4), they live in every lane's registers (lane i < K*W
+// loads word i and the warp shares it) and a group of G = 1, 2 or 4 warps
+// (row_group(M)) sweeps the root's M mask rows, 8 / G roots a block, with
+// no staging and no barrier: a thread issues the loads of its first
+// kRowBatch mask rows at once, as 4-, 8- or 16-byte vectors at W = 1, 2
+// or 4 (masks aligned to 4W bytes, else word by word), and the stores of
+// consecutive rows are consecutive. Larger K * W keeps the general
+// kernel: the K rows staged in shared memory when they fit kSmemWords
+// words, one thread an output element (m, k), a grid of (R, up to 65,535
+// element blocks).
+//
+// The engine's entry point is rcd_dominated (below), which reads the X0
+// rows and A where they lie and needs no complement or output matrix.
 // ---------------------------------------------------------------------------
+constexpr int kManyRegWords = 4;
+
+struct ManyArgs {
+  const uint32_t* rows;   // (R, K, W)
+  const uint32_t* masks;  // (R, M, W)
+  int32_t* out;           // (R, M, K)
+  long long R;
+  int K, M, W;
+  int G;  // warps a root (row_group(M))
+};
+
+template <int WT>
+__global__ void __launch_bounds__(kThreads) many_reg_kernel(const ManyArgs a) {
+  constexpr int WR = WT > 0 ? WT : kManyRegWords;
+  const int G = a.G;
+  const int gsize = 32 * G;
+  const int group = threadIdx.x / gsize;
+  const int gt = threadIdx.x % gsize;
+  const int lane = threadIdx.x & 31;
+  const long long r =
+      static_cast<long long>(blockIdx.x) * (kBlockWarps / G) + group;
+  if (r >= a.R) return;
+  const int K = a.K, M = a.M;
+  const int W = WT > 0 ? WT : a.W;
+  const int KW = K * W;
+  const uint32_t* masks = a.masks + r * M * static_cast<long long>(W);
+  int32_t* out = a.out + r * M * static_cast<long long>(K);
+
+  // first round: the thread's first mask rows and the K rows' words
+  uint32_t mw[kRowBatch][WR];
+  auto load_batch = [&](int m0) {
+#pragma unroll
+    for (int j = 0; j < kRowBatch; ++j) {
+      const int m = m0 + j * gsize;
+      if (m >= M) continue;
+      const uint32_t* row = masks + static_cast<long long>(m) * W;
+      if constexpr (WT > 0) {
+        load_words<WT>(row, mw[j]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < WR; ++i) mw[j][i] = i < W ? __ldg(row + i) : 0u;
+      }
+    }
+  };
+  load_batch(gt);
+  const uint32_t vl = lane < KW ? __ldg(a.rows + r * KW + lane) : 0u;
+  uint32_t rw[kManyRegWords];
+#pragma unroll
+  for (int i = 0; i < kManyRegWords; ++i) {
+    rw[i] = __shfl_sync(kFullMask, vl, i);
+  }
+
+  for (int m0 = gt; m0 < M; m0 += kRowBatch * gsize) {
+    if (m0 != gt) load_batch(m0);
+#pragma unroll
+    for (int j = 0; j < kRowBatch; ++j) {
+      const int m = m0 + j * gsize;
+      if (m >= M) continue;
+      if constexpr (WT > 0) {  // K = kManyRegWords / WT at most
+#pragma unroll
+        for (int k = 0; k < kManyRegWords / WT; ++k) {
+          if (k >= K) break;
+          int c = 0;
+#pragma unroll
+          for (int i = 0; i < WT; ++i) c += __popc(rw[k * WT + i] & mw[j][i]);
+          out[static_cast<long long>(m) * K + k] = c;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kManyRegWords; ++k) {
+          if (k >= K) break;
+          int c = 0;
+#pragma unroll
+          for (int i = 0; i < kManyRegWords; ++i) {
+            const int e = k * W + i;
+            // word i of row k, when i < W (e < KW <= 4 then)
+            uint32_t v = 0u;
+#pragma unroll
+            for (int q = 0; q < kManyRegWords; ++q) v = q == e ? rw[q] : v;
+            if (i < W) c += __popc(v & mw[j][i]);
+          }
+          out[static_cast<long long>(m) * K + k] = c;
+        }
+      }
+    }
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
 and_popcount_many_kernel(const uint32_t* __restrict__ rows,
@@ -1128,6 +1588,208 @@ and_popcount_many_kernel(const uint32_t* __restrict__ rows,
     for (int w = 0; w < W; ++w) c += __popc(krow[w] & mrow[w]);
     out[r * MK + e] = c;
   }
+}
+
+int launch_many(const void* rows, const void* masks, void* out, long long R,
+                int K, int M, int W, cudaStream_t stream) {
+  const long long kw = static_cast<long long>(K) * W;
+  if (kw <= kManyRegWords) {
+    ManyArgs a{};
+    a.rows = static_cast<const uint32_t*>(rows);
+    a.masks = static_cast<const uint32_t*>(masks);
+    a.out = static_cast<int32_t*>(out);
+    a.R = R;
+    a.K = K;
+    a.M = M;
+    a.W = W;
+    a.G = row_group(M);
+    const long long per = kBlockWarps / a.G;
+    const long long blocks = (R + per - 1) / per;
+    if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned grid = static_cast<unsigned>(blocks);
+    switch (vector_rows(W, masks) ? W : 0) {
+      case 1:
+        many_reg_kernel<1><<<grid, kThreads, 0, stream>>>(a);
+        break;
+      case 2:
+        many_reg_kernel<2><<<grid, kThreads, 0, stream>>>(a);
+        break;
+      case 4:
+        many_reg_kernel<4><<<grid, kThreads, 0, stream>>>(a);
+        break;
+      default:
+        many_reg_kernel<0><<<grid, kThreads, 0, stream>>>(a);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const bool staged = kw <= kSmemWords;
+  const long long mk_blocks =
+      (static_cast<long long>(M) * K + kThreads - 1) / kThreads;
+  if (R > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(R),
+                  static_cast<unsigned>(mk_blocks < 65535 ? mk_blocks : 65535));
+  and_popcount_many_kernel<<<grid, kThreads,
+                             staged ? kw * sizeof(uint32_t) : 0, stream>>>(
+      static_cast<const uint32_t*>(rows), static_cast<const uint32_t*>(masks),
+      static_cast<int32_t*>(out), K, M, W, staged);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// rcd_dominated (counted as and_popcount_many): the 'rcd' maximality test
+// of repro/core/engine/pivot.py::rcd_maximality_report, whose
+// and_popcount_many call of P against ~X0 rows stacked on ~A it replaces,
+// on the engine's operands: A (R, U, W), the X0 rows (R, XC, W), P and Xp
+// (R, W), xal (R, XCW). blocked = some selected row x has P & ~x == 0 (the
+// alive X0 rows, xal's bits below XC, and the universe rows of Xp's bits
+// below U; with an empty P every selected row blocks), and psize = |P|, all
+// of its words' bits.
+//
+// Bound: bytes. P, Xp and xal, the selected rows and the two outputs: at
+// the U = 64 bucket's roots about 0.04 MB, so what it pays is the launch
+// and the chain to its write. The check it replaces read all XC + U rows of
+// a complement the engine kept for the whole bucket, wrote an (R, XC + U)
+// count matrix and ran about 30 torch kernels after it.
+//
+// Design: a warp a root, 8 roots a block. P and Xp (W <= 4: in every
+// lane's registers) and xal in the first round; then only the selected
+// rows are read, the universe rows of Xp beside the first batch of X0
+// chunks (x_batch, as lemma8_reduce reads them: kXBatch chunks of 32 rows
+// a lane at once, a batch with no alive row below XC skipped whole); the
+// complement is taken in registers; the warp votes with __any_sync after
+// each batch and stops at the first blocking row. (Rows read as
+// branch_step reads its X0 column, a lane the alive rows of its own xal
+// words, were slower at the U = 64 and U = 128 buckets on an H100: a row
+// here is W words, not one.) Any other W, or rows off the vector
+// alignment: the word-by-word instance (WT = 0).
+// ---------------------------------------------------------------------------
+struct DomArgs {
+  const uint32_t* a;       // (R, U, W)
+  const uint32_t* x_rows;  // (R, XC, W)
+  const uint32_t* p;       // (R, W) each
+  const uint32_t* xp;
+  const uint32_t* xal;     // (R, XCW)
+  uint8_t* blocked;        // (R,)
+  int32_t* psize;          // (R,)
+  long long R;
+  int U, XC, XCW, W;
+  int warps;
+};
+
+// P ⊆ row: no bit of P outside the row's words
+template <int WT>
+__device__ __forceinline__ bool covers(const uint32_t (&pw)[WT > 0 ? WT : 1],
+                                       const uint32_t (&row)[WT > 0 ? WT : 1],
+                                       const uint32_t* P, const uint32_t* g,
+                                       int W) {
+  if constexpr (WT > 0) {
+    uint32_t rest = 0u;
+#pragma unroll
+    for (int i = 0; i < WT; ++i) rest |= pw[i] & ~row[i];
+    return rest == 0u;
+  } else {
+    for (int i = 0; i < W; ++i) {
+      if (__ldg(P + i) & ~__ldg(g + i)) return false;
+    }
+    return true;
+  }
+}
+
+template <int WT>
+__global__ void __launch_bounds__(kThreads) dominated_kernel(const DomArgs a) {
+  constexpr int WR = WT > 0 ? WT : 1;
+  constexpr int NB = kXBatch<WT>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long r = static_cast<long long>(blockIdx.x) * a.warps + warp;
+  if (r >= a.R) return;
+  const int U = a.U, XC = a.XC, XCW = a.XCW;
+  const int W = WT > 0 ? WT : a.W;
+  const long long fw = r * W;
+  const uint32_t* A = a.a + r * U * static_cast<long long>(W);
+  const uint32_t* P = a.p + fw;
+  const uint32_t* Xp = a.xp + fw;
+
+  // first round: P, Xp and xal
+  uint32_t pw[WR], xpw[WR];
+  const XalWords xw(a.xal + r * XCW, XCW, lane);
+  int psize = 0;
+  if constexpr (WT > 0) {
+    mask_words<WT>(P, lane, pw);
+    mask_words<WT>(Xp, lane, xpw);
+#pragma unroll
+    for (int i = 0; i < WT; ++i) psize += __popc(pw[i]);
+  } else {
+    for (int i = lane; i < W; i += 32) psize += __popc(__ldg(P + i));
+    psize = __reduce_add_sync(kFullMask, psize);
+  }
+  if (lane == 0) a.psize[r] = psize;
+
+  // the universe rows of Xp (U <= 32 W: chunk j < W)
+  bool blocked = false;
+  const int chunks = (U + 31) >> 5;
+  auto chunk = [&](int j) {
+    const int u = 32 * j + lane;
+    const uint32_t xj = WT > 0 ? word_of<WR>(xpw, j) : __ldg(Xp + j);
+    if (u >= U || !((xj >> lane) & 1u)) return;
+    const uint32_t* g = A + static_cast<long long>(u) * W;
+    uint32_t row[WR];
+    if constexpr (WT > 0) load_words<WT>(g, row);
+    blocked = blocked || covers<WT>(pw, row, P, g, W);
+  };
+  if constexpr (WT > 0) {
+#pragma unroll
+    for (int j = 0; j < WT; ++j) {
+      if (j < chunks) chunk(j);
+    }
+  } else {
+    for (int j = 0; j < chunks; ++j) chunk(j);
+  }
+
+  // the alive X0 rows, a batch at a time, until a row blocks
+  const uint64_t live = xw.live(XC, lane);
+  const uint32_t* X = a.x_rows + r * XC * static_cast<long long>(W);
+  for (int c0 = 0; c0 < XCW; c0 += NB) {
+    if (__any_sync(kFullMask, blocked)) break;
+    if (!visit(live, c0, NB)) continue;
+    bool alive[NB];
+    uint32_t xr[NB][WR];
+    x_batch<WT, NB>(X, xw, c0, XCW, XC, lane, alive, xr);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (!alive[b]) continue;
+      const uint32_t* g =
+          X + (32ll * (c0 + b) + lane) * static_cast<long long>(W);
+      blocked = blocked || covers<WT>(pw, xr[b], P, g, W);
+    }
+  }
+  blocked = __any_sync(kFullMask, blocked);
+  if (lane == 0) a.blocked[r] = blocked;
+}
+
+int launch_dominated(DomArgs a, cudaStream_t stream) {
+  if (a.U < 1 || a.W < 1 || a.U > 32ll * a.W || a.XC < 0 || a.XCW < 0 ||
+      32ll * a.XCW < a.XC) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.warps = kBlockWarps;
+  const long long blocks = (a.R + a.warps - 1) / a.warps;
+  if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  switch (vector_rows(a.W, a.a) && vector_rows(a.W, a.x_rows) ? a.W : 0) {
+    case 1:
+      dominated_kernel<1><<<grid, kThreads, 0, stream>>>(a);
+      break;
+    case 2:
+      dominated_kernel<2><<<grid, kThreads, 0, stream>>>(a);
+      break;
+    case 4:
+      dominated_kernel<4><<<grid, kThreads, 0, stream>>>(a);
+      break;
+    default:
+      dominated_kernel<0><<<grid, kThreads, 0, stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -1690,10 +2352,6 @@ inline int bit_length(long long v) {
   return n;
 }
 
-inline unsigned blocks_for(int K) {
-  return static_cast<unsigned>((K + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
 extern "C" {
@@ -1789,14 +2447,60 @@ int bitset_frame_step(const void* rows, const void* p, const void* xp,
                       const void* wrow, void* childp, void* childxp,
                       void* deg, void* partner, long long R, int K, int W,
                       void* stream) {
-  const dim3 grid(static_cast<unsigned>(R), blocks_for(K));
-  frame_step_kernel<<<grid, kThreads, W * sizeof(uint32_t),
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rows), static_cast<const uint32_t*>(p),
-      static_cast<const uint32_t*>(xp), static_cast<const uint32_t*>(wrow),
-      static_cast<uint32_t*>(childp), static_cast<uint32_t*>(childxp),
-      static_cast<int32_t*>(deg), static_cast<int32_t*>(partner), K, W);
-  return static_cast<int>(cudaGetLastError());
+  StepArgs a{};
+  a.rows = static_cast<const uint32_t*>(rows);
+  a.p = static_cast<const uint32_t*>(p);
+  a.xp = static_cast<const uint32_t*>(xp);
+  a.wrow = static_cast<const uint32_t*>(wrow);
+  a.childp = static_cast<uint32_t*>(childp);
+  a.childxp = static_cast<uint32_t*>(childxp);
+  a.deg = static_cast<int32_t*>(deg);
+  a.partner = static_cast<int32_t*>(partner);
+  a.R = R;
+  a.K = K;
+  a.W = W;
+  return launch_frame_step(a, static_cast<cudaStream_t>(stream));
+}
+
+// The branch half of a DFS step: reads A, the X0 rows, the stack's slot
+// max(depth, 0) (P, B, Xp, Rb, rsz, xal; D slots), live and, non-null, w
+// ('rcd'); writes has_branch, the child frame's P, Xp, Rb, xal and rsz,
+// deg and partner (R, U), and the slot's P, Xp and (w null) B in place.
+int bitset_branch_step(const void* a_rows, const void* x_rows, void* sp,
+                       void* sb, void* sxp, const void* srb,
+                       const void* srsz, const void* sxal, const void* depth,
+                       const void* live, const void* w, void* has_branch,
+                       void* childp, void* childxp, void* childxal,
+                       void* childrb, void* child_rsz, void* deg,
+                       void* partner, long long R, int U, int XC, int XCW,
+                       int W, int D, void* stream) {
+  BranchArgs a{};
+  a.a = static_cast<const uint32_t*>(a_rows);
+  a.x_rows = static_cast<const uint32_t*>(x_rows);
+  a.sp = static_cast<uint32_t*>(sp);
+  a.sb = static_cast<uint32_t*>(sb);
+  a.sxp = static_cast<uint32_t*>(sxp);
+  a.srb = static_cast<const uint32_t*>(srb);
+  a.srsz = static_cast<const int32_t*>(srsz);
+  a.sxal = static_cast<const uint32_t*>(sxal);
+  a.depth = static_cast<const long long*>(depth);
+  a.live = static_cast<const uint8_t*>(live);
+  a.w = static_cast<const int32_t*>(w);
+  a.has_branch = static_cast<uint8_t*>(has_branch);
+  a.childp = static_cast<uint32_t*>(childp);
+  a.childxp = static_cast<uint32_t*>(childxp);
+  a.childxal = static_cast<uint32_t*>(childxal);
+  a.childrb = static_cast<uint32_t*>(childrb);
+  a.child_rsz = static_cast<int32_t*>(child_rsz);
+  a.deg = static_cast<int32_t*>(deg);
+  a.partner = static_cast<int32_t*>(partner);
+  a.R = R;
+  a.U = U;
+  a.XC = XC;
+  a.XCW = XCW;
+  a.W = W;
+  a.D = D;
+  return launch_branch(a, static_cast<cudaStream_t>(stream));
 }
 
 // `threads`: the census block's threads, 0 for census_threads' choice.
@@ -1846,18 +2550,30 @@ int bitset_hybrid_census(const void* a_rows, const void* x_rows,
 
 int bitset_and_popcount_many(const void* rows, const void* masks, void* out,
                              long long R, int K, int M, int W, void* stream) {
-  const long long kw = static_cast<long long>(K) * W;
-  const bool staged = kw <= kSmemWords;
-  const long long mk_blocks =
-      (static_cast<long long>(M) * K + kThreads - 1) / kThreads;
-  const dim3 grid(static_cast<unsigned>(R),
-                  static_cast<unsigned>(mk_blocks < 65535 ? mk_blocks : 65535));
-  and_popcount_many_kernel<<<grid, kThreads,
-                             staged ? kw * sizeof(uint32_t) : 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rows), static_cast<const uint32_t*>(masks),
-      static_cast<int32_t*>(out), K, M, W, staged);
-  return static_cast<int>(cudaGetLastError());
+  return launch_many(rows, masks, out, R, K, M, W,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The rcd maximality test: reads A, the X0 rows, P, Xp and xal; writes
+// blocked (R,) and |P| (R,).
+int bitset_rcd_dominated(const void* a_rows, const void* x_rows,
+                         const void* p, const void* xp, const void* xal,
+                         void* blocked, void* psize, long long R, int U,
+                         int XC, int XCW, int W, void* stream) {
+  DomArgs a{};
+  a.a = static_cast<const uint32_t*>(a_rows);
+  a.x_rows = static_cast<const uint32_t*>(x_rows);
+  a.p = static_cast<const uint32_t*>(p);
+  a.xp = static_cast<const uint32_t*>(xp);
+  a.xal = static_cast<const uint32_t*>(xal);
+  a.blocked = static_cast<uint8_t*>(blocked);
+  a.psize = static_cast<int32_t*>(psize);
+  a.R = R;
+  a.U = U;
+  a.XC = XC;
+  a.XCW = XCW;
+  a.W = W;
+  return launch_dominated(a, static_cast<cudaStream_t>(stream));
 }
 
 

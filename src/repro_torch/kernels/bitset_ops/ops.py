@@ -17,7 +17,8 @@ Each kernel wrapper adds one to `LAUNCHES[name]` where it launches, and
 nowhere else, so a run can show that it went through the kernels. The
 engine's entry points on a kernel count under that kernel's name:
 `lemma8_reduce` as "and_popcount_rows", `pivot_select` as
-"and_popcount_argmax", `hybrid_census` as "clique_counts".
+"and_popcount_argmax", `hybrid_census` as "clique_counts", `branch_step`
+as "frame_step", `rcd_dominated` as "and_popcount_many".
 
 Shapes: rows (..., K, W) int32 bit words, masks (..., W), valid (..., K)
 bool, with the same leading root-batch dims; the kernels see them
@@ -37,8 +38,8 @@ from repro_torch.kernels.bitset_ops import ref
 from repro_torch.kernels.bitset_ops.build import LIBRARY
 from repro_torch.kernels.bitset_ops.ref import HYBRID_DENSITY  # noqa: F401
 from repro_torch.kernels.bitset_ops.words import (  # noqa: F401
-    and_reduce, and_rows, bits_to_mask, mask_to_bits, or_reduce, popcount,
-    popcount_words)
+    and_reduce, and_rows, bits_to_mask, first_bit_index, mask_to_bits,
+    or_reduce, popcount, popcount_words)
 
 LAUNCHES = Launches({"frame_step": 0, "and_popcount_rows": 0,
                      "and_popcount_argmax": 0, "clique_counts": 0,
@@ -244,6 +245,65 @@ def frame_step(rows: torch.Tensor, p: torch.Tensor, xp: torch.Tensor,
     return childp, childxp, deg, partner
 
 
+def branch_step(a: torch.Tensor, x_rows: torch.Tensor, sP: torch.Tensor,
+                sB: torch.Tensor, sXp: torch.Tensor, sRb: torch.Tensor,
+                srsz: torch.Tensor, sxal: torch.Tensor, depth: torch.Tensor,
+                live: torch.Tensor, w: Optional[torch.Tensor] = None):
+    """The branch half of the engine's DFS step in one launch on the DFS
+    stack itself: (has_branch, childP, childXp, childxal, childRb,
+    child_rsz, deg, partner), new tensors, and the slot of every branching
+    root updated in place, as `ref.branch_step` (the contract). a (R, U,
+    W), x_rows (R, XC, W), the stack's buffers sP/sB/sXp/sRb (R, D, W),
+    srsz (R, D) and sxal (R, D, XCW), all int32 and contiguous; depth (R,)
+    int64 below D; live (R,) bool; w (R,) int32 ('rcd') or None (the
+    pivot family). Counted in LAUNCHES["frame_step"]: its degree sweep is
+    that kernel's."""
+    given = () if w is None else (w,)
+    if on_cpu(a, x_rows, sP, sB, sXp, sRb, srsz, sxal, depth, live, *given):
+        return ref.branch_step(a, x_rows, sP, sB, sXp, sRb, srsz, sxal,
+                               depth, live, w)
+    lead, r, u, wds = _check("branch_step", a, x_rows, sP, sB, sXp, sRb,
+                             srsz, sxal, depth, live, *given)
+    xc = x_rows.shape[1] if x_rows.dim() == 3 else -1
+    d_slots, xcw = (sxal.shape[1], sxal.shape[2]) if sxal.dim() == 3 \
+        else (0, 0)
+    want = {"x_rows": (x_rows, torch.int32, (r, xc, wds)),
+            "sP": (sP, torch.int32, (r, d_slots, wds)),
+            "sB": (sB, torch.int32, (r, d_slots, wds)),
+            "sXp": (sXp, torch.int32, (r, d_slots, wds)),
+            "sRb": (sRb, torch.int32, (r, d_slots, wds)),
+            "srsz": (srsz, torch.int32, (r, d_slots)),
+            "sxal": (sxal, torch.int32, (r, d_slots, xcw)),
+            "depth": (depth, torch.int64, (r,)),
+            "live": (live, torch.bool, (r,))}
+    if given:
+        want["w"] = (w, torch.int32, (r,))
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"branch_step: {name} must be {dtype} {shape} "
+                             f"(a is {tuple(a.shape)}), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if len(lead) != 1 or d_slots < 1 or 32 * xcw < xc or u > 32 * wds:
+        raise ValueError(f"branch_step: needs a (R, U, W), a stack of D >= "
+                         f"1 slots, 32*XCW >= XC and U <= 32*W; got a "
+                         f"{tuple(a.shape)}, sxal {tuple(sxal.shape)}")
+    dev = a.device
+
+    def new(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    outs = (new(r, dtype=torch.bool), new(r, wds), new(r, wds),
+            new(r, xcw), new(r, wds), new(r), new(r, u), new(r, u))
+    if r:
+        raise_on("branch_step", LIBRARY.load().bitset_branch_step(
+            *(t.data_ptr() for t in (a, x_rows, sP, sB, sXp, sRb, srsz,
+                                     sxal, depth, live)),
+            None if w is None else w.data_ptr(),
+            *(t.data_ptr() for t in outs),
+            r, u, xc, xcw, wds, d_slots, stream()))
+        LAUNCHES["frame_step"] += 1
+    return outs
+
+
 def clique_counts(rows: torch.Tensor, mask: torch.Tensor, in_p: torch.Tensor,
                   in_x: torch.Tensor, *, threads: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -386,6 +446,30 @@ def and_popcount_many(rows: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
             stream()))
         LAUNCHES["and_popcount_many"] += 1
     return out
+
+
+def rcd_dominated(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
+                  Xp: torch.Tensor, xal: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 'rcd' maximality test in one launch on the engine's operands:
+    (blocked (...) bool, psize (...) int32), as `ref.rcd_dominated` (the
+    contract): some alive X0 row or universe row of Xp contains P, and
+    |P|. a (..., U, W), x_rows (..., XC, W), P/Xp (..., W), xal (...,
+    XCW) bits with 32·XCW >= XC, U <= 32·W. Counted in
+    LAUNCHES["and_popcount_many"]; it reads the selected rows where they
+    lie and takes their complement in registers."""
+    if on_cpu(a, x_rows, P, Xp, xal):
+        return ref.rcd_dominated(a, x_rows, P, Xp, xal)
+    lead, r, u, w, xc, xcw = _check_frame("rcd_dominated", a, x_rows, xal,
+                                          P, Xp)
+    blocked = torch.empty(lead, dtype=torch.bool, device=a.device)
+    psize = torch.empty(lead, dtype=torch.int32, device=a.device)
+    if r:
+        raise_on("rcd_dominated", LIBRARY.load().bitset_rcd_dominated(
+            *(t.data_ptr() for t in (a, x_rows, P, Xp, xal, blocked, psize)),
+            r, u, xc, xcw, w, stream()))
+        LAUNCHES["and_popcount_many"] += 1
+    return blocked, psize
 
 
 def _window_walk(name: str, a, x_rows, alive0, winP, winB, winXp, winRb,

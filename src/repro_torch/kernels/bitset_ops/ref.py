@@ -19,8 +19,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.bitset_ops.words import (  # noqa: F401
-    WORD, and_reduce, and_rows, bits_to_mask, mask_to_bits, onehot,
-    popcount, popcount_words)
+    WORD, and_reduce, and_rows, bits_to_mask, first_bit_index, mask_to_bits,
+    onehot, popcount, popcount_words)
 
 # The 'hybrid' backend's switch to vertex branching (B = P): the induced
 # density 2|E[P]| / (|P|·(|P|−1)) at which `pivot_select` takes it, the
@@ -216,6 +216,74 @@ def frame_step(rows: torch.Tensor, p: torch.Tensor, xp: torch.Tensor,
                              device=rows.device)
     partner = torch.where(anded != 0, wi + pos, 0).sum(-1, dtype=torch.int32)
     return childp, childxp, deg, partner
+
+
+def branch_step(a: torch.Tensor, x_rows: torch.Tensor, sP: torch.Tensor,
+                sB: torch.Tensor, sXp: torch.Tensor, sRb: torch.Tensor,
+                srsz: torch.Tensor, sxal: torch.Tensor, depth: torch.Tensor,
+                live: torch.Tensor, w: Optional[torch.Tensor] = None):
+    """The branch half of the engine's DFS step (its call entry apart) on
+    the DFS stack itself: exactly the torch code of `loop.dfs_step` around
+    its `frame_step`.
+
+    a: (R, U, W), x_rows: (R, XC, W); the stack's buffers sP/sB/sXp/sRb
+    (R, D, W), srsz (R, D), sxal (R, D, XCW); depth (R,), live (R,) bool;
+    w (R,) int or None. Each root reads its slot d = max(depth, 0). With
+    w None (the pivot family) has_branch = (B != 0) & live and w is B's
+    first bit (32 for an empty B) clamped to U − 1; with w given ('rcd')
+    has_branch = live. Returns (has_branch, childP, childXp, childxal,
+    childRb, child_rsz, deg, partner): `frame_step` over a against P, Xp
+    and wrow = a[w], the slot's alive X0 rows below XC adjacent to w, Rb ∪
+    {w} and rsz + 1, whatever has_branch says. Where has_branch holds the
+    slot is updated IN PLACE: P loses w, Xp gains it, and (w None) B
+    loses it; elsewhere the slot keeps its values."""
+    R, U, W = a.shape
+    ar = torch.arange(R, device=a.device)
+    d = depth.clamp(min=0)
+    P, B, Xp, Rb, rsz, xal = (t[ar, d] for t in (sP, sB, sXp, sRb, srsz,
+                                                  sxal))
+    pivot_family = w is None
+    if pivot_family:
+        has_branch = (B != 0).any(-1) & live
+        # an all-zero B gives 32, past U when U <= 32: clamp; every use is
+        # masked by has_branch
+        w = first_bit_index(B).clamp(max=U - 1)
+    else:
+        has_branch = live
+        w = w.long()
+    wbit = torch.where(torch.arange(W, device=a.device) == (w // WORD)
+                       .unsqueeze(-1), onehot(a.device)[w % WORD]
+                       .unsqueeze(-1), 0)
+    childP, childXp, deg, partner = frame_step(a, P, Xp, a[ar, w])
+    # X0 rows stay alive iff adjacent to w (bit w of their row)
+    row_word = x_rows[ar, :, w // WORD]                         # (R, XC)
+    adj_w = ((row_word >> (w % WORD).to(torch.int32).unsqueeze(-1)) & 1) != 0
+    childxal = xal & mask_to_bits(adj_w, sxal.shape[-1])
+    hb = has_branch.unsqueeze(-1)
+    sP[ar, d] = torch.where(hb, P & ~wbit, P)
+    sXp[ar, d] = torch.where(hb, Xp | wbit, Xp)
+    if pivot_family:
+        sB[ar, d] = torch.where(hb, B & ~wbit, B)
+    return (has_branch, childP, childXp, childxal, Rb | wbit, rsz + 1, deg,
+            partner)
+
+
+def rcd_dominated(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
+                  Xp: torch.Tensor, xal: torch.Tensor):
+    """The 'rcd' maximality test on the engine's operands: exactly the
+    reference's `pivot.rcd_maximality_report` up to its report, over the
+    complement of the X0 rows stacked on the complement of a.
+
+    a: (..., U, W), x_rows: (..., XC, W), P/Xp: (..., W), xal: (..., XCW)
+    bits over the X0 rows -> (blocked (...) bool, psize (...) int32):
+    blocked iff some alive X0 row (xal's bits below XC) or universe row of
+    Xp (its bits below U) contains P (popcount(P & ~row) == 0; an empty P
+    is contained in every row), psize = |P|, all of its words' bits."""
+    u, xc = a.shape[-2], x_rows.shape[-2]
+    sub = and_popcount_many(P.unsqueeze(-2),
+                            torch.cat([~x_rows, ~a], -2))[..., 0]
+    in_x = torch.cat([bits_to_mask(xal, xc), bits_to_mask(Xp, u)], -1)
+    return (in_x & (sub == 0)).any(-1), popcount_words(P)
 
 
 def dfs_step_window_lanes(a: torch.Tensor, x_rows: torch.Tensor,

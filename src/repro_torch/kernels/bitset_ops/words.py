@@ -2,9 +2,9 @@
 
 These have no kernel behind them in either package (the reference runs
 them as plain jnp on every backend): an elementwise SWAR popcount, its
-sum over the word axis, the broadcast AND of rows with a mask, the
-unpacking of bitsets to bool masks and the packing back, and the OR and
-AND of selected rows. Words are int32 holding the reference's uint32 bit
+sum over the word axis, the lowest set bit, the broadcast AND of rows
+with a mask, the unpacking of bitsets to bool masks and the packing
+back, and the OR and AND of selected rows. Words are int32 holding the reference's uint32 bit
 patterns (see `ref`).
 """
 from __future__ import annotations
@@ -31,6 +31,16 @@ def popcount(x: torch.Tensor) -> torch.Tensor:
 def popcount_words(bits: torch.Tensor) -> torch.Tensor:
     """Total set-bit count over the trailing word axis: (..., W) -> (...)."""
     return popcount(bits).sum(-1, dtype=torch.int32)
+
+
+def first_bit_index(bits: torch.Tensor) -> torch.Tensor:
+    """Index of the lowest set bit of each (..., W) bitset, int64. An
+    all-zero bitset gives 32 (word 0, position 32), as in the reference:
+    callers that gather with it clamp first (torch raises on an
+    out-of-range index where jax clamps silently)."""
+    w = (bits != 0).to(torch.int32).argmax(-1)
+    word = bits.gather(-1, w.unsqueeze(-1)).squeeze(-1)
+    return w * WORD + popcount((word & -word) - 1)
 
 
 def and_rows(rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,10 @@ warp, N > 32, Sq != Sk, bfloat16), and flash_attention's tensor-core
 kernel at D = 64 and 128 from one row to several ragged tiles. The row
 kernels' every instance (W = 1-5, G = 1, 2, 4, rows off the vector
 loads' alignment, the two-step argmax) and the engine's two entry points
-on them (`lemma8_reduce`, `pivot_select`) are held bit for bit.
+on them (`lemma8_reduce`, `pivot_select`) are held bit for bit, as are
+`frame_step` and `and_popcount_many` at every instance and their entry
+points (`branch_step`, with the stack after its in-place write, and
+`rcd_dominated`).
 
 Every test here needs a CUDA device and nvcc (the kernels have no CPU
 mode); without a card they skip. The file imports neither JAX nor the
@@ -33,8 +36,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.segment_spmm import ops as sp_ops
 from repro_torch.kernels.segment_spmm import ref as sp_ref
-from torch_census_inputs import (census_inputs, frame_inputs,
-                                 hybrid_inputs)
+from torch_census_inputs import (branch_inputs, census_inputs,
+                                 frame_inputs, hybrid_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -279,10 +282,113 @@ def test_cuda_pivot_select_hybrid_density_at_the_threshold(cuda_device,
     assert all(torch.equal(got[i], P[i]) == dense for i in range(7))
 
 
-@pytest.mark.parametrize("backend", ["hybrid", "rcd"])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("k", [33, 100, 600])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5])
+def test_cuda_frame_step_and_many_every_instance(cuda_device, w, k, aligned):
+    """frame_step at W = 1-5 (the vector instances and the word-by-word
+    one), K giving G = 1, 2 and 4 warps a root, 9 roots (a ragged last
+    block), an empty child set, rows one word off the vector loads'
+    alignment, and R = 0; and_popcount_many with K = 1, 2 and 3 rows
+    (the register path at K·W <= 4, the general kernel past it) against
+    K masks, the masks off the alignment too."""
+    r = 9
+    rows = _words((r, k, w), k + w, cuda_device)
+    p, xp, wrow = (_words((r, w), s, cuda_device) for s in (1, 2, 3))
+    p[0] = 0                                           # empty child set
+    masks = _words((r, k, w), k, cuda_device)
+    if not aligned:
+        rows, masks = _unaligned(rows), _unaligned(masks)
+    before = dict(ops.LAUNCHES)
+    for g, w_ in zip(ops.frame_step(rows, p, xp, wrow),
+                     ref.frame_step(rows, p, xp, wrow)):
+        assert torch.equal(g, w_)
+    for g, w_ in zip(ops.frame_step(rows[:0], p[:0], xp[:0], wrow[:0]),
+                     ref.frame_step(rows[:0], p[:0], xp[:0], wrow[:0])):
+        assert g.shape == w_.shape and g.dtype == w_.dtype
+    for kk in (1, 2, 3):
+        rr = _words((r, kk, w), kk, cuda_device)
+        assert torch.equal(ops.and_popcount_many(rr, masks),
+                           ref.and_popcount_many(rr, masks)), kk
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["frame_step"] == before["frame_step"] + 1
+    assert ops.LAUNCHES["and_popcount_many"] == \
+        before["and_popcount_many"] + 3
+
+
+# (R, U, XC, W) of the DFS step's entry points: FRAME_CASES, R = 0 and the
+# U = 64 bucket's lanes
+BRANCH_CASES = FRAME_CASES + [(0, 64, 512, 2), (64, 64, 512, 2)]
+
+
+def _on(dev, *arrays):
+    return [torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32
+                             else x).to(dev) for x in arrays]
+
+
+@pytest.mark.parametrize("r,u,xc,w", BRANCH_CASES)
+def test_cuda_branch_step_matches_plain_version(cuda_device, r, u, xc, w):
+    """branch_step bit for bit against its plain version (branch_inputs:
+    an empty B, a dead root, w at bits 31 and 32, a root not live, xal
+    bits past XC and a dead xal word), for the pivot family and for 'rcd'
+    (w given), with A and the X0 rows one word off the vector loads'
+    alignment too: every output, and the stack's six buffers compared
+    whole after the in-place slot write."""
+    a, xr, *stack, depth, live, wv = (
+        t[:r].contiguous() for t in _on(cuda_device, *branch_inputs(
+            max(r, 5), u, xc, w, 6, seed=r + u + xc + w)))
+    before = ops.LAUNCHES["frame_step"]
+    for given in (None, wv):
+        want_stack = [t.clone() for t in stack]
+        want = ref.branch_step(a, xr, *want_stack, depth, live, given)
+        for rows_a, rows_x in ((a, xr), (_unaligned(a), _unaligned(xr))):
+            got_stack = [t.clone() for t in stack]
+            got = ops.branch_step(rows_a, rows_x, *got_stack, depth, live,
+                                  given)
+            for i, (g, w_) in enumerate(zip(got, want)):
+                assert g.dtype == w_.dtype and torch.equal(g, w_), i
+            for i, (g, w_) in enumerate(zip(got_stack, want_stack)):
+                assert torch.equal(g, w_), ("stack", i)
+        if r > 5:
+            assert bool(want[0].any()) and not bool(want[0][1])
+            assert not all(torch.equal(g, t) for g, t in
+                           zip(want_stack, stack))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["frame_step"] == before + (4 if r else 0)
+
+
+@pytest.mark.parametrize("r,u,xc,w", BRANCH_CASES)
+def test_cuda_rcd_dominated_matches_plain_version(cuda_device, r, u, xc, w):
+    """rcd_dominated bit for bit against its plain version (hybrid_inputs:
+    an empty P, which every selected row blocks, a P inside an alive X0
+    row's neighbourhood, rows holding P, xal bits past XC), with A and the
+    X0 rows one word off the vector loads' alignment too."""
+    a, xr, P, Xp, xal = (
+        t[:r].contiguous() for t in _on(cuda_device, *hybrid_inputs(
+            max(r, 4), u, xc, w, seed=r + u + xc + w)))
+    before = ops.LAUNCHES["and_popcount_many"]
+    want = ref.rcd_dominated(a, xr, P, Xp, xal)
+    for rows_a, rows_x in ((a, xr), (_unaligned(a), _unaligned(xr))):
+        got = ops.rcd_dominated(rows_a, rows_x, P, Xp, xal)
+        for g, w_ in zip(got, want):
+            assert g.dtype == w_.dtype and torch.equal(g, w_)
+    if r > 2 and xc:
+        assert bool(want[0][2])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["and_popcount_many"] == before + (2 if r else 0)
+
+
+@pytest.mark.parametrize("graph", ["caveman", "er_u64"])
+@pytest.mark.parametrize("backend", ["pivot", "hybrid", "rcd"])
 @pytest.mark.parametrize("engine", ["perroot", "persistent"])
-def test_cuda_backend_run_matches_cpu_run(cuda_device, backend, engine):
-    g = gen.caveman(12, 7, 0.2, seed=3)
+def test_cuda_backend_run_matches_cpu_run(cuda_device, backend, engine,
+                                          graph):
+    """Each backend's per-root and lane runs on the card equal the same
+    runs on the CPU (counters, clique sets, the lanes' stats), through the
+    DFS step's one `branch_step` launch a step and, on 'rcd', one
+    `rcd_dominated` a step; er_u64 has a U = 64 (W = 2) bucket."""
+    g = (gen.caveman(12, 7, 0.2, seed=3) if graph == "caveman"
+         else gen.erdos_renyi(150, 0.3, seed=4))
     kw = dict(backend=backend, engine=engine, enumerate_cliques=True,
               bucket_sizes=(32, 64), lanes=8)
     ops.LAUNCHES.reset()
@@ -295,8 +401,10 @@ def test_cuda_backend_run_matches_cpu_run(cuda_device, backend, engine):
     if engine == "persistent":
         for k in ("iters", "live_iters", "steals", "entry_terms"):
             assert on_card.stats[k] == on_cpu.stats[k], k
-    assert launched["clique_counts" if backend == "hybrid"
-                    else "and_popcount_many"] > 0
+    assert launched["frame_step"] > 0
+    if backend != "pivot":
+        assert launched["clique_counts" if backend == "hybrid"
+                        else "and_popcount_many"] > 0
 
 
 @pytest.mark.parametrize("dynamic_red", [True, False])

@@ -8,6 +8,8 @@ reference's `run()` on a few small graphs, and with the pivot rows of
 BENCH_branching.json (ba_web, caveman_comm) without rerunning the
 reference on them.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,12 +22,14 @@ from repro.core.engine import pivot as jpiv
 from repro.core.engine import prepare as jprepare
 from repro.core.engine import reductions as jred
 from repro.graph import generators as jgen
+from repro.kernels.bitset_ops import ref as jbref
 from repro_torch import interop
 from repro_torch.core import oracle as toracle
 from repro_torch.core.engine import frames as fr
 from repro_torch.core.engine import loop, pivot, reductions
 from repro_torch.core.engine import run
 from repro_torch.graph import generators as tgen
+from repro_torch.kernels.bitset_ops import ops
 
 pytest_plugins = ["torch_jax_executables"]
 
@@ -241,6 +245,148 @@ def test_dynamic_reduce_and_branch_set_on_one_frame(frame, backend,
         n = int(jc["out_n"])
         assert np.array_equal(_u32(carry["out_rows"])[r, :n],
                               np.asarray(jc["out_rows"])[:n])
+
+
+# --------------------------------------------------------------------------
+# the branch half of dfs_step (`branch_step`) on the reference's own stacks
+# --------------------------------------------------------------------------
+
+@functools.partial(jax.jit, static_argnames=("cfg", "most"))
+def _ref_walk(a, p0, x_rows, x_alive0, rsz0, steps, cfg, most):
+    """The reference's per-root walk, each root stopped after steps[r]
+    DFS steps (at most `most`): (depth, FrameStack) per root, as its
+    `run_root` holds them at that point."""
+    def one(a, p0, x_rows, x_alive0, rsz0, n):
+        U, W = a.shape
+        ctx = jfr.make_context(a, x_rows)
+        z = jnp.zeros(W, jnp.uint32)
+        carry, push0, frame0 = jloop.enter_call(
+            jfr.carry_init(cfg, W), cfg, ctx, p0, z,
+            jfr.mask_to_bitset(x_alive0, ctx.eye_x), rsz0.astype(jnp.int32),
+            z)
+        stack = jfr.FrameStack.alloc(U + 2, W, ctx.xc_words).push(0, frame0)
+        depth = jnp.where(push0, jnp.int32(0), jnp.int32(-1))
+
+        def body(i, s):
+            depth, stack, carry = s
+            return jloop.dfs_step(cfg, ctx, depth, stack, carry,
+                                  live=(depth >= 0) & (i < n))
+        depth, stack, _ = jax.lax.fori_loop(0, most, body,
+                                            (depth, stack, carry))
+        return depth, stack
+    return jax.vmap(one)(a, p0, x_rows, x_alive0, rsz0, steps)
+
+
+@functools.lru_cache(maxsize=None)
+def _branch_stacks(u, backend):
+    """A U = 32 (W = 1) or U = 64 (W = 2) bucket's first roots (the
+    broadest at U = 32), walked by the reference for 1-6 steps each:
+    (bucket arrays, depth (R,), the stack's six buffers (R, D, ...))."""
+    g = jgen.erdos_renyi(150, 0.3, seed=4)
+    b = _bucket(g, u)
+    order = np.argsort(-np.unpackbits(b.p0.view(np.uint8), axis=-1).sum(-1),
+                       kind="stable")[:12]
+    arrays = {k: getattr(b, k)[order] for k in interop.BUCKET_KEYS}
+    steps = 1 + np.arange(len(order)) % 6
+    depth, stack = _ref_walk(
+        *(jnp.asarray(arrays[k]) for k in interop.BUCKET_KEYS),
+        jnp.asarray(steps), cfg=jfr.EngineConfig(backend=backend), most=6)
+    return arrays, np.asarray(depth), tuple(np.asarray(f) for f in stack)
+
+
+def _ref_branch_half(a, x_rows, frame, live, U, w=None):
+    """The reference's dfs_step around its frame_step, on one root's
+    frame (jnp): `first_bit_index` (clamped as the port clamps),
+    `kernels.bitset_ops.ref.frame_step`, the X0 column and
+    `mask_to_bitset`, the slot update. Returns (outputs, new slot)."""
+    ctx = jfr.make_context(a, x_rows)
+    P, B, Xp, Rb, rsz, xal = frame
+    if w is None:
+        has_branch = jfr.any_bit(B) & live
+        w = jnp.minimum(jfr.first_bit_index(B), U - 1)
+    else:
+        has_branch = jnp.bool_(live)
+    wbit = ctx.eye[w]
+    childP, childXp, deg, partner = jbref.frame_step(ctx.A, P, Xp, ctx.A[w])
+    row_word = x_rows[:, w // 32]
+    adj_w = ((row_word >> (w % 32).astype(jnp.uint32)) & jnp.uint32(1)) != 0
+    childxal = xal & jfr.mask_to_bitset(adj_w, jfr.eye_bits(
+        x_rows.shape[0], xal.shape[0]))
+    slot = (jnp.where(has_branch, P & ~wbit, P),
+            jnp.where(has_branch, B & ~wbit, B),
+            jnp.where(has_branch, Xp | wbit, Xp))
+    return (has_branch, childP, childXp, childxal, Rb | wbit, rsz + 1, deg,
+            partner), slot
+
+
+@pytest.mark.parametrize("cut_xc", [False, True], ids=["xc", "xc40"])
+@pytest.mark.parametrize("backend", ["pivot", "rcd"])
+@pytest.mark.parametrize("u", [32, 64])
+def test_branch_step_matches_reference(u, backend, cut_xc):
+    """`ref.branch_step` (what `ops.branch_step` takes on the CPU, and the
+    plain version the kernel is held to) against the reference's dfs_step
+    branch half, on stacks the reference's own walk left after 1-6 steps,
+    the in-place slot update included. Edge roots: an all-zero B (w
+    clamps), a dead root at depth -1, w at a word boundary (31, and 32 at
+    U = 64); cut_xc: XC = 40 rows (not a multiple of 32) with xal bits
+    past XC set, and a dead xal word."""
+    arrays, depth, bufs = _branch_stacks(u, backend)
+    P, B, Xp, Rb, rsz, xal = (np.array(f) for f in bufs)
+    a, x_rows = arrays["a"], arrays["x_rows"]
+    R, U, W = a.shape
+    depth = depth.astype(np.int64)
+    rng = np.random.default_rng(u + len(backend))
+    depth[1] = -1                                           # a dead root
+    live = depth >= 0
+    live[4] = False                                         # not live
+    slot = np.maximum(depth, 0)
+    rr = np.arange(R)
+    if cut_xc:
+        x_rows = x_rows[:, :40] if x_rows.shape[1] >= 40 else np.concatenate(
+            [x_rows, _words((R, 40 - x_rows.shape[1], W), 9)], 1)
+        x_rows = np.ascontiguousarray(x_rows)
+        xal = _words(xal.shape[:2] + (2,), 11, density=0.7)
+        xal[0, :, 0] = 0                                   # a dead word
+    w_rcd = None
+    if backend == "pivot":
+        B[0, slot[0]] = 0                                  # w clamps
+        for r, bit in ((2, 31), (3, 32 % U)):              # word boundary
+            B[r, slot[r]] = 0
+            B[r, slot[r], bit // 32] = np.uint32(1) << np.uint32(bit % 32)
+    else:
+        w_rcd = rng.integers(0, U, R).astype(np.int32)
+        w_rcd[2], w_rcd[3] = 31, 32 % U
+    want = []
+    for r in range(R):
+        frame = (P[r, slot[r]], B[r, slot[r]], Xp[r, slot[r]],
+                 Rb[r, slot[r]], rsz[r, slot[r]], xal[r, slot[r]])
+        jw = None if w_rcd is None else jnp.int32(w_rcd[r])
+        want.append(_ref_branch_half(
+            jnp.asarray(a[r]), jnp.asarray(x_rows[r]),
+            tuple(jnp.asarray(f) for f in frame), jnp.bool_(live[r]), U,
+            jw))
+    tbufs = [_t(f) for f in (P, B, Xp, Rb, rsz, xal)]
+    got = ops.branch_step(_t(a), _t(x_rows), *tbufs, _t(depth), _t(live),
+                          None if w_rcd is None else _t(w_rcd))
+    assert [t.dtype for t in got] == [torch.bool] + [torch.int32] * 7
+    for r, (outs, (sp, sb, sxp)) in enumerate(want):
+        for i, (g, w_) in enumerate(zip(got, outs)):
+            g = g[r].numpy()
+            g = g.view(np.uint32) if g.dtype == np.int32 and i not in (
+                5, 6, 7) else g
+            assert np.array_equal(g, np.asarray(w_)), (r, i)
+        # the slot, in place; the rest of the stack as it was
+        P[r, slot[r]], Xp[r, slot[r]] = sp, sxp
+        if backend == "pivot":
+            B[r, slot[r]] = sb
+    for t, want_buf in zip(tbufs, (P, B, Xp, Rb, rsz, xal)):
+        assert np.array_equal(t.numpy(), want_buf.view(t.numpy().dtype))
+    hb = got[0].numpy()
+    assert not hb[1] and not hb[4] and hb.any()
+    if backend == "pivot":
+        assert not hb[0]
+    if cut_xc:                                 # no bit past XC = 40
+        assert not (got[3].numpy().view(np.uint32)[:, 1] >> np.uint32(8)).any()
 
 
 # --------------------------------------------------------------------------

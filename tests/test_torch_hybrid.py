@@ -164,11 +164,11 @@ def bucket_frames(seed=0):
                    en=rng.random(R) < 0.9, dominated=r)
 
 
-def port_context(b, alive, backend):
+def port_context(b, alive):
     a, _, xr, xa, _ = interop.bucket_from_reference(
         dict(a=b.a, p0=b.p0, x_rows=b.x_rows, x_alive0=alive, rsz0=b.rsz0),
         CPU).values()
-    ctx = fr.make_context(a, xr, backend)
+    ctx = fr.make_context(a, xr)
     return ctx, fr.mask_to_bitset(xa, ctx.xc_words)
 
 
@@ -193,7 +193,7 @@ def test_hybrid_early_term_matches_reference():
     R, _, W = b.a.shape
     tcfg = fr.EngineConfig(backend="hybrid", out_cap=8)
     jcfg = jfr.EngineConfig(backend="hybrid", out_cap=8)
-    ctx, xal = port_context(b, f["alive"], "hybrid")
+    ctx, xal = port_context(b, f["alive"])
     carry, stop = pivot.hybrid_early_term(
         fr.carry_init(tcfg, R, W, CPU), tcfg, ctx, _t(f["P"]), _t(f["Xp"]),
         xal, _t(f["Rb"]), _t(f["rsz"]), _t(f["en"]))
@@ -226,7 +226,7 @@ def test_hybrid_branch_set_matches_reference(mode):
     dyn = mode == "dynamic_red"
     tcfg = fr.EngineConfig(backend="hybrid", dynamic_red=dyn, out_cap=64)
     jcfg = jfr.EngineConfig(backend="hybrid", dynamic_red=dyn, out_cap=64)
-    ctx, xal = port_context(b, f["alive"], "hybrid")
+    ctx, xal = port_context(b, f["alive"])
     P, Xp, rf, deg = _t(f["P"]), _t(f["Xp"]), None, None
     if dyn:
         _, rf = reductions.dynamic_reduce(

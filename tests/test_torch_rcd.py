@@ -18,7 +18,7 @@ from repro.kernels.bitset_ops import kernel as jkernel
 from repro.kernels.bitset_ops import ref as jref
 from repro_torch.core.engine import frames as fr
 from repro_torch.core.engine import pivot
-from repro_torch.kernels.bitset_ops import ref
+from repro_torch.kernels.bitset_ops import ops, ref
 
 from test_hybrid_engine import GRAPHS
 from test_torch_hybrid import (CPU, ENGINES, _t, _u32,
@@ -68,7 +68,7 @@ def test_rcd_select_matches_reference():
     """(has_branch, w) on one bucket's frames: an edge and a single vertex
     (cliques: no branch), an empty P, and random ones (first minimum)."""
     b, f = bucket_frames(seed=2)
-    ctx, _ = port_context(b, f["alive"], "rcd")
+    ctx, _ = port_context(b, f["alive"])
     hb, w = pivot.rcd_select(ctx, _t(f["P"]))
     assert hb.dtype == torch.bool and w.dtype == torch.int32
     for r in range(b.a.shape[0]):
@@ -86,7 +86,7 @@ def test_rcd_maximality_report_matches_reference(gate):
     R, _, W = b.a.shape
     tcfg = fr.EngineConfig(backend="rcd", out_cap=8)
     jcfg = jfr.EngineConfig(backend="rcd", out_cap=8)
-    ctx, xal = port_context(b, f["alive"], "rcd")
+    ctx, xal = port_context(b, f["alive"])
     P = _t(f["P"])
     hb = (pivot.rcd_select(ctx, P)[0] if gate == "select"
           else torch.zeros(R, dtype=torch.bool))
@@ -106,6 +106,66 @@ def test_rcd_maximality_report_matches_reference(gate):
     assert int(carry["cliques"][f["dominated"]]) == 0     # blocked
     assert np.array_equal(_u32(carry["out_rows"])[0, 0], f["Rb"][0]
                           | f["P"][0])
+
+
+def _ref_dominated(a, x_rows, P, Xp, xal):
+    """The reference's maximality test (pivot.rcd_maximality_report up to
+    its report) on one root: and_popcount_many of P against the stacked
+    complements, the selectors, any; and |P|."""
+    not_nbrs = jnp.concatenate([jnp.bitwise_not(x_rows), jnp.bitwise_not(a)])
+    sub = jref.and_popcount_many(P[None, :], not_nbrs)[:, 0]
+    in_x = jnp.concatenate([jfr.bitset_to_mask(xal, x_rows.shape[0]),
+                            jfr.bitset_to_mask(Xp, a.shape[0])])
+    return bool(jnp.any(in_x & (sub == 0))), int(jfr.popcount(P))
+
+
+# (R, U, XC, W): the scale-12 buckets' W = 1, 2, 4 with XC = 0, XC off a
+# multiple of 32 and past one word, U off 32, and W = 3, 5
+DOMINATED_SHAPES = [(6, 32, 100, 1), (6, 64, 40, 2), (6, 7, 0, 1),
+                    (6, 128, 33, 4), (6, 50, 70, 3), (6, 160, 1, 5)]
+
+
+@pytest.mark.parametrize("r,u,xc,w", DOMINATED_SHAPES)
+def test_rcd_dominated_matches_reference(r, u, xc, w):
+    """ref.rcd_dominated (the kernel's plain version, and `ops` on the CPU)
+    against the reference's composition: root 0 an empty P (every selected
+    row blocks), root 1 an empty X (nothing blocks), root 2 blocked only by
+    a universe row of Xp (no alive X0 row), root 3 by an alive X0 row
+    only, root 4 with P containing a set bit outside every row; xal with
+    bits past XC."""
+    rng = np.random.default_rng(u * 7 + xc)
+    below = np.zeros(w, np.uint32)
+    for v in range(u):
+        below[v // 32] |= np.uint32(1) << np.uint32(v % 32)
+    a = _edge_words((r, u, w), u) & below
+    x_rows = _edge_words((r, xc, w), xc + 1) & below
+    P = _edge_words((r, w), 3) & below
+    Xp = _edge_words((r, w), 4) & below & ~P
+    xal = _edge_words((r, max(-(-xc // 32), 1)), 5)
+    P[0] = 0
+    P[1], Xp[1], xal[1] = P[1] | below & 1, 0, 0
+    v = int(rng.integers(u))                       # root 2: v in Xp holds P
+    Xp[2, v // 32] |= np.uint32(1) << np.uint32(v % 32)
+    P[2] = a[2, v] & ~Xp[2] & _edge_words((w,), 6)
+    a[2, v] |= P[2]
+    xal[2] = 0
+    if xc:                                         # root 3: an X0 row holds P
+        x = int(rng.integers(xc))
+        Xp[3] = 0
+        xal[3, x // 32] |= np.uint32(1) << np.uint32(x % 32)
+        P[3] = x_rows[3, x] & _edge_words((w,), 7)
+    P[4] = below                                   # P is the whole universe
+    got = ops.rcd_dominated(*(_t(t) for t in (a, x_rows, P, Xp, xal)))
+    want = [_ref_dominated(*(jnp.asarray(t[i])
+                             for t in (a, x_rows, P, Xp, xal)))
+            for i in range(r)]
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int32
+    assert [(bool(b), int(p)) for b, p in zip(*got)] == want
+    assert got[0][0] == bool(Xp[0].any() or (xal[0].any() and xc and any(
+        (xal[0, i // 32] >> np.uint32(i % 32)) & 1 for i in range(xc))))
+    assert not got[0][1] and got[0][2]
+    if xc:
+        assert got[0][3]
 
 
 @pytest.mark.parametrize("dynamic_red", [True, False])

@@ -1,4 +1,5 @@
-"""Seeded inputs of the 'hybrid' census (`clique_counts`), shared by the
+"""Seeded inputs of the engine's kernel entry points (the hybrid census,
+the Lemma-8 pass and pivot select, the DFS step's branch half), shared by the
 CPU tests against the reference and the card-only kernel tests; numpy
 only, so the card machine, which has no JAX, can import it."""
 import numpy as np
@@ -131,3 +132,46 @@ def frame_inputs(r, u, xc, w, seed):
         deg[7] = -5
         xal[7] = 0
     return a, x_rows, P, Xp, xal, Rb, rsz, deg, n_full
+
+
+def branch_inputs(r, u, xc, w, d, seed):
+    """The operands of the DFS step's branch half (`branch_step`):
+    `hybrid_inputs`' a and x_rows, and a stack of d slots a root, P, B ⊆
+    P, Xp and Rb (r, d, w) uint32 words, rsz (r, d) int32 and xal (r, d,
+    max(ceil(xc / 32), 1)) words with garbage past bit xc and, on root 2,
+    a dead word; depth (r,) int64 in [-1, d), live (r,) bool and a branch
+    vertex w (r,) int32 below u. Root 0's slot has an empty B (w clamps),
+    root 1 is dead at depth -1, roots 2 and 3 branch at bits 31 and 32 of
+    B and w (where u has them), root 4 is not live; every other root is
+    live."""
+    assert r >= 5 and u <= 32 * w
+    rng = np.random.default_rng(seed + 2)
+    a, x_rows, _, _, _ = hybrid_inputs(r, u, xc, w, seed)
+    below = np.packbits(np.arange(32 * w) < u, bitorder="little") \
+        .view(np.uint32)
+
+    def words(shape, density):
+        return np.packbits(rng.random(shape + (32,)) < density, axis=-1,
+                           bitorder="little").view(np.uint32).reshape(shape)
+    P = words((r, d, w), 0.5) & below
+    B = P & words((r, d, w), 0.5)
+    Xp = words((r, d, w), 0.3) & below & ~P
+    Rb = words((r, d, w), 0.1) & ~P
+    rsz = rng.integers(1, 9, (r, d)).astype(np.int32)
+    xcw = max(-(-xc // 32), 1)
+    xal = rng.integers(0, 2**32, (r, d, xcw), dtype=np.uint64) \
+        .astype(np.uint32)
+    xal[2, :, 0] = 0
+    depth = rng.integers(0, d, r).astype(np.int64)
+    depth[1] = -1
+    live = depth >= 0
+    live[4] = False
+    wv = rng.integers(0, u, r).astype(np.int32)
+    B[0, depth[0]] = 0
+    for i, bit in ((2, 31), (3, 32)):
+        if bit < u:
+            B[i, depth[i]] = one_bit(w, bit)
+            P[i, depth[i]] |= B[i, depth[i]]
+            Xp[i, depth[i]] &= ~B[i, depth[i]]
+            wv[i] = bit
+    return a, x_rows, P, B, Xp, Rb, rsz, xal, depth, live, wv

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Same-call measurements of the row kernels and their engine entry points
-against an earlier tree's, on one NVIDIA GPU.
+"""Same-call measurements of the bitset kernels and their engine entry
+points against an earlier tree's, on one NVIDIA GPU.
 
-They stand behind rows 2-3 of the kernel table in PERF.md §6:
+They stand behind rows 1-3 and 5 of the kernel table in PERF.md §6:
 
     python3 tools/kernel_probe.py --export-earlier DIR [--rev REV]
     python3 tools/kernel_probe.py --earlier DIR
@@ -15,17 +15,23 @@ They stand behind rows 2-3 of the kernel table in PERF.md §6:
 2. --earlier: builds DIR's source beside this tree's (the two nvcc runs
    started together) and times, in turns in this process (this, earlier,
    earlier, this; each a median of chip_smoke.py's CUDA-event timing):
-   - `and_popcount_rows` (A against P, and the X-subset shape: ~X0 rows
-     against P) and `and_popcount_argmax` (the X0 rows) at each Graph500
-     scale-12 bucket's roots, held bit for bit to the plain version;
-   - the engine's two entry points, `lemma8_reduce` and `pivot_select`,
-     against the earlier tree's composition of them (its torch ops around
-     its two `and_popcount_rows` launches, and around its one
-     `and_popcount_argmax` launch, with `not_x_rows` hoisted as it was)
-     on the U = 64 bucket's own operands (chip_smoke.py's `real_frames`,
-     roots and lanes): device ms, host µs a call (the enqueue of 50
-     calls), and CUDA kernels a call (torch.profiler), both held bit for
-     bit to the plain version;
+   - `frame_step` (A against P), `and_popcount_rows` (A against P, and
+     the X-subset shape: ~X0 rows against P), `and_popcount_argmax` (the
+     X0 rows) and `and_popcount_many` (P against ~X0 rows stacked on ~A)
+     at each Graph500 scale-12 bucket's roots, held bit for bit to the
+     plain version;
+   - the engine's four entry points against the torch compositions
+     they replaced, around the earlier tree's kernels, on the U = 64
+     bucket's own operands (chip_smoke.py's `real_frames` and
+     `real_steps`, roots and lanes): `branch_step` against `dfs_step`'s
+     torch ops around one `frame_step` launch, `rcd_dominated` against
+     `rcd_maximality_report`'s ops around one `and_popcount_many` launch
+     (the stacked complement hoisted, as it was), and `lemma8_reduce` and
+     `pivot_select` against the ops that stood around the row kernels
+     (`and_popcount_rows`, `and_popcount_argmax`) before they were
+     entry points; device ms, host µs a call (the enqueue of 50 calls),
+     and CUDA kernels a call (torch.profiler), both held bit for bit to
+     the plain version;
 3. --hybrid-lanes: the hybrid lanes path of the `repro_torch` package
    under DIR (default: this checkout's `src`), so that two trees can be
    run in turns, each in a process of its own: `run()` on kronecker(12,
@@ -33,8 +39,8 @@ They stand behind rows 2-3 of the kernel table in PERF.md §6:
    reference's counters and stats (chip_smoke.py's `drive`) and timed on
    the host's clock, then chip_smoke.py's trip profile of that path on
    the U = 64 bucket (ms, torch kernels and device busy ms a trip).
-4. --profiles: chip_smoke.py's step and trip profiles (the pivot
-   per-root step; the pivot, hybrid and rcd lane trips) on the U = 64
+4. --profiles: chip_smoke.py's step and trip profiles (the pivot and
+   rcd per-root steps; the pivot, hybrid and rcd lane trips) on the U = 64
    bucket of kronecker(12, 16, seed=0), of the `repro_torch` under
    --src's DIR, for trees run in turns, a process each.
 
@@ -71,14 +77,16 @@ def export_earlier(out: Path, rev: str) -> None:
 
 def build(src: Path):
     """This tree's and the earlier tree's bitset libraries, the two nvcc
-    runs started together; the earlier one declares only the two C entry
+    runs started together; the earlier one declares only the four C entry
     points this probe calls (their signatures have not changed)."""
     from repro_torch.kernels._build import CudaLibrary
     from repro_torch.kernels.bitset_ops.build import LIBRARY
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     earlier = CudaLibrary((src / "bitset_ops.cu").resolve(), {
         "bitset_and_popcount_rows": [p, p, p, ll, i, i, p],
-        "bitset_and_popcount_argmax": [p] * 5 + [ll, i, i, p]})
+        "bitset_and_popcount_argmax": [p] * 5 + [ll, i, i, p],
+        "bitset_frame_step": [p] * 8 + [ll, i, i, p],
+        "bitset_and_popcount_many": [p, p, p, ll, i, i, i, p]})
     libs = {"bitset_ops": LIBRARY, "earlier bitset_ops": earlier}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
@@ -102,11 +110,83 @@ def in_turns(this, earlier) -> dict:
 
 
 class Earlier:
-    """The earlier tree's two row kernels behind its wrappers' checks
-    (`ops._check`, unchanged) and allocations."""
+    """The earlier tree's four kernels behind its wrappers' checks
+    (`ops._check`, unchanged) and allocations, and the torch compositions
+    the engine's entry points replace."""
 
     def __init__(self, lib):
         self.lib = lib
+
+    def frame_step(self, rows, p, xp, wrow):
+        import torch
+        from repro_torch.kernels._build import stream
+        from repro_torch.kernels.bitset_ops import ops
+        lead, r, k, w = ops._check("frame_step", rows, p, xp, wrow)
+        dev = rows.device
+        outs = (torch.empty(lead + (w,), dtype=torch.int32, device=dev),
+                torch.empty(lead + (w,), dtype=torch.int32, device=dev),
+                torch.empty(lead + (k,), dtype=torch.int32, device=dev),
+                torch.empty(lead + (k,), dtype=torch.int32, device=dev))
+        cs.check(self.lib.load().bitset_frame_step(
+            rows.data_ptr(), p.data_ptr(), xp.data_ptr(), wrow.data_ptr(),
+            *(t.data_ptr() for t in outs), r, k, w, stream()) == 0,
+            "the earlier frame_step did not launch")
+        return outs
+
+    def and_popcount_many(self, rows, masks):
+        import torch
+        from repro_torch.kernels._build import stream
+        from repro_torch.kernels.bitset_ops import ops
+        lead, r, k, w = ops._check("and_popcount_many", rows, masks)
+        m = masks.shape[-2]
+        out = torch.empty(lead + (m, k), dtype=torch.int32,
+                          device=rows.device)
+        cs.check(self.lib.load().bitset_and_popcount_many(
+            rows.data_ptr(), masks.data_ptr(), out.data_ptr(), r, k, m, w,
+            stream()) == 0, "the earlier and_popcount_many did not launch")
+        return out
+
+    def branch_step(self, a, x_rows, sP, sB, sXp, sRb, srsz, sxal, depth,
+                    live, w, d, eye, ar):
+        """The earlier dfs_step around its frame_step launch (d: the
+        clamped depth, which dfs_step keeps computing; eye and ar: the
+        root context's, built once a bucket)."""
+        import torch
+        from repro_torch.core.engine import frames as fr
+        U = a.shape[1]
+        f = fr.FrameStack(sP, sB, sXp, sRb, srsz, sxal).read(ar, d)
+        pivot_family = w is None
+        if pivot_family:
+            has_branch = fr.any_bit(f.B) & live
+            w = fr.first_bit_index(f.B).clamp(max=U - 1)
+        else:
+            has_branch = live
+            w = w.long()
+        wbit = eye[w]
+        childP, childXp, deg, partner = self.frame_step(a, f.P, f.Xp,
+                                                        a[ar, w])
+        row_word = x_rows[ar, :, w // 32]
+        adj_w = ((row_word >> (w % 32).to(torch.int32).unsqueeze(-1))
+                 & 1) != 0
+        childxal = f.xal & fr.mask_to_bitset(adj_w, sxal.shape[-1])
+        hb = has_branch.unsqueeze(-1)
+        cur = dict(P=torch.where(hb, f.P & ~wbit, f.P),
+                   Xp=torch.where(hb, f.Xp | wbit, f.Xp))
+        if pivot_family:
+            cur["B"] = torch.where(hb, f.B & ~wbit, f.B)
+        fr.FrameStack(sP, sB, sXp, sRb, srsz, sxal).write(ar, d, **cur)
+        return (has_branch, childP, childXp, childxal, f.Rb | wbit,
+                f.rsz + 1, deg, partner)
+
+    def rcd_dominated(self, a, x_rows, P, Xp, xal, not_xa):
+        """The earlier rcd_maximality_report up to its report, with the
+        stacked complement `not_xa` hoisted as its make_context did."""
+        import torch
+        from repro_torch.kernels.bitset_ops import ops
+        sub = self.and_popcount_many(P.unsqueeze(-2), not_xa)[..., 0]
+        in_x = torch.cat([ops.bits_to_mask(xal, x_rows.shape[-2]),
+                          ops.bits_to_mask(Xp, a.shape[-2])], -1)
+        return (in_x & (sub == 0)).any(-1), ops.popcount_words(P)
 
     def and_popcount_rows(self, rows, mask):
         import torch
@@ -176,8 +256,9 @@ class Earlier:
 
 
 def row_kernels(dev, old) -> None:
-    """Rows 2-3 at each scale-12 bucket's roots, in turns."""
+    """Rows 1-3 and 5 at each scale-12 bucket's roots, in turns."""
     import numpy as np
+    import torch
     from repro_torch.core.engine.prepare import prepare
     from repro_torch.graph.generators import kronecker
     from repro_torch.kernels.bitset_ops import ops, ref
@@ -185,7 +266,11 @@ def row_kernels(dev, old) -> None:
     for b in prepare(kronecker(12, 16, seed=0), device=dev).buckets:
         o = cs.bucket_operands(b, dev, rng)
         not_x = ~o["x_rows"]
+        not_xa = torch.cat([not_x, ~o["a"]], 1)
         for name, args in (
+                ("frame_step", (o["a"], o["P"], o["Xp"],
+                                o["a"][:, 0].contiguous())),
+                ("and_popcount_many", (o["P"].unsqueeze(1), not_xa)),
                 ("and_popcount_rows", (o["a"], o["P"])),
                 ("and_popcount_rows", (not_x, o["P"])),
                 ("and_popcount_argmax", (o["x_rows"], o["P"],
@@ -233,13 +318,55 @@ def per_call(fn, calls=50) -> dict:
 
 
 def entry_points(dev, old) -> None:
-    """lemma8_reduce and pivot_select against the earlier composition on
-    the U = 64 bucket's own operands (roots and lanes), in turns."""
+    """The four entry points against the earlier compositions on the U =
+    64 bucket's own operands (roots and lanes), in turns."""
     import torch
+    from repro_torch.core.engine import frames as fr
     from repro_torch.core.engine.prepare import prepare
     from repro_torch.graph.generators import kronecker
     from repro_torch.kernels.bitset_ops import ops, ref
     prep = prepare(kronecker(12, 16, seed=0), device=dev)
+    for b, form, name, (a, mask, extra) in cs.real_steps(dev, prep):
+        x_rows = extra[0]
+        ar = torch.arange(a.shape[0], device=dev)
+        if name == "branch_step":
+            # both run on their own copy of the recorded stack, which each
+            # timed call writes in place, as the engine's steps do
+            stack, (depth, live, w) = extra[1:7], extra[7:]
+            d = depth.clamp(min=0)
+            eye = fr.eye_bits(a.shape[1], a.shape[2], dev)
+            mine = [t.clone() for t in stack]
+            theirs = [t.clone() for t in stack]
+
+            def this():
+                return ops.branch_step(a, x_rows, *mine, depth, live, w)
+
+            def earlier():
+                return old.branch_step(a, x_rows, *theirs, depth, live, w,
+                                       d, eye, ar)
+            want = cs.run_kernel(name, a, mask, extra, ref)
+            err = max(cs.exact(name, this() + tuple(mine), want, a.shape),
+                      cs.exact(f"earlier {name}", earlier() + tuple(theirs),
+                               want, a.shape))
+        else:
+            P, (Xp, xal) = mask, extra[1:]
+            not_xa = torch.cat([~x_rows, ~a], 1)      # hoisted, as it was
+
+            def this():
+                return ops.rcd_dominated(a, x_rows, P, Xp, xal)
+
+            def earlier():
+                return old.rcd_dominated(a, x_rows, P, Xp, xal, not_xa)
+            want = ref.rcd_dominated(a, x_rows, P, Xp, xal)
+            err = max(cs.exact(name, this(), want, a.shape),
+                      cs.exact(f"earlier {name}", earlier(), want, a.shape))
+        nbytes, nops = cs.kernel_cost(name, a, mask, extra)
+        cs.emit(dict(
+            phase="entry_in_turns", name=name, form=form, bucket_u=b.u_pad,
+            bucket_xc=b.x_pad, shape=list(a.shape), max_abs_err=err,
+            **in_turns(this, earlier), this_call=per_call(this),
+            earlier_call=per_call(earlier),
+            bound_ms=cs.bound(nbytes, nops)[0]))
     for b, form, l8, piv in cs.real_frames(dev, prep):
         a, x_rows = l8[0], l8[1]
         not_x = ~x_rows                       # hoisted, as the earlier did
@@ -283,6 +410,7 @@ def profiles(dev) -> None:
     from repro_torch.graph.generators import kronecker
     prep = prepare(kronecker(12, 16, seed=0), device=dev)
     cs.step_profile(dev, prep)
+    cs.step_profile(dev, prep, backend="rcd")
     cs.trip_profile(dev, prep, paths=("persistent", "hybrid_persistent",
                                       "rcd_persistent"))
 
