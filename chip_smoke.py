@@ -38,8 +38,11 @@ together) and then, printing one JSON line per phase:
    whole graphs by bulk copy, qwen3-14b's attention at train_4k),
    each entry point (`edge_common_neighbor`, `embedding_bag`,
    `densify_edges` + `dense_spmm`, `mha`) driven once with its launch
-   count read, and the scale-12 triangle test against the host Lemma-4
-   mask; with CUDA-event times beside the bound and one PyTorch call.
+   count read, and the triangle test against the host Lemma-4 mask on
+   scale 12's rows gathered beforehand and through `edge_common_neighbor`
+   at scales 12 and 14 and on a triangle-poor bipartite graph with hubs
+   (timed back to back and with L2 flushed); with CUDA-event (profiler,
+   for that entry point) times beside the bound and one PyTorch call.
    Attention in bf16 at D = 64/128 takes the tensor-core kernel (`mha`
    at train_4k must launch it), bf16 at any other D and float32 the
    CUDA-core kernel; at train_4k the CUDA-core kernel is held to the
@@ -1130,10 +1133,155 @@ def drive_entry(name, entry):
     return out, launches
 
 
-def common_neighbor_cases(dev, g12):
-    """The reference test's (E, D) shapes, rows past one staged tile, and
-    scale 12's edges: `edge_common_neighbor(pad_adjacency(g), g.edges())`
-    as a user calls it, held against the port's host Lemma-4 mask."""
+L2_FLUSH_BYTES = 256 << 20    # written before a cold call: 5x the 50 MB L2
+
+
+def kernel_ms(fn, calls=20, flush=None):
+    """(device ms, wall ms) a call of `fn`: its kernels' time summed
+    (torch.profiler's CUDA kernel events, the mean of `calls` calls) and
+    the host's clock around the call and a sync. Copies and fills are
+    left out. With `flush`, run before every call (and left out of both),
+    the call finds a cold L2. For entry points that wait for their own
+    launches, where CUDA events would time the host's launch gaps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(calls):
+        if flush is not None:
+            flush()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))
+               and "FillFunctor" not in e.name)
+    return 1e-3 * busy / calls, 1e3 * statistics.median(walls)
+
+
+def l2_flush(dev):
+    """A function that writes L2_FLUSH_BYTES (a fill kernel, which
+    kernel_ms leaves out), evicting what the L2 held."""
+    import torch
+    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    return buf.zero_
+
+
+def triangle_table(dev, g):
+    """(padded table, edges, real entries a row) of a graph on the card:
+    `pad_adjacency(g)` at the width of its largest degree, `g.edges()`."""
+    import torch
+    from repro_torch.kernels.common_neighbor import ops
+    padded = ops.pad_adjacency(g.indptr, g.indices, int(g.degrees().max()))
+    return (torch.from_numpy(padded).to(dev),
+            torch.from_numpy(g.edges()).to(dev),
+            torch.from_numpy(g.degrees()).to(dev))
+
+
+def bipartite_hubs(n, m, seed=0, inner=0.01):
+    """A triangle-poor graph with hubs: `m` edges drawn between two halves
+    of `n` vertices, each end by a power-law weight ((rank + 1) ** -0.6,
+    the top hub of degree about m / 92 at n = 16,384), and `inner` * m
+    edges drawn uniformly inside the first half, the only ones that can
+    close a triangle; duplicates dropped."""
+    import numpy as np
+    from repro_torch.graph.csr import from_edge_list
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    w = (np.arange(half) + 1.0) ** -0.6
+    w /= w.sum()
+    ends = np.stack([rng.choice(half, m, p=w),
+                     half + rng.choice(half, m, p=w)], 1)
+    within = rng.integers(0, half, (int(inner * m), 2))
+    return from_edge_list(n, np.concatenate([ends, within]))
+
+
+def swept_bytes(au, av):
+    """(least bytes, staged bytes) of the rows gathered beforehand: `least
+    bytes`, what any design must read, one 32-byte sector of each row for
+    an edge with a common entry and both rows whole for one without (the
+    bound); `staged bytes`, adj_u's rows whole and adj_v's each up to the
+    128-byte chunk of its first entry that adj_u's row holds (whole where
+    there is none), what a kernel that stages adj_u whole before it sweeps
+    adj_v must read."""
+    import torch
+    e, d = av.shape
+    su = torch.sort(au, 1).values
+    idx = torch.searchsorted(su, av).clamp_(max=max(d - 1, 0))
+    hit = (av >= 0) & (su.gather(1, idx) == av)
+    del su, idx
+    first = hit.int().argmax(1)
+    met = hit.any(1)
+    chunks = torch.where(met, (first // 32 + 1) * 128,
+                         torch.full_like(first, 4 * d))
+    swept = int(chunks.clamp(max=4 * d).sum())
+    misses = e - int(met.sum())
+    return (64 * (e - misses) + 8 * d * misses + e,
+            4 * e * d + swept + e)
+
+
+def common_neighbor_entry(dev, label, g, flush, host):
+    """`edge_common_neighbor(pad_adjacency(g), g.edges())` as a user calls
+    it: driven once with its launches read, held to the host Lemma-4 mask
+    `host`, then timed back to back (the table stays in L2 where it fits)
+    and with L2 flushed before each call. Bound: the table read once, the
+    edges and the output."""
+    import numpy as np
+    from repro_torch.kernels.common_neighbor import ops
+    padded, edges, deg = triangle_table(dev, g)
+    tri, launches = drive_entry("has_common_neighbor",
+                                lambda: ops.edge_common_neighbor(padded,
+                                                                 edges))
+    check(launches == 3, f"edge_common_neighbor made {launches} launches, "
+          f"not 3 (count, edge groups, queued edges)")
+    check(np.array_equal(tri.cpu().numpy(), host),
+          f"edge_common_neighbor differs from the host Lemma-4 mask at "
+          f"{label}")
+    (n, d), e = padded.shape, edges.shape[0]
+    nbytes = 4 * n * d + 8 * e + e
+    nops = int((deg[edges[:, 0].long()] + deg[edges[:, 1].long()]).sum())
+
+    def call():
+        return ops.edge_common_neighbor(padded, edges)
+    ms, wall_ms = kernel_ms(call)
+    cold_ms, cold_wall_ms = kernel_ms(call, flush=flush)
+    line = dict(
+        phase="substrate_kernels", name="edge_common_neighbor", graph=label,
+        shape=[n, d, e], launches=launches, equal_host_mask=True,
+        max_abs_err=0, triangle_share=float(host.mean()),
+        ms=ms, wall_ms=wall_ms, cold_ms=cold_ms, cold_wall_ms=cold_wall_ms,
+        bytes=nbytes, operations=nops,
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, nops))))
+    emit(line)
+    return line
+
+
+# the triangle-poor graph of the common-neighbour phase and its label
+BIPARTITE = dict(n=1 << 14, m=1 << 18, seed=0)
+BIPARTITE_LABEL = "bipartite_hubs:n=16384,m=262144,seed=0"
+
+
+def common_neighbor_cases(dev, g12, g14):
+    """The reference test's (E, D) shapes, rows past one staged tile, then
+    scale 12's edges, gathered beforehand (`has_common_neighbor`, the
+    reference kernel's contract, against its plain version; bound counted
+    from the data) and through the entry point `edge_common_neighbor` at
+    scales 12 and 14 and on a triangle-poor graph with hubs
+    (`common_neighbor_entry`), each held to the port's host Lemma-4 mask.
+    No plain version runs past scale 12."""
     import numpy as np
     import torch
     from repro_torch.core.global_reduction import _triangle_edge_mask
@@ -1142,35 +1290,63 @@ def common_neighbor_cases(dev, g12):
     def call(impl, au, av):
         return impl.has_common_neighbor(au, av)
     lines = []
-    for e, d in [(1, 4), (10, 8), (130, 16), (257, 5), (40, 1500)]:
+    for e, d in [(1, 4), (10, 8), (130, 16), (257, 5), (40, 1500),
+                 (9, 3582)]:
         rng = np.random.default_rng(e * 31 + d)
         au, av = (torch.from_numpy(rng.integers(-1, 40 if d < 100 else 4 * d,
                                                 (e, d)).astype(np.int32))
                   .to(dev) for _ in range(2))
         lines.append(substrate_compare("has_common_neighbor", call, (au, av),
                                        0, 0, (e, d)))
-    padded = ops.pad_adjacency(g12.indptr, g12.indices,
-                               int(g12.degrees().max()))
-    padded_t = torch.from_numpy(padded).to(dev)
-    edges = torch.from_numpy(g12.edges()).to(dev)
-    tri, launches = drive_entry("has_common_neighbor",
-                                lambda: ops.edge_common_neighbor(padded_t,
-                                                                 edges))
-    host = _triangle_edge_mask(g12)
-    check(np.array_equal(tri.cpu().numpy(), host),
-          "edge_common_neighbor differs from the host Lemma-4 mask")
-    au = padded_t[edges[:, 0].long()]
-    av = padded_t[edges[:, 1].long()]
+    flush = l2_flush(dev)
+    host12 = _triangle_edge_mask(g12)
+    t0 = time.perf_counter()
+    host14 = _triangle_edge_mask(g14)
+    host14_s = time.perf_counter() - t0
+    gbp = bipartite_hubs(**BIPARTITE)
+    hostbp = _triangle_edge_mask(gbp)
+    entry = {"scale12": common_neighbor_entry(
+                 dev, "kron:scale=12,ef=16,seed=0", g12, flush, host12),
+             "scale14": common_neighbor_entry(
+                 dev, "kron:scale=14,ef=16,seed=0", g14, flush, host14),
+             "bipartite": common_neighbor_entry(
+                 dev, BIPARTITE_LABEL, gbp, flush, hostbp)}
+    padded, edges, deg = triangle_table(dev, g12)
+    au = padded[edges[:, 0].long()]
+    av = padded[edges[:, 1].long()]
     e, d = au.shape
-    pairs = int(((au >= 0).sum(1) * (av >= 0).sum(1)).sum())
+    real = int((deg[edges[:, 0].long()] + deg[edges[:, 1].long()]).sum())
+    check(torch.equal(ops.has_common_neighbor(au, av).cpu(),
+                      torch.from_numpy(host12)),
+          "has_common_neighbor differs from the host Lemma-4 mask")
+    # any design: a sector of each row where they meet, else both whole;
+    # this design: adj_u's row whole, adj_v's up to its first match
+    least, staged = swept_bytes(au, av)
     line = substrate_compare("has_common_neighbor", call, (au, av), 0, 0,
-                             (e, d), cost=(2 * e * d * 4 + e, pairs,
-                                           OPS_PER_S), plain_reps=(2, 1))
-    line.update(graph="kron:scale=12,ef=16,seed=0", launches=launches,
-                triangle_share=float(host.mean()), real_pairs=pairs)
+                             (e, d), cost=(least, real, OPS_PER_S),
+                             plain_reps=(2, 1))
+    line.update(
+        graph="kron:scale=12,ef=16,seed=0",
+        launches=entry["scale12"]["launches"],
+        triangle_share=float(host12.mean()), real_entries=real,
+        bound_ms_staged_design=bound(staged, real)[0], staged_bytes=staged,
+        bound_ms_both_rows_whole=bound(2 * e * d * 4 + e, real)[0],
+        entry_point={k: {f: v[f] for f in ("ms", "cold_ms", "wall_ms",
+                                           "cold_wall_ms", "bound_ms",
+                                           "launches", "shape")}
+                     for k, v in entry.items()})
+    emit(line)
     emit(dict(phase="substrate_kernels", check="triangle_mask",
-              edges=len(host), equal=True, triangle_share=float(host.mean())))
-    return lines + [line]
+              edges=len(host12), equal=True,
+              triangle_share=float(host12.mean()),
+              scale14_edges=len(host14), scale14_equal=True,
+              scale14_triangle_share=float(host14.mean()),
+              scale14_host_mask_seconds=host14_s,
+              bipartite_edges=len(hostbp), bipartite_equal=True,
+              bipartite_triangle_share=float(hostbp.mean())))
+    del au, av, flush
+    torch.cuda.empty_cache()
+    return lines + list(entry.values()) + [line]
 
 
 def embedding_bag_cases(dev):
@@ -1426,14 +1602,14 @@ def flash_attention_cases(dev):
     return lines
 
 
-def substrate_kernels(dev, g12):
+def substrate_kernels(dev, g12, g14):
     """The four substrate kernels: each against its plain version at edge
     shapes and at full width, its entry point driven once with its launch
     count read. Returns the lines by kernel; frees the full-width tensors
     (the 8 GiB table, the 2.7 GB score matrix) before the engine phases."""
     import torch
     t0 = time.perf_counter()
-    lines = {"has_common_neighbor": common_neighbor_cases(dev, g12),
+    lines = {"has_common_neighbor": common_neighbor_cases(dev, g12, g14),
              "embedding_bag_sum": embedding_bag_cases(dev),
              "dense_spmm": dense_spmm_cases(dev),
              "flash_attention": flash_attention_cases(dev)}
@@ -1734,11 +1910,11 @@ def main() -> int:
     emit(dict(phase="kernels_done", edge_cases=n_edge,
               bucket_cases=len(kernel_lines),
               seconds=time.perf_counter() - t_start))
-    substrate = substrate_kernels(dev, g12)
+    g14 = kronecker(14, 16, seed=0)
+    substrate = substrate_kernels(dev, g12, g14)
 
     small_graphs(dev)
-    device_peel(dev, {"kron:scale=12,ef=16": g12,
-                      "kron:scale=14,ef=16": kronecker(14, 16, seed=0)})
+    device_peel(dev, {"kron:scale=12,ef=16": g12, "kron:scale=14,ef=16": g14})
     paths = scale11_paths(dev, kronecker(11, 16, seed=0))
     step_profile(dev, prep)
     step_profile(dev, prep, backend="rcd")
@@ -1810,9 +1986,10 @@ def main() -> int:
                     at_main("hybrid_census", "lanes")["ms"],
                 "threads_ms": line["threads_ms"]} if census else {})))
     # the substrate kernels at the full width their entry point ran at
-    # (one launch per entry-point call)
+    # (launches per entry-point call: one; three for edge_common_neighbor)
     for name, (_, source, replaces) in SUBSTRATE.items():
-        line = next(ln for ln in substrate[name] if "launches" in ln)
+        line = next(ln for ln in substrate[name]
+                    if "launches" in ln and "plain_ms" in ln)
         table.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=line["launches"],
@@ -1820,8 +1997,8 @@ def main() -> int:
             ms=line["ms"], plain_ms=line["plain_ms"],
             bound_ms=line["bound_ms"], bound_by=line["bound_by"],
             library_ms=line["library_ms"], shape=line["shape"],
-            **({"earlier_ms": line["earlier_ms"]} if "earlier_ms" in line
-               else {})))
+            **({k: line[k] for k in ("earlier_ms", "entry_point")
+                if k in line})))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start,
               path_launches=paths,
               note="library_ms is null for the bitset kernels and "

@@ -6,9 +6,11 @@ reference's Pallas kernel in interpret mode and its jnp `ref`: -1 at any
 position of a row, rows with no real entry, and the edge shapes of the
 reference's own kernel test. `edge_common_neighbor` on small generator
 graphs equals the reference's and the port's host Lemma-4 mask
-(`_triangle_edge_mask`). The CUDA kernel itself runs in
-tests/test_torch_cuda_kernels.py (skipped without a card) and in
-chip_smoke.py.
+(`_triangle_edge_mask`), also on tables with shuffled rows, padding
+mid-row and negative padding other than -1, and refuses ids outside
+[0, N) as it does on the card, and on a triangle-poor graph with hubs.
+The CUDA kernels themselves run in tests/test_torch_cuda_kernels.py
+(skipped without a card) and in chip_smoke.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ from repro.kernels.common_neighbor import ops as jops
 from repro.kernels.common_neighbor import ref as jref
 from repro_torch.core.global_reduction import _triangle_edge_mask
 from repro_torch.graph import generators as gen
+from repro_torch.graph.csr import from_edge_list
 from repro_torch.kernels.common_neighbor import ops, ref
 
 pytest_plugins = ["torch_jax_executables"]
@@ -105,3 +108,77 @@ def test_dispatch_refuses_other_devices():
         ops.has_common_neighbor(rows, rows)
     with pytest.raises(ValueError):
         ops.has_common_neighbor(rows, torch.zeros(3, 4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("pad", [-1, -7, -2**31])
+@pytest.mark.parametrize("graph", ["er", "ba", "caveman"])
+def test_edge_common_neighbor_on_shuffled_tables(graph, pad):
+    """The port's entry point against the reference's on a padded table
+    whose rows are shuffled, with padding mid-row and any negative value
+    as padding, edges in both directions in a shuffled order."""
+    g = GRAPHS[graph]()
+    rng = np.random.default_rng(abs(pad) % 89 + len(graph))
+    padded = ops.pad_adjacency(g.indptr, g.indices,
+                               int(g.degrees().max()) + 3)
+    padded[padded < 0] = pad
+    padded = np.stack([rng.permutation(r) for r in padded])
+    e = g.edges()
+    e = np.concatenate([e, e[:, ::-1]])[rng.permutation(2 * len(e))]
+    e = np.ascontiguousarray(e)
+    got = ops.edge_common_neighbor(torch.from_numpy(padded),
+                                   torch.from_numpy(e)).numpy()
+    want = np.asarray(jops.edge_common_neighbor(jnp.asarray(padded),
+                                                jnp.asarray(e)))
+    np.testing.assert_array_equal(got, want)
+    tri = dict(zip(map(tuple, g.edges()), _triangle_edge_mask(g)))
+    np.testing.assert_array_equal(
+        got, [tri[(min(u, v), max(u, v))] for u, v in e])
+
+
+@pytest.mark.parametrize("bad", [-1, 12, 2**31 - 1])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_edge_common_neighbor_refuses_ids_out_of_range(bad, dtype):
+    """Ids outside [0, N) raise ValueError on the CPU, as on the card
+    (tests/test_torch_cuda_kernels.py), where torch indexing would wrap a
+    negative id; an empty edge list is no error."""
+    table = torch.arange(12 * 4, dtype=torch.int32).reshape(12, 4)
+    edges = torch.tensor([[0, 1], [2, bad]], dtype=dtype)
+    with pytest.raises(ValueError, match=r"\[0, 12\)"):
+        ops.edge_common_neighbor(table, edges)
+    assert ops.edge_common_neighbor(
+        table, torch.zeros(0, 2, dtype=dtype)).shape == (0,)
+    with pytest.raises(ValueError):
+        ops.edge_common_neighbor(table, edges[:, :1])
+
+
+def _bipartite_hubs(n, m, seed):
+    """Two halves of `n` vertices joined by `m` edges whose ends are drawn
+    by a power-law weight, and m / 50 edges inside the first half, the
+    only ones that can close a triangle."""
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    w = (np.arange(half) + 1.0) ** -0.6
+    w /= w.sum()
+    ends = np.stack([rng.choice(half, m, p=w),
+                     half + rng.choice(half, m, p=w)], 1)
+    within = rng.integers(0, half, (m // 50, 2))
+    return from_edge_list(n, np.concatenate([ends, within]))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_edge_common_neighbor_on_triangle_poor_graph(seed):
+    """A triangle-poor graph with hubs, whose rows run past the card's
+    first staged tile and mostly meet no other row: the port's entry point
+    against the reference's and the host mask."""
+    g = _bipartite_hubs(400, 2000, seed)
+    assert int(g.degrees().max()) > 64
+    padded = ops.pad_adjacency(g.indptr, g.indices,
+                               int(g.degrees().max()))
+    e = g.edges()
+    got = ops.edge_common_neighbor(torch.from_numpy(padded),
+                                   torch.from_numpy(e)).numpy()
+    want = np.asarray(jops.edge_common_neighbor(jnp.asarray(padded),
+                                                jnp.asarray(e)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _triangle_edge_mask(g))
+    assert 0 < got.mean() < 0.2

@@ -3,8 +3,12 @@ and the engines on the card against the same runs on the CPU. The
 substrate kernels (common_neighbor, embedding_bag, dense_spmm,
 flash_attention) are held against their plain versions at the reference
 tests' edge shapes and a few more (D past one staged tile, L past one
-warp, N > 32, Sq != Sk, bfloat16), and flash_attention's tensor-core
-kernel at D = 64 and 128 from one row to several ragged tiles. The row
+warp, N > 32, Sq != Sk, bfloat16; for the common-neighbour test also
+values on one probe chain, negative padding other than -1, duplicates,
+rows from one tile to several of the queued edges, and the entry point
+on a shuffled table, its ids refused outside [0, N)), and
+flash_attention's tensor-core kernel at D = 64 and 128 from one row to
+several ragged tiles. The row
 kernels' every instance (W = 1-5, G = 1, 2, 4, rows off the vector
 loads' alignment, the two-step argmax) and the engine's two entry points
 on them (`lemma8_reduce`, `pivot_select`) are held bit for bit, as are
@@ -549,9 +553,31 @@ def test_cuda_persistent_matches_cpu_run(cuda_device, kw):
 # substrate kernels
 # --------------------------------------------------------------------------
 
-# (E, D): the reference tests' shapes, then rows past one staged tile of
-# 1,024 entries (both rows long: two tiles, a hit in each or none)
-CN_SHAPES = [(1, 4), (10, 8), (130, 16), (257, 5), (40, 1500), (9, 3000)]
+# (E, D): the reference tests' shapes, then rows past one staged tile (a
+# group stages 256 entries of adj_u, the queued edges' launch 2,048 a
+# tile: up to three tiles, a hit in each or none) and scale 14's width,
+# off the 16-byte loads (D % 4 = 2)
+CN_SHAPES = [(1, 4), (10, 8), (130, 16), (257, 5), (40, 1500), (9, 3000),
+             (6, 3582)]
+INT32_MIN = -2**31
+CN_HASH = 0x9E3779B1        # the kernels' multiplicative hash
+
+
+def _cn_colliding(n, rng, bits=12):
+    """`n` distinct int32 values >= 0 that the kernels' hash, slot =
+    (x * CN_HASH mod 2**32) >> (32 - log2(slots)), sends to the last slot
+    of every set of up to 2**bits slots (the largest the kernels use is
+    4,096), so that each probe chain runs past the last slot and wraps to
+    the first."""
+    inv = pow(CN_HASH, -1, 1 << 32)
+    top = ((1 << bits) - 1) << (32 - bits)
+    t = top + rng.permutation(1 << (32 - bits)).astype(np.uint64)
+    x = (t * np.uint64(inv)) % np.uint64(1 << 32)
+    x = x[x < 2**31][:n]
+    assert len(x) == n
+    assert ((x * np.uint64(CN_HASH)) % np.uint64(1 << 32)
+            >> np.uint64(32 - bits) == (1 << bits) - 1).all()
+    return x.astype(np.int64)
 
 
 @pytest.mark.parametrize("e,d", CN_SHAPES)
@@ -573,7 +599,109 @@ def test_cuda_common_neighbor_matches_plain_version(cuda_device, e, d):
     assert got.dtype == torch.bool
     assert torch.equal(got, cn_ref.has_common_neighbor(au, av))
     torch.cuda.synchronize()
-    assert cn_ops.LAUNCHES["has_common_neighbor"] == before + 1
+    assert cn_ops.LAUNCHES["has_common_neighbor"] == before + 2
+
+
+def _cn_risk_rows(case, d, rng):
+    """(adj_u, adj_v) of 64 rows for a case the hash-set design puts at
+    risk; about half the rows share one entry."""
+    e = 64
+    au = rng.permutation(np.arange(2 * e * d)).reshape(2, e, d)
+    au, av = au[0].astype(np.int64), au[1].astype(np.int64)
+    if case == "collide":                  # every value on one probe chain
+        pool = _cn_colliding(2 * e * d, rng)
+        au, av = pool[au], pool[av]
+    share = rng.random(e) < 0.5
+    cols = rng.integers(0, d, (e, 2))
+    if case == "last_chunk":               # the only match at the rows' ends
+        cols[:] = d - 1
+    rows = np.arange(e)
+    av[rows[share], cols[share, 1]] = au[rows[share], cols[share, 0]]
+    if case == "duplicates":               # each row a few values, repeated
+        au = au[:, :3][:, rng.integers(0, 3, d)]
+        av = np.where(share[:, None], au[:, :1], av[:, :3][
+            :, rng.integers(0, 3, d)])
+    pad = {"pad_minus7": -7, "pad_int32_min": INT32_MIN}.get(case)
+    if pad is not None:                    # negative padding, mid-row too
+        for t in (au, av):
+            t[rng.random((e, d)) < 0.4] = pad
+    if case == "pad_int32_min":            # a padding value equal in both
+        au[:, 0] = av[:, 0] = INT32_MIN
+    return (np.ascontiguousarray(au, dtype=np.int32),
+            np.ascontiguousarray(av, dtype=np.int32))
+
+
+CN_RISKS = ["collide", "pad_minus7", "pad_int32_min", "duplicates",
+            "last_chunk"]
+
+
+@pytest.mark.parametrize("d", [5, 130, 1336, 3582])
+@pytest.mark.parametrize("case", CN_RISKS)
+def test_cuda_common_neighbor_risk_cases(cuda_device, case, d):
+    """Values that collide in the set, negative padding other than -1,
+    duplicates within a row and a match only in the last chunk, at widths
+    of one set and past one staged tile; bit-exact against the plain
+    version and against the truth of each row pair."""
+    rng = np.random.default_rng(len(case) * 7 + d)
+    au, av = _cn_risk_rows(case, d, rng)
+    want = np.array([bool(set(u[u >= 0]) & set(v[v >= 0]))
+                     for u, v in zip(au, av)])
+    assert want.any() and not want.all()
+    got = cn_ops.has_common_neighbor(*(torch.from_numpy(x).to(cuda_device)
+                                       for x in (au, av)))
+    assert np.array_equal(got.cpu().numpy(), want)
+    assert torch.equal(got.cpu(), cn_ref.has_common_neighbor(
+        torch.from_numpy(au), torch.from_numpy(av)))
+
+
+@pytest.mark.parametrize("d", [40, 300, 1100, 2000, 5000])
+@pytest.mark.parametrize("real_share", [0.1, 1.0])
+def test_cuda_common_neighbor_set_sizes(cuda_device, d, real_share):
+    """Rows from one group tile to several tiles of the queued edges'
+    launch, on rows gathered beforehand and through the entry point: a
+    match at the swept row's end (found in the first tile), at the staged
+    row's end (found in the last) or none, side by side in a block, so
+    that some groups decide their edge and others queue it."""
+    rng = np.random.default_rng(int(real_share * 10) + d)
+    e = 50
+    au, av = (rng.integers(0, 2**31 - 1, (e, d)).astype(np.int32)
+              for _ in range(2))
+    for t in (au, av):
+        t[rng.random((e, d)) > real_share] = -1
+    av[::3, -1] = au[::3, 0]
+    au[1::3, -1] = av[1::3, 0]
+    au, av = (torch.from_numpy(x).to(cuda_device) for x in (au, av))
+    want = cn_ref.has_common_neighbor(au, av)
+    assert want.any() and not want.all()
+    assert torch.equal(cn_ops.has_common_neighbor(au, av), want)
+    table = torch.cat([au, av])
+    edges = torch.stack([torch.arange(e), torch.arange(e, 2 * e)], 1)
+    assert torch.equal(cn_ops.edge_common_neighbor(
+        table, edges.to(cuda_device)), want)
+
+
+@pytest.mark.parametrize("e", [0, 1])
+def test_cuda_common_neighbor_few_edges(cuda_device, e):
+    rows = torch.arange(e * 6, dtype=torch.int32).reshape(e, 6)
+    before = cn_ops.LAUNCHES["has_common_neighbor"]
+    got = cn_ops.has_common_neighbor(rows.to(cuda_device),
+                                     rows.flip(1).to(cuda_device))
+    assert got.shape == (e,) and got.dtype == torch.bool
+    assert got.cpu().tolist() == [True] * e
+    assert cn_ops.LAUNCHES["has_common_neighbor"] == before + 2 * e
+    table = torch.arange(20, dtype=torch.int32).reshape(4, 5).to(cuda_device)
+    edges = torch.tensor([[0, 1]] * e, dtype=torch.int32).reshape(e, 2)
+    got = cn_ops.edge_common_neighbor(table, edges.to(cuda_device))
+    assert got.shape == (e,) and got.cpu().tolist() == [False] * e
+
+
+def _shuffled_table(g, rng, pad=-1):
+    """The graph's padded table with each row's entries shuffled and its
+    padding spread mid-row (any negative value `pad`)."""
+    d = int(g.degrees().max()) + 5
+    padded = cn_ops.pad_adjacency(g.indptr, g.indices, d)
+    padded[padded < 0] = pad
+    return np.stack([rng.permutation(r) for r in padded])
 
 
 @pytest.mark.parametrize("graph", ["er", "ba", "caveman"])
@@ -587,6 +715,51 @@ def test_cuda_edge_common_neighbor_is_the_triangle_mask(cuda_device, graph):
         torch.from_numpy(padded).to(cuda_device),
         torch.from_numpy(g.edges()).to(cuda_device))
     assert np.array_equal(got.cpu().numpy(), _triangle_edge_mask(g))
+
+
+@pytest.mark.parametrize("ids", ["int32", "int64", "transposed"])
+@pytest.mark.parametrize("pad", [-1, -7, INT32_MIN])
+def test_cuda_edge_common_neighbor_in_place(cuda_device, pad, ids):
+    """Bit-exact against the gather and the plain version on a table with
+    padding mid-row and shuffled rows, edges in both directions and in a
+    shuffled order, ids int32, int64 or a transposed (strided) view; three
+    launches a call."""
+    rng = np.random.default_rng(abs(pad) % 97)
+    g = gen.barabasi_albert(600, 6, seed=5)
+    table = torch.from_numpy(_shuffled_table(g, rng, pad))
+    e = g.edges()
+    e = np.concatenate([e, e[:, ::-1]])[rng.permutation(2 * len(e))]
+    edges = torch.from_numpy(np.ascontiguousarray(e))
+    want = cn_ref.has_common_neighbor(table[edges[:, 0].long()],
+                                      table[edges[:, 1].long()])
+    dev_edges = {"int32": edges, "int64": edges.long(),
+                 "transposed": edges.t().contiguous().t()}[ids]
+    before = cn_ops.LAUNCHES["has_common_neighbor"]
+    got = cn_ops.edge_common_neighbor(table.to(cuda_device),
+                                      dev_edges.to(cuda_device))
+    assert cn_ops.LAUNCHES["has_common_neighbor"] == before + 3
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("bad", [-1, 40, 2**31 - 1, -2**40])
+def test_cuda_edge_common_neighbor_refuses_ids_out_of_range(cuda_device,
+                                                            bad):
+    """An id outside [0, N) raises ValueError and reads nothing through
+    it; the process's card stays usable, and the next call is right."""
+    table = torch.arange(40 * 8, dtype=torch.int32).reshape(40, 8)
+    edges = torch.tensor([[0, 1], [2, 3], [4, 5]], dtype=torch.int64)
+    edges[1, 1] = bad
+    dtype = torch.int64 if abs(bad) >= 2**31 else torch.int32
+    with pytest.raises(ValueError, match=r"\[0, 40\)"):
+        cn_ops.edge_common_neighbor(table.to(cuda_device),
+                                    edges.to(dtype).to(cuda_device))
+    with pytest.raises(ValueError, match=r"\[0, 40\)"):
+        cn_ops.edge_common_neighbor(table, edges.to(dtype))
+    torch.cuda.synchronize()
+    edges[1, 1] = 3
+    assert cn_ops.edge_common_neighbor(
+        table.to(cuda_device), edges.to(cuda_device)).cpu().tolist() == [
+            False] * 3
 
 
 # (V, D, B, L): the reference tests' shapes, its vocab-tile case, D off the

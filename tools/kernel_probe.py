@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Same-call measurements of the bitset kernels and their engine entry
-points against an earlier tree's, on one NVIDIA GPU.
+points, and of the common-neighbour kernel and its entry point, against an
+earlier tree's, on one NVIDIA GPU.
 
-They stand behind rows 1-3 and 5 of the kernel table in PERF.md §6:
+They stand behind rows 1-3, 5 and 8 of the kernel table in PERF.md §6:
 
     python3 tools/kernel_probe.py --export-earlier DIR [--rev REV]
     python3 tools/kernel_probe.py --earlier DIR
@@ -10,11 +11,12 @@ They stand behind rows 1-3 and 5 of the kernel table in PERF.md §6:
     python3 tools/kernel_probe.py --profiles [--src DIR]
 
 1. --export-earlier (no card needed): writes REV's (default HEAD~1)
-   `bitset_ops.cu` into DIR with `git show`, for a machine whose copy of
-   the checkout has no git history.
-2. --earlier: builds DIR's source beside this tree's (the two nvcc runs
-   started together) and times, in turns in this process (this, earlier,
-   earlier, this; each a median of chip_smoke.py's CUDA-event timing):
+   `bitset_ops.cu` and `common_neighbor.cu` into DIR with `git show`, for
+   a machine whose copy of the checkout has no git history.
+2. --earlier: builds each of DIR's sources that differs from this tree's
+   beside this tree's (the nvcc runs started together) and times, in
+   turns in this process (this, earlier, earlier, this; each a median of
+   chip_smoke.py's CUDA-event timing), for `bitset_ops.cu`:
    - `frame_step` (A against P), `and_popcount_rows` (A against P, and
      the X-subset shape: ~X0 rows against P), `and_popcount_argmax` (the
      X0 rows) and `and_popcount_many` (P against ~X0 rows stacked on ~A)
@@ -32,6 +34,16 @@ They stand behind rows 1-3 and 5 of the kernel table in PERF.md §6:
      entry points; device ms, host µs a call (the enqueue of 50 calls),
      and CUDA kernels a call (torch.profiler), both held bit for bit to
      the plain version;
+   and for `common_neighbor.cu`, on kronecker(12, 16, seed=0),
+   kronecker(14, 16, seed=0) and chip_smoke.py's triangle-poor
+   `bipartite_hubs` graph:
+   - `has_common_neighbor` on scale 12's and the bipartite graph's rows
+     gathered beforehand against the earlier kernel (CUDA events);
+   - `edge_common_neighbor` against the earlier composition (the two row
+     gathers, then the earlier kernel), both held to the host Lemma-4
+     mask, back to back and with L2 flushed before each call: device ms
+     a call (kernels summed, chip_smoke.py's `kernel_ms`), wall ms, and
+     host µs and CUDA kernels a call;
 3. --hybrid-lanes: the hybrid lanes path of the `repro_torch` package
    under DIR (default: this checkout's `src`), so that two trees can be
    run in turns, each in a process of its own: `run()` on kronecker(12,
@@ -63,38 +75,56 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (puts this checkout's src on the path)
 
-SOURCE = "src/repro_torch/kernels/bitset_ops/csrc/bitset_ops.cu"
+SOURCES = {
+    "bitset_ops": "src/repro_torch/kernels/bitset_ops/csrc/bitset_ops.cu",
+    "common_neighbor":
+        "src/repro_torch/kernels/common_neighbor/csrc/common_neighbor.cu"}
 
 
 def export_earlier(out: Path, rev: str) -> None:
-    """REV's bitset kernel source into `out`, by `git show`."""
+    """REV's kernel sources into `out`, by `git show`."""
     out.mkdir(parents=True, exist_ok=True)
-    text = subprocess.run(["git", "show", f"{rev}:{SOURCE}"], cwd=ROOT,
-                          capture_output=True, text=True, check=True).stdout
-    (out / "bitset_ops.cu").write_text(text)
-    print(f"{rev}:{SOURCE} -> {out / 'bitset_ops.cu'}")
+    for name, source in SOURCES.items():
+        text = subprocess.run(["git", "show", f"{rev}:{source}"], cwd=ROOT,
+                              capture_output=True, text=True,
+                              check=True).stdout
+        (out / f"{name}.cu").write_text(text)
+        print(f"{rev}:{source} -> {out / f'{name}.cu'}")
 
 
-def build(src: Path):
-    """This tree's and the earlier tree's bitset libraries, the two nvcc
-    runs started together; the earlier one declares only the four C entry
-    points this probe calls (their signatures have not changed)."""
+def build(src: Path) -> dict:
+    """The earlier libraries of DIR's sources that differ from this
+    tree's, built beside this tree's (the nvcc runs started together);
+    each earlier one declares only the C entry points this probe calls.
+    Returns {name: earlier library}."""
     from repro_torch.kernels._build import CudaLibrary
     from repro_torch.kernels.bitset_ops.build import LIBRARY
+    from repro_torch.kernels.common_neighbor import ops as cn_ops
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    earlier = CudaLibrary((src / "bitset_ops.cu").resolve(), {
-        "bitset_and_popcount_rows": [p, p, p, ll, i, i, p],
-        "bitset_and_popcount_argmax": [p] * 5 + [ll, i, i, p],
-        "bitset_frame_step": [p] * 8 + [ll, i, i, p],
-        "bitset_and_popcount_many": [p, p, p, ll, i, i, i, p]})
-    libs = {"bitset_ops": LIBRARY, "earlier bitset_ops": earlier}
+    signatures = {
+        "bitset_ops": {
+            "bitset_and_popcount_rows": [p, p, p, ll, i, i, p],
+            "bitset_and_popcount_argmax": [p] * 5 + [ll, i, i, p],
+            "bitset_frame_step": [p] * 8 + [ll, i, i, p],
+            "bitset_and_popcount_many": [p, p, p, ll, i, i, i, p]},
+        "common_neighbor": {
+            "common_neighbor_has_common": [p, p, p, ll, i, p]}}
+    this = {"bitset_ops": LIBRARY, "common_neighbor": cn_ops.LIBRARY}
+    earlier = {name: CudaLibrary((src / f"{name}.cu").resolve(),
+                                 signatures[name])
+               for name in SOURCES if (src / f"{name}.cu").exists()
+               and (src / f"{name}.cu").read_bytes()
+               != (ROOT / SOURCES[name]).read_bytes()}
+    libs = {**{n: this[n] for n in earlier},
+            **{f"earlier {n}": lib for n, lib in earlier.items()}}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as pool:
+    with ThreadPoolExecutor(max(1, len(libs))) as pool:
         for fut in [pool.submit(lib.build) for lib in libs.values()]:
             fut.result()
     for lib in libs.values():
         lib.load()
     cs.emit(dict(phase="probe", earlier=str(src),
+                 compared=sorted(earlier),
                  name_power=cs.nvidia_smi("name,power.limit"),
                  nvcc_seconds={n: lib.build_seconds
                                for n, lib in libs.items()},
@@ -392,6 +422,81 @@ def entry_points(dev, old) -> None:
                 bound_ms=cs.bound(nbytes, nops)[0]))
 
 
+def common_neighbor(dev, lib) -> None:
+    """Rows gathered beforehand (scale 12, the bipartite graph) and the
+    entry point (scales 12 and 14, the bipartite graph) against the
+    earlier kernel and composition, in turns."""
+    import torch
+    from repro_torch.core.global_reduction import _triangle_edge_mask
+    from repro_torch.graph.generators import kronecker
+    from repro_torch.kernels._build import stream
+    from repro_torch.kernels.common_neighbor import ops
+
+    def earlier_kernel(au, av):
+        e, d = au.shape
+        out = torch.empty(e, dtype=torch.bool, device=au.device)
+        cs.check(lib.load().common_neighbor_has_common(
+            au.data_ptr(), av.data_ptr(), out.data_ptr(), e, d,
+            stream()) == 0, "the earlier has_common_neighbor did not launch")
+        return out
+    flush = cs.l2_flush(dev)
+    graphs = [("kron:scale=12,ef=16,seed=0", True,
+               lambda: kronecker(12, 16, seed=0)),
+              ("kron:scale=14,ef=16,seed=0", False,
+               lambda: kronecker(14, 16, seed=0)),
+              (cs.BIPARTITE_LABEL, True,
+               lambda: cs.bipartite_hubs(**cs.BIPARTITE))]
+    for label, rows, make in graphs:
+        g = make()
+        padded, edges, deg = cs.triangle_table(dev, g)
+        host = torch.from_numpy(_triangle_edge_mask(g))
+
+        def this():
+            return ops.edge_common_neighbor(padded, edges)
+
+        def earlier():
+            ids = edges.long()
+            return earlier_kernel(padded[ids[:, 0]], padded[ids[:, 1]])
+        for name, fn in (("this", this), ("earlier", earlier)):
+            cs.check(torch.equal(fn().cpu(), host),
+                     f"{name} edge_common_neighbor differs from the host "
+                     f"Lemma-4 mask on {label}")
+        if rows:
+            au = padded[edges[:, 0].long()]
+            av = padded[edges[:, 1].long()]
+            cs.check(torch.equal(ops.has_common_neighbor(au, av),
+                                 earlier_kernel(au, av)),
+                     "has_common_neighbor differs from the earlier kernel")
+            real = int((deg[edges[:, 0].long()]
+                        + deg[edges[:, 1].long()]).sum())
+            least, staged = cs.swept_bytes(au, av)
+            cs.emit(dict(phase="cn_in_turns", name="has_common_neighbor",
+                         graph=label, shape=list(au.shape), max_abs_err=0,
+                         triangle_share=float(host.float().mean()),
+                         bound_ms=cs.bound(least, real)[0],
+                         bound_ms_staged_design=cs.bound(staged, real)[0],
+                         **in_turns(lambda: ops.has_common_neighbor(au, av),
+                                    lambda: earlier_kernel(au, av))))
+            del au, av
+            torch.cuda.empty_cache()
+        out = dict(phase="cn_in_turns", name="edge_common_neighbor",
+                   graph=label,
+                   shape=[*padded.shape, edges.shape[0]], max_abs_err=0)
+        for temp, fl in (("warm", None), ("cold", flush)):
+            turns = [cs.kernel_ms(fn, flush=fl)
+                     for fn in (this, earlier, earlier, this)]
+            out[temp] = dict(
+                ms=statistics.mean(t[0] for t in turns[::3]),
+                earlier_ms=statistics.mean(t[0] for t in turns[1:3]),
+                wall_ms=statistics.mean(t[1] for t in turns[::3]),
+                earlier_wall_ms=statistics.mean(t[1] for t in turns[1:3]),
+                turns=turns)
+        out.update(this_call=per_call(this), earlier_call=per_call(earlier))
+        cs.emit(out)
+        del padded, edges
+        torch.cuda.empty_cache()
+
+
 def hybrid_lanes(dev) -> None:
     """The hybrid lanes on scale 12 and their trip profile."""
     from repro_torch.core.engine.prepare import prepare
@@ -419,9 +524,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--earlier", type=Path, metavar="DIR",
                         help="a directory holding an earlier tree's "
-                             "bitset_ops.cu")
+                             "bitset_ops.cu and/or common_neighbor.cu")
     parser.add_argument("--export-earlier", type=Path, metavar="DIR",
-                        help="write REV's bitset_ops.cu into DIR and stop")
+                        help="write REV's bitset_ops.cu and "
+                             "common_neighbor.cu into DIR and stop")
     parser.add_argument("--rev", default="HEAD~1")
     parser.add_argument("--hybrid-lanes", action="store_true",
                         help="run the hybrid lanes path of --src's tree")
@@ -451,9 +557,13 @@ def main() -> int:
         if opts.profiles:
             profiles(dev)
         return 0
-    old = Earlier(build(opts.earlier))
-    row_kernels(dev, old)
-    entry_points(dev, old)
+    earlier = build(opts.earlier)
+    if "bitset_ops" in earlier:
+        old = Earlier(earlier["bitset_ops"])
+        row_kernels(dev, old)
+        entry_points(dev, old)
+    if "common_neighbor" in earlier:
+        common_neighbor(dev, earlier["common_neighbor"])
     return 0
 
 
