@@ -62,7 +62,14 @@ together) and then, printing one JSON line per phase:
    (`window_steps=16`, dynamic reduction off) and the per-root window
    walk, against the reference's counters and stats;
 7. step and trip profiles: where a per-root step's (pivot and rcd) and
-   a persistent trip's time goes (host against device).
+   a persistent trip's time goes (host against device);
+8. driver: `DistributedMCE(kronecker(12, 16, seed=0), chunk=512)` with
+   mce_run's other defaults on one rank, against run()'s counters and the
+   reference driver's occupancy pair, with its chunk and overlap stats;
+9. service: one `MCEService` on the scale-11 graph and three queries
+   (pivot cold, hybrid and pivot with reuse_degrees=False from the
+   cached buckets, which must pack nothing) against the reference
+   service's counters and per-query stats.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after, and fails if a kernel of that path was not launched.
@@ -156,6 +163,35 @@ HYBRID_STATS = dict(iters=23_646, live_iters=1_083_300,
 WINDOW_STATS = dict(iters=5_071, live_iters=3_008_993, lane_iters=4_758_576,
                     steals=16_737, entry_terms=0, window_spills=117_930,
                     window_hits=139_058, spans=3)
+# The driver and the service, with mce_run's defaults (streamed buckets of
+# 1,024 roots, 512 roots a chunk, per root, pivot) on one shard. Their
+# counters are run()'s (SLICE_EXPECT on scale 12, SLICE11_EXPECT and
+# HYBRID11_EXPECT on scale 11); the reference's occupancy pair of
+#   d = DistributedMCE(kronecker(12, 16, seed=0), chunk=512); d.run();
+#   print(d.last_counters)
+# (repro.core.driver, JAX on the CPU), and its per-query stats of
+#   svc = MCEService(kronecker(11, 16, seed=0), chunk=512)
+#   for cfg in (EngineConfig(), EngineConfig(backend="hybrid"),
+#               EngineConfig(reuse_degrees=False)):
+#       r = svc.query(cfg); print(r.cliques, r.calls, r.branches,
+#                                 r.sum_px, r.pre_reported, r.stats)
+# (repro.launch.mce_service): the third query, the paper's three sweeps
+# (the pivot select sweeps A itself), finds the default's counters.
+DRIVER12_COUNTERS = dict(truncated=0, live_iters=1_073_805,
+                         lane_iters=33_062_952, steals=0, entry_terms=0,
+                         window_spills=0, window_hits=0)
+REUSE_OFF11_EXPECT = dict(cliques=122_478, calls=113_416, branches=112_187,
+                          sum_px=683_947, pre_reported=1_031)
+_NO_CHOICE = {"perroot": 0, "persistent": 0}
+SERVICE11_STATS = {
+    "pivot": dict(live_iters=164_961, lane_iters=1_448_820, truncated=0,
+                  steals=0, entry_terms=0, window_spills=0, window_hits=0,
+                  engine_choices=_NO_CHOICE),
+    "hybrid": dict(live_iters=164_693, lane_iters=1_443_724, truncated=0,
+                   steals=0, entry_terms=0, window_spills=0, window_hits=0,
+                   engine_choices=_NO_CHOICE),
+}
+SERVICE11_STATS["pivot_reuse_off"] = SERVICE11_STATS["pivot"]
 # The reference's pivot-backend rows of BENCH_branching.json
 # (benchmarks/table3_ablation.py --branching: bucket_sizes (32, 64, 128,
 # 256)), as (cliques, calls, branches, sum_px).
@@ -1777,6 +1813,92 @@ def scale12_paths(dev, g):
     return out
 
 
+def driver_path(dev, g):
+    """The driver path: `DistributedMCE(g, device=dev, chunk=512)` with
+    mce_run's other defaults (streamed, per root, pivot) on the scale-12
+    graph, on one rank, with the kernels' launch counts set to 0 just
+    before and read just after; its counters against run()'s and the
+    reference driver's occupancy pair, and the row kernels launched."""
+    from repro_torch.core.driver import DistributedMCE
+    from repro_torch.kernels.bitset_ops import ops
+    ops.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    drv = DistributedMCE(g, device=dev, chunk=512)
+    res = drv.run()
+    secs = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    got = dict(cliques=res.cliques, calls=res.calls, branches=res.branches,
+               sum_px=res.sum_px, pre_reported=res.pre_reported)
+    lc, st = drv.last_counters, drv.stats
+    emit(dict(phase="driver", graph="kron:scale=12,ef=16,seed=0", n=g.n,
+              m=g.m, chunk=drv.chunk, shards=drv.n_shards,
+              device=str(drv.device), **got,
+              iters_exhausted=res.iters_exhausted, seconds=secs,
+              buckets=drv.stream.num_buckets, chunks=st["chunks"],
+              device_wait_s=st["device_wait_s"],
+              host_pack_s=st["host_pack_s"], dispatch_s=st["dispatch_s"],
+              overlap_fraction=drv.overlap_fraction,
+              lane_occupancy=lc["live_iters"] / max(lc["lane_iters"], 1),
+              counters=lc, prep_timings=dict(drv.stream.timings),
+              launches=launches))
+    check(got == SLICE_EXPECT, f"driver counters {got} != {SLICE_EXPECT}")
+    check(not res.iters_exhausted, "driver truncated")
+    for k, v in DRIVER12_COUNTERS.items():
+        check(lc[k] == v, f"driver counter {k}: {lc[k]} != reference {v}")
+    for name in ROW_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the driver path")
+    return launches
+
+
+def service_paths(dev, g):
+    """One `MCEService` on the scale-11 graph (chunk 512) and three
+    queries: pivot (cold: streams and packs), hybrid and pivot with
+    reuse_degrees=False (both cached: they must pack nothing, so the
+    stream's timings and bucket count stay as the first query left them).
+    Each query is a path: launch counts set to 0 just before and read
+    just after, counters and per-query stats against the reference's."""
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.kernels.bitset_ops import ops
+    from repro_torch.launch.mce_service import MCEService
+    svc = MCEService(g, device=dev, chunk=512)
+    out, packed = {}, None
+    for label, cfg, expect, kernels in (
+            ("pivot", {}, SLICE11_EXPECT, ROW_KERNELS),
+            ("hybrid", dict(backend="hybrid"), HYBRID11_EXPECT,
+             HYBRID_KERNELS),
+            ("pivot_reuse_off", dict(reuse_degrees=False),
+             REUSE_OFF11_EXPECT, ROW_KERNELS)):
+        ops.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        res = svc.query(EngineConfig(**cfg))
+        secs = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        got = dict(cliques=res.cliques, calls=res.calls,
+                   branches=res.branches, sum_px=res.sum_px,
+                   pre_reported=res.pre_reported)
+        pack = dict(timings=dict(svc.stream.timings),
+                    num_buckets=svc.stream.num_buckets)
+        emit(dict(phase="service", graph="kron:scale=11,ef=16,seed=0",
+                  query=label, cfg=cfg, cold=packed is None, **got,
+                  stats=res.stats, seconds=secs,
+                  occupancy=res.stats["live_iters"]
+                  / max(res.stats["lane_iters"], 1),
+                  stream=pack, launches=launches))
+        check(got == expect, f"service {label} counters {got} != {expect}")
+        check(res.stats == SERVICE11_STATS[label],
+              f"service {label} stats {res.stats} != reference "
+              f"{SERVICE11_STATS[label]}")
+        if packed is None:
+            packed = pack
+        check(pack == packed, f"service {label} packed again: {pack}")
+        for name in kernels:
+            check(launches[name] > 0,
+                  f"kernel {name} was not launched on service {label}")
+        out[f"service_{label}"] = launches
+    return out
+
+
 def device_profile(run_once):
     """Where the time of `run_once()` goes: its wall time with the
     profiler off (after a warm-up) against the device's kernel time
@@ -1915,11 +2037,14 @@ def main() -> int:
 
     small_graphs(dev)
     device_peel(dev, {"kron:scale=12,ef=16": g12, "kron:scale=14,ef=16": g14})
-    paths = scale11_paths(dev, kronecker(11, 16, seed=0))
+    g11 = kronecker(11, 16, seed=0)
+    paths = scale11_paths(dev, g11)
     step_profile(dev, prep)
     step_profile(dev, prep, backend="rcd")
     paths.update(scale12_paths(dev, g12))
     trip_profile(dev, prep)
+    paths["driver"] = driver_path(dev, g12)
+    paths.update(service_paths(dev, g11))
 
     # kernel table: each kernel at the bucket shape the main path launches
     # it most often (the U=64 bucket: most steps and trips), the row

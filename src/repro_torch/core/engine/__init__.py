@@ -17,7 +17,8 @@ All bitset set algebra dispatches through
 tensor, plain PyTorch on a CPU tensor).
 """
 from repro_torch.core.engine.frames import (BACKENDS,  # noqa: F401
-                                            EngineConfig, Frame, FrameStack)
+                                            EngineConfig, Frame, FrameStack,
+                                            PIVOT_BACKENDS)
 from repro_torch.core.engine.loop import (MCEResult,  # noqa: F401
                                           choose_engine, dfs_step,
                                           enter_call, root_cost_skew, run,

@@ -96,6 +96,16 @@ class EngineConfig:
     backend: str = "pivot"          # one of BACKENDS
     out_cap: int = 0                # >0: enumerate into a fixed buffer
     max_iters: int = 1 << 30
+    # Reuse the post-reduction degree vector for pivot scoring via
+    # deg_P''(u) = deg_P'(u) − |full| (full vertices neighbor all of P'),
+    # and the frame step's degrees when reduction is off: one AND+popcount
+    # sweep over A fewer per call. False: `pivot_select` sweeps A itself.
+    reuse_degrees: bool = True
+    # 'hybrid' branch selection: switch from pivot- to vertex-branching
+    # (B = P) when the induced density 2|E[P]| / (|P|·(|P|−1)) reaches this
+    # threshold — near-clique nodes early-terminate in their children, so
+    # the pivot sweep's pruning buys nothing there (DESIGN.md §2.7).
+    hybrid_density: float = bitops.HYBRID_DENSITY
     # Persistent-engine lane work stealing (DESIGN.md §2.6 STEAL): when the
     # root queue is drained and a lane idles, it adopts half of a live
     # lane's shallowest splittable branch set. Pure scheduling — counters

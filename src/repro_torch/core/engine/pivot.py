@@ -24,10 +24,9 @@ from repro_torch.core.engine import frames as fr
 from repro_torch.kernels.bitset_ops import ops as bitops
 
 # 'hybrid' branch selection: switch from pivot- to vertex-branching (B = P)
-# when the induced density 2|E[P]| / (|P|·(|P|−1)) reaches this threshold —
-# near-clique nodes early-terminate in their children, so the pivot sweep's
-# pruning buys nothing there (DESIGN.md §2.7). The reference's default, the
-# one value its run() uses; `ops.pivot_select` applies it.
+# when the induced density 2|E[P]| / (|P|·(|P|−1)) reaches
+# cfg.hybrid_density (DESIGN.md §2.7); this is its default, the one value
+# the reference's run() uses.
 HYBRID_DENSITY = bitops.HYBRID_DENSITY
 
 
@@ -38,22 +37,26 @@ def branch_set(cfg, ctx: fr.RootContext, P, Xp, xal, red, deg=None):
     B = P \\ N(pivot), the pivot the first best of the pool P ∪ Xp (P alone
     for 'revised') by degree in P, unless an alive X0 row scores strictly
     higher; 'hybrid' overrides to vertex branching (B = P) on nodes whose
-    induced density reaches HYBRID_DENSITY.
+    induced density reaches cfg.hybrid_density.
 
     `red` is the ReducedFrame from dynamic_reduce (None when dynamic
-    reduction is off); its degP2/n_full replace the third AND+popcount
-    sweep over A (§Perf; the reference's default `reuse_degrees=True`,
-    the only setting the port has): every `full` vertex was adjacent to
-    ALL of P', so the degree over the final P is degP2 − n_full for the
-    pool. With dynamic reduction off, `deg` (the fused frame-step degree
-    vector over this very P) plays the same role. With neither (root
-    entry without dynamic reduction) the kernel sweeps A itself."""
+    reduction is off). With cfg.reuse_degrees (the default) its
+    degP2/n_full replace the third AND+popcount sweep over A (§Perf):
+    every `full` vertex was adjacent to ALL of P', so the degree over the
+    final P is degP2 − n_full for the pool. With dynamic reduction off,
+    `deg` (the fused frame-step degree vector over this very P) plays the
+    same role. With neither, or with cfg.reuse_degrees=False (the paper's
+    three sweeps: the reference then ignores both), the kernel sweeps A
+    itself."""
     n_full = None
-    if red is not None:
+    if not cfg.reuse_degrees:
+        deg = None
+    elif red is not None:
         deg, n_full = red.degP2, red.n_full
     return bitops.pivot_select(ctx.A, ctx.x_rows, P, Xp, xal, deg, n_full,
                                revised=cfg.backend == "revised",
-                               hybrid=cfg.backend == "hybrid")
+                               hybrid=cfg.backend == "hybrid",
+                               density=cfg.hybrid_density)
 
 
 def hybrid_early_term(carry, cfg, ctx: fr.RootContext, P, Xp, xal, Rb, rsz,

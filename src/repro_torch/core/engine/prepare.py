@@ -34,6 +34,12 @@ class RootBucket:
     rsz0: np.ndarray                # (R,) int32 |R| at entry (>1 for split roots)
     bases: List[tuple]              # per-root base clique vertices
     universes: List[np.ndarray]     # per-root local->global id maps
+    cost_order: Optional[np.ndarray] = None   # driver memo: canonical
+    # cost-descending root order — cached so service-style replays of a
+    # cached bucket skip the O(packed bytes) cost rescan
+    cost_skew: Optional[float] = None  # driver memo: max/mean of the real
+    # (unpadded) root costs — the engine="auto" signal, cached with
+    # cost_order for the same replay reason
     n_pad: int = 0                  # trailing no-op pad roots (remainder
     # flushes padded to pow2 fractions of stream_roots; each contributes
     # exactly one engine call and nothing else — callers subtract)

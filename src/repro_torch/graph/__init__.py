@@ -1,6 +1,7 @@
 """Graph substrate of the port: CSR structures, generators, orderings,
-bitset packing. Host numpy code, a standalone copy of the reference
-package's graph layer (importing the reference would load JAX)."""
+bitset packing. Host numpy code (the k-core peel on a torch device), a
+standalone copy of the reference package's graph layer (importing the
+reference would load JAX)."""
 from repro_torch.graph.csr import CSRGraph, from_edge_list, induced_subgraph
 from repro_torch.graph.generators import (
     erdos_renyi,
@@ -12,7 +13,8 @@ from repro_torch.graph.generators import (
     caveman,
     kronecker,
 )
-from repro_torch.graph.order import degeneracy_order, core_numbers
+from repro_torch.graph.order import (degeneracy_order, core_numbers,
+                                     kcore_peel_torch)
 
 __all__ = [
     "CSRGraph",
@@ -28,4 +30,5 @@ __all__ = [
     "kronecker",
     "degeneracy_order",
     "core_numbers",
+    "kcore_peel_torch",
 ]

@@ -1,15 +1,22 @@
-"""Vertex orderings: exact degeneracy order and core numbers (host).
+"""Vertex orderings: exact degeneracy order (host) and parallel k-core
+peel (torch device).
 
-The exact order uses the O(n+m) bucket-queue algorithm (Matula & Beck).
-Host numpy code, the same as the reference package's `graph.order`; the
-reference's round-based device peel (`kcore_peel_jax`) has no caller on
-the engine's path and is not ported yet.
+The exact order uses the O(n+m) bucket-queue algorithm (Matula & Beck),
+host numpy code, the same as the reference package's `graph.order`. The
+torch version (`kcore_peel_torch`, the reference's `kcore_peel_jax`)
+performs *round-based* peeling: each round removes every vertex whose
+residual degree is ≤ the current core level k. Vertices removed in round
+order (ties by vertex id) still satisfy the BKdegen invariant |N⁺(v)| ≤ λ,
+because at removal time a vertex's residual degree (which upper bounds
+its later neighbors, including same-round ones ordered after it) is ≤ k
+≤ λ. Like the reference's, it has no caller on the engine's path.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.graph.csr import CSRGraph
 
@@ -91,3 +98,50 @@ def core_numbers(g: CSRGraph) -> np.ndarray:
                 deg[u] -= 1
                 heapq.heappush(heap, (int(deg[u]), u))
     return core
+
+
+def _peel_rounds(src: torch.Tensor, dst: torch.Tensor, n: int
+                 ) -> torch.Tensor:
+    """Round-based peel on the tensors' device. Returns the peel-round id
+    per vertex (int32).
+
+    `src`/`dst`: (2m,) directed edge endpoints (int64). Each round
+    recomputes the residual degrees with one O(m) `index_add_` segment
+    sum; whether any vertex is alive, and whether any peels at level k,
+    are read on the host once per round."""
+    dev = src.device
+    k, rnd = 0, 0
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    out_round = torch.full((n,), torch.iinfo(torch.int32).max,
+                           dtype=torch.int32, device=dev)
+    while bool(alive.any()):
+        deg = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+            0, src, (alive[dst] & alive[src]).to(torch.int32))
+        peel = alive & (deg <= k)
+        if not bool(peel.any()):
+            k += 1              # nothing peels at level k: raise k
+            continue
+        out_round = torch.where(peel, rnd, out_round)
+        alive = alive & ~peel
+        rnd += 1
+    return out_round
+
+
+def kcore_peel_torch(g: CSRGraph, device="cuda") -> np.ndarray:
+    """Round-based peel order on a torch device. Returns rank (position)
+    per vertex, as the reference's `kcore_peel_jax`.
+
+    Ties within a round broken by vertex id. The resulting order satisfies
+    the |N⁺(v)| ≤ λ invariant (see module docstring). `device` defaults to
+    "cuda" (torch raises where there is none); pass "cpu" for the host."""
+    if g.n == 0:
+        return np.zeros(0, dtype=np.int64)
+    src = np.repeat(np.arange(g.n, dtype=np.int64), g.degrees())
+    rounds = _peel_rounds(
+        torch.from_numpy(src).to(device),
+        torch.from_numpy(g.indices.astype(np.int64)).to(device),
+        g.n).cpu().numpy()
+    order = np.lexsort((np.arange(g.n), rounds))
+    rank = np.empty(g.n, dtype=np.int64)
+    rank[order] = np.arange(g.n)
+    return rank

@@ -36,7 +36,7 @@ import torch
 from repro_torch.kernels._build import Launches, on_cpu, raise_on, stream
 from repro_torch.kernels.bitset_ops import ref
 from repro_torch.kernels.bitset_ops.build import LIBRARY
-from repro_torch.kernels.bitset_ops.ref import HYBRID_DENSITY  # noqa: F401
+from repro_torch.kernels.bitset_ops.ref import HYBRID_DENSITY
 from repro_torch.kernels.bitset_ops.words import (  # noqa: F401
     and_reduce, and_rows, bits_to_mask, first_bit_index, mask_to_bits,
     or_reduce, popcount, popcount_words)
@@ -390,20 +390,21 @@ def pivot_select(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
                  Xp: torch.Tensor, xal: torch.Tensor,
                  deg: Optional[torch.Tensor] = None,
                  n_full: Optional[torch.Tensor] = None, *,
-                 revised: bool = False, hybrid: bool = False
-                 ) -> torch.Tensor:
+                 revised: bool = False, hybrid: bool = False,
+                 density: float = HYBRID_DENSITY) -> torch.Tensor:
     """The pivot backends' branch set B (..., W) in one launch on the
     engine's operands, as `ref.pivot_select` (the contract): the universe
     scores deg − n_full, deg, or the kernel's own sweep of a, the alive X0
     rows' argmax against P, B = P & ~pivot_row, and `hybrid`'s density
-    switch. a (..., U, W), x_rows (..., XC, W), P/Xp (..., W), xal (...,
-    XCW) bits with 32·XCW >= XC; deg (..., U) and n_full (...) int32 or
-    None (n_full only with deg). Counted in
-    LAUNCHES["and_popcount_argmax"]."""
+    switch at `density` (passed to the kernel as float32). a (..., U, W),
+    x_rows (..., XC, W), P/Xp (..., W), xal (..., XCW) bits with 32·XCW
+    >= XC; deg (..., U) and n_full (...) int32 or None (n_full only with
+    deg). Counted in LAUNCHES["and_popcount_argmax"]."""
     given = tuple(t for t in (deg, n_full) if t is not None)
     if on_cpu(a, x_rows, P, Xp, xal, *given):
         return ref.pivot_select(a, x_rows, P, Xp, xal, deg, n_full,
-                                revised=revised, hybrid=hybrid)
+                                revised=revised, hybrid=hybrid,
+                                density=density)
     lead, r, u, w, xc, xcw = _check_frame("pivot_select", a, x_rows, xal,
                                           P, Xp)
     _check("pivot_select", a, *given)
@@ -420,7 +421,7 @@ def pivot_select(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
             *(t.data_ptr() for t in (a, x_rows, P, Xp, xal)),
             *(None if t is None else t.data_ptr() for t in (deg, n_full)),
             B.data_ptr(), r, u, xc, xcw, w, int(revised), int(hybrid),
-            ctypes.c_float(HYBRID_DENSITY), stream()))
+            ctypes.c_float(density), stream()))
         LAUNCHES["and_popcount_argmax"] += 1
     return B
 

@@ -23,8 +23,8 @@ from repro_torch.kernels.bitset_ops.words import (  # noqa: F401
     onehot, popcount, popcount_words)
 
 # The 'hybrid' backend's switch to vertex branching (B = P): the induced
-# density 2|E[P]| / (|P|·(|P|−1)) at which `pivot_select` takes it, the
-# reference's default and the one value its run() uses.
+# density 2|E[P]| / (|P|·(|P|−1)) at which `pivot_select` takes it by
+# default (the reference's `EngineConfig.hybrid_density` default).
 HYBRID_DENSITY = 0.9
 
 
@@ -140,8 +140,8 @@ def pivot_select(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
                  Xp: torch.Tensor, xal: torch.Tensor,
                  deg: Optional[torch.Tensor] = None,
                  n_full: Optional[torch.Tensor] = None, *,
-                 revised: bool = False, hybrid: bool = False
-                 ) -> torch.Tensor:
+                 revised: bool = False, hybrid: bool = False,
+                 density: float = HYBRID_DENSITY) -> torch.Tensor:
     """The branch set B of the pivot backends on the engine's operands:
     exactly the body of the reference's `pivot.branch_set`.
 
@@ -153,8 +153,8 @@ def pivot_select(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
     The first best alive X0 row (the bits of xal below XC) scores
     popcount(x & P) and is the pivot if it scores strictly higher (XC = 0:
     never). B = P & ~pivot_row; with `hybrid`, B = P where the scores of
-    P's members below U sum to at least HYBRID_DENSITY·|P|·(|P| − 1), |P|
-    the popcount of P's words, in float32 and in that order."""
+    P's members below U sum to at least density·|P|·(|P| − 1), |P| the
+    popcount of P's words, in float32 and in that order."""
     u, xc = a.shape[-2], x_rows.shape[-2]
     in_p = bits_to_mask(P, u)
     pool = in_p if revised else in_p | bits_to_mask(Xp, u)
@@ -173,12 +173,12 @@ def pivot_select(a: torch.Tensor, x_rows: torch.Tensor, P: torch.Tensor,
     B = P & ~pivot_row
     if hybrid:
         # Σ_{v∈P} deg_P(v) = 2|E[P]|, so the trigger is sum_deg ≥
-        # HYBRID_DENSITY·|P|·(|P|−1), in the reference's float32 expression
-        # and order (counts stay below 2^24, exact in float32)
+        # density·|P|·(|P|−1), in the reference's float32 expression and
+        # order (counts stay below 2^24, exact in float32)
         psize = popcount_words(P)
         sum_deg = torch.where(in_p, deg, 0).sum(-1)
         dense = (sum_deg.to(torch.float32)
-                 >= HYBRID_DENSITY * psize.to(torch.float32)
+                 >= density * psize.to(torch.float32)
                  * (psize - 1).to(torch.float32))
         B = torch.where(dense.unsqueeze(-1), P, B)
     return B

@@ -14,7 +14,10 @@ loads' alignment, the two-step argmax) and the engine's two entry points
 on them (`lemma8_reduce`, `pivot_select`) are held bit for bit, as are
 `frame_step` and `and_popcount_many` at every instance and their entry
 points (`branch_step`, with the stack after its in-place write, and
-`rcd_dominated`).
+`rcd_dominated`). `pivot_select` is held at the hybrid densities 0.5 and
+1.0 and with its own sweep of A (what `reuse_degrees=False` takes), and
+the driver (`DistributedMCE`, one rank) on the card against the same
+driver on the CPU.
 
 Every test here needs a CUDA device and nvcc (the kernels have no CPU
 mode); without a card they skip. The file imports neither JAX nor the
@@ -284,6 +287,59 @@ def test_cuda_pivot_select_hybrid_density_at_the_threshold(cuda_device,
     assert torch.equal(got, ref.pivot_select(a, xr, P, Xp, xal, deg,
                                              hybrid=True))
     assert all(torch.equal(got[i], P[i]) == dense for i in range(7))
+
+
+@pytest.mark.parametrize("density", [0.5, 1.0])
+@pytest.mark.parametrize("r,u,xc,w", FRAME_CASES[:6])
+def test_cuda_pivot_select_density_and_own_sweep(cuda_device, r, u, xc, w,
+                                                 density):
+    """pivot_select at cfg.hybrid_density 0.5 and 1.0 (a runtime float32
+    argument of the kernel) and with deg=None (the kernel's own sweep of
+    A, what reuse_degrees=False takes), every backend, bit for bit
+    against the plain version at the same density."""
+    a, xr, P, Xp, xal, _, _, deg, n_full = (
+        torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x)
+        .to(cuda_device)
+        for x in frame_inputs(r, u, xc, w, seed=r + u + xc + w))
+    before = ops.LAUNCHES["and_popcount_argmax"]
+    calls = 0
+    for given in ((deg, n_full), (deg, None), (None, None)):
+        for backend in ("pivot", "revised", "hybrid"):
+            kw = dict(revised=backend == "revised",
+                      hybrid=backend == "hybrid", density=density)
+            assert torch.equal(
+                ops.pivot_select(a, xr, P, Xp, xal, *given, **kw),
+                ref.pivot_select(a, xr, P, Xp, xal, *given, **kw)), \
+                (backend, given[0] is None, given[1] is None)
+            calls += 1
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["and_popcount_argmax"] == before + calls
+
+
+@pytest.mark.parametrize("engine", ["perroot", "persistent"])
+@pytest.mark.parametrize("cfg", [
+    dict(), dict(reuse_degrees=False), dict(backend="hybrid",
+                                            hybrid_density=0.5),
+    dict(backend="revised", reuse_degrees=False, dynamic_red=False)],
+    ids=["pivot", "pivot-reuse-off", "hybrid-density05",
+         "revised-reuse-off-nodyn"])
+def test_cuda_driver_matches_cpu_driver(cuda_device, cfg, engine):
+    """DistributedMCE on the card (one rank) equals the same driver on the
+    CPU: every counter and result field, the two EngineConfig fields
+    included."""
+    from repro_torch.core.driver import DistributedMCE
+    from repro_torch.core.engine import EngineConfig
+    g = gen.erdos_renyi(150, 0.3, seed=4)
+    kw = dict(cfg=EngineConfig(**cfg), chunk=32, bucket_sizes=(32, 64),
+              engine=engine, lanes=8)
+    ops.LAUNCHES.reset()
+    card = DistributedMCE(g, device=cuda_device, **kw)
+    on_card = card.run()
+    assert ops.LAUNCHES["frame_step"] > 0
+    assert ops.LAUNCHES["and_popcount_argmax"] > 0
+    host = DistributedMCE(g, device="cpu", **kw)
+    assert on_card == host.run()
+    assert card.last_counters == host.last_counters
 
 
 @pytest.mark.parametrize("aligned", [True, False])

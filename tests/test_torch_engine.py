@@ -8,6 +8,7 @@ reference's `run()` on a few small graphs, and with the pivot rows of
 BENCH_branching.json (ba_web, caveman_comm) without rerunning the
 reference on them.
 """
+import dataclasses
 import functools
 
 import jax
@@ -421,6 +422,42 @@ def test_run_bucket_per_root_counters_match(dynamic_red, max_iters):
     one = loop.run_root(*(v[0] for v in interop.bucket_from_reference(
         arrays, CPU).values()), tcfg)
     assert all(int(one[k]) == int(want[k][0]) for k in PER_ROOT)
+
+
+def test_engine_config_fields_match_reference():
+    """The port's EngineConfig has the reference's fields, in its order,
+    with its defaults (reuse_degrees and hybrid_density included)."""
+    got = [(f.name, f.default) for f in dataclasses.fields(fr.EngineConfig)]
+    want = [(f.name, f.default)
+            for f in dataclasses.fields(jfr.EngineConfig)]
+    assert got == want
+    assert fr.EngineConfig(reuse_degrees=False,
+                           hybrid_density=0.5).hybrid_density == 0.5
+
+
+@pytest.mark.parametrize("dynamic_red", [True, False])
+@pytest.mark.parametrize("backend", ["pivot", "revised", "hybrid"])
+def test_run_bucket_reuse_degrees_off_matches_reference(backend,
+                                                        dynamic_red):
+    """reuse_degrees=False, the paper's three sweeps: every branch set
+    sweeps A itself (the reference ignores both the reduced frame's
+    degrees and the frame step's). Per-root counters, iters and the
+    enumerated cliques of the same prepared bucket, with dynamic
+    reduction on and off."""
+    b = _bucket(jgen.erdos_renyi(150, 0.2, seed=5), 32)
+    cfg = dict(backend=backend, dynamic_red=dynamic_red,
+               reuse_degrees=False, out_cap=256)
+    arrays = {k: getattr(b, k) for k in interop.BUCKET_KEYS}
+    want = jax.tree.map(np.asarray, jloop.run_bucket(
+        *(jnp.asarray(arrays[k]) for k in interop.BUCKET_KEYS),
+        jfr.EngineConfig(**cfg)))
+    got = loop.run_bucket(*interop.bucket_from_reference(
+        arrays, CPU).values(), fr.EngineConfig(**cfg))
+    for k in PER_ROOT + ("out_n", "overflow", "out_sizes"):
+        assert np.array_equal(got[k].numpy(), want[k]), k
+    assert np.array_equal(interop.bitset_rows_to_reference(got["out_rows"]),
+                          want["out_rows"])
+    assert got["calls"].sum() > 0 and not got["overflow"].any()
 
 
 def test_run_bucket_counts_pad_roots_once():

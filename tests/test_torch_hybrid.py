@@ -8,6 +8,8 @@ kernel itself runs in tests/test_torch_cuda_kernels.py (skipped without
 a card) and in chip_smoke.py. The persistent lanes' hybrid cases are in
 tests/test_torch_persistent.py (BUCKET_CASES).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -253,9 +255,11 @@ def test_hybrid_branch_set_matches_reference(mode):
 
 
 def test_hybrid_density_is_the_reference_default():
-    """The port fixes the density switch at the reference's default, the
-    one value the reference's run() uses."""
-    assert pivot.HYBRID_DENSITY == jfr.EngineConfig().hybrid_density
+    """The density switch defaults to the reference's default, the one
+    value the reference's run() uses, in EngineConfig and in the kernel's
+    entry point."""
+    assert pivot.HYBRID_DENSITY == jfr.EngineConfig().hybrid_density \
+        == fr.EngineConfig().hybrid_density == ops.HYBRID_DENSITY
 
 
 # --------------------------------------------------------------------------
@@ -266,10 +270,11 @@ def _one_bucket(gname):
     return jprepare(GRAPHS[gname](), bucket_sizes=(64,)).buckets[0]
 
 
-def run_bucket_case(gname, backend, dynamic_red):
-    """Per-root counters, iters and enumeration buffers of one bucket."""
+def run_bucket_case(gname, backend, dynamic_red, **more):
+    """Per-root counters, iters and enumeration buffers of one bucket
+    (`more`: further EngineConfig fields)."""
     b = _one_bucket(gname)
-    cfg = dict(backend=backend, dynamic_red=dynamic_red, out_cap=256)
+    cfg = dict(backend=backend, dynamic_red=dynamic_red, out_cap=256, **more)
     arrays = {k: getattr(b, k) for k in interop.BUCKET_KEYS}
     want = jax.tree.map(np.asarray, jloop.run_bucket(
         *(jnp.asarray(arrays[k]) for k in interop.BUCKET_KEYS),
@@ -287,6 +292,58 @@ def run_bucket_case(gname, backend, dynamic_red):
 @pytest.mark.parametrize("gname", sorted(GRAPHS))
 def test_run_bucket_hybrid_matches_reference(gname, dynamic_red):
     run_bucket_case(gname, "hybrid", dynamic_red)
+
+
+@pytest.mark.parametrize("density", [0.5, 1.0])
+@pytest.mark.parametrize("dynamic_red", [True, False])
+def test_run_bucket_hybrid_density_matches_reference(dynamic_red, density):
+    """cfg.hybrid_density away from its default: the density switch at
+    0.5 (more vertex branching) and at 1.0 (only on cliques), with the
+    reduced frame's degrees and the frame step's."""
+    run_bucket_case("caveman", "hybrid", dynamic_red,
+                    hybrid_density=density)
+
+
+@pytest.mark.parametrize("density", [0.5, 1.0])
+@pytest.mark.parametrize("mode", ["dynamic_red", "deg", "sweep"])
+def test_hybrid_branch_set_density_matches_reference(mode, density):
+    """branch_set with cfg.hybrid_density at 0.5 and 1.0, with
+    reuse_degrees on (all three scoring modes) and, for the sweep, off:
+    the reference's branch sets root by root, and at 0.5 more roots
+    branch on all of P than at 1.0."""
+    b, f = bucket_frames(seed=1)
+    R, _, W = b.a.shape
+    dyn = mode == "dynamic_red"
+    reuse = mode != "sweep"
+    cfg = dict(backend="hybrid", dynamic_red=dyn, out_cap=64,
+               hybrid_density=density, reuse_degrees=reuse)
+    tcfg, jcfg = fr.EngineConfig(**cfg), jfr.EngineConfig(**cfg)
+    ctx, xal = port_context(b, f["alive"])
+    P, Xp, rf = _t(f["P"]), _t(f["Xp"]), None
+    deg = ref.and_popcount_rows(ctx.A, P)       # ignored when not reused
+    if dyn:
+        _, rf = reductions.dynamic_reduce(
+            fr.carry_init(tcfg, R, W, CPU), tcfg, ctx, P, Xp, xal,
+            _t(f["rsz"]), _t(f["Rb"]), _t(f["en"]))
+        P, Xp, xal, deg = rf.P, rf.Xp, rf.xal, None
+    B = pivot.branch_set(tcfg, ctx, P, Xp, xal, rf, deg=deg)
+    for r in range(R):
+        jctx, jxal = ref_context(b, f["alive"], r)
+        jP, jXp, jrf = jnp.asarray(f["P"][r]), jnp.asarray(f["Xp"][r]), None
+        if dyn:
+            _, jrf = jred.dynamic_reduce(
+                jfr.carry_init(jcfg, W), jcfg, jctx, jP, jXp, jxal,
+                jnp.int32(f["rsz"][r]), jnp.asarray(f["Rb"][r]),
+                jnp.bool_(f["en"][r]))
+            jP, jXp, jxal = jrf.P, jrf.Xp, jrf.xal
+        jdeg = None if deg is None else jnp.asarray(deg[r].numpy())
+        jB = jpiv.branch_set(jcfg, jctx, jP, jXp, jxal, jrf, deg=jdeg)
+        assert np.array_equal(_u32(B)[r], np.asarray(jB)), r
+    whole = int((B == P).all(-1).sum())
+    other = pivot.branch_set(
+        dataclasses.replace(tcfg, hybrid_density=1.5 - density), ctx, P, Xp,
+        xal, rf, deg=deg)
+    assert (whole > int((other == P).all(-1).sum())) == (density == 0.5)
 
 
 ENGINES = [("perroot", {}), ("persistent", {}),
