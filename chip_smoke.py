@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the MCE engine and the
-substrate kernels.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the MCE engine, the
+substrate kernels and the serving path of the substrate models.
 
     python3 chip_smoke.py
 
@@ -69,14 +69,26 @@ together) and then, printing one JSON line per phase:
 9. service: one `MCEService` on the scale-11 graph and three queries
    (pivot cold, hybrid and pivot with reuse_degrees=False from the
    cached buckets, which must pack nothing) against the reference
-   service's counters and per-query stats.
+   service's counters and per-query stats;
+10. serve: `launch/serve.py` at full width, each request after a warm-up
+   one: `serve_lm("qwen3-14b", smoke=False)`'s path (40 layers, bfloat16,
+   4 prompts of 2,048 tokens, 32 new tokens), whose prefill must launch
+   the tensor-core flash kernel once per layer, the kernel then held
+   against its plain version on the prefill's own first-layer q, k, v;
+   qwen3-14b's build() at 2 layers on the card against the same weights
+   on the CPU (prefill and 4 decode steps under the bf16 check); and
+   `serve_recsys(smoke=False)`'s path (25.8 GB of tables, 512 users, 1e6
+   candidates), whose bags must launch `embedding_bag_sum`, the
+   retrieval's tag bag held against the plain version on its own
+   operands, and the smoke config on the card against the CPU.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after, and fails if a kernel of that path was not launched.
 
 Every check raises on failure (exit code 1). The last two lines are the
-kernel table (all eleven kernels, launches summed over every path) as
-JSON and `{"ok": true, "device": {...}}`. It imports nothing of JAX or
+kernel table (all eleven kernels, launches summed over every path;
+`serve_launches` on rows 9 and 11, the launches of the serve phase's
+measured requests) as JSON and `{"ok": true, "device": {...}}`. It imports nothing of JAX or
 of the reference package `repro`.
 """
 from __future__ import annotations
@@ -1112,7 +1124,8 @@ def close(got, want, rtol, atol):
 
 
 def substrate_compare(name, call, args, rtol, atol, shape, cost=None,
-                      library=None, plain_reps=(21, 10)):
+                      library=None, plain_reps=(21, 10),
+                      phase="substrate_kernels"):
     """Kernel (`call(ops, *args)`) against its plain version (`call(ref,
     *args)`) on the same CUDA tensors: equal for a bool output, else
     |got - want| <= atol + rtol * |want| everywhere and ||got - want|| <=
@@ -1137,7 +1150,7 @@ def substrate_compare(name, call, args, rtol, atol, shape, cost=None,
         err, rel, ok = close(got, want, rtol, atol)
         check(ok, f"{name} differs from its plain version by {err} "
               f"(relative norm {rel}) at {shape} (rtol {rtol}, atol {atol})")
-    out = dict(phase="substrate_kernels", name=name, shape=list(shape),
+    out = dict(phase=phase, name=name, shape=list(shape),
                max_abs_err=err, rtol=rtol, atol=atol)
     if got.dtype != torch.bool:
         out.update(rel_norm_err=rel)
@@ -1899,6 +1912,312 @@ def service_paths(dev, g):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 10: serving the substrate models
+# --------------------------------------------------------------------------
+
+# the full-width serving requests: qwen3-14b's four prompts of 2,048 tokens
+# and 32 new tokens; the two-tower model's serve_p99 batch (512) and
+# retrieval_cand corpus (1,000,000), configs/two_tower_retrieval.py:23-26
+LM_SERVE = dict(batch=4, prompt_len=2048, new_tokens=32)
+RECSYS_SERVE = dict(batch=512, n_candidates=1_000_000, top_k=10)
+
+
+def bf16_logits_check(got, want, what):
+    """The bf16 check of two runs of one model: relative norm <= 2e-2, and
+    greedy picks equal wherever `want`'s top-2 margin exceeds 2e-2 of the
+    row's largest |logit|. Returns (relative norm, rows compared)."""
+    import torch
+    got, want = got.float().cpu(), want.float().cpu()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
+    rel = float((got - want).norm() / want.norm())
+    check(rel <= 2e-2, f"{what}: logits relative norm {rel} > 2e-2")
+    top2 = want.topk(2, dim=-1).values
+    sure = top2[..., 0] - top2[..., 1] > 2e-2 * want.abs().amax(-1)
+    check(torch.equal(got.argmax(-1)[sure], want.argmax(-1)[sure]),
+          f"{what}: greedy picks differ where the margin is wide")
+    return rel, int(sure.sum())
+
+
+class Recorder:
+    """Wraps a module's function while in a `with`: counts its calls in
+    `n` and keeps the arguments of the first call for which `keep(*args)`
+    is true in `args`."""
+
+    def __init__(self, module, name, keep=lambda *a: True):
+        self.module, self.name, self.keep = module, name, keep
+        self.real, self.n, self.args = getattr(module, name), 0, None
+
+    def __enter__(self):
+        def wrapper(*args, **kw):
+            self.n += 1
+            if self.args is None and self.keep(*args):
+                self.args = args
+            return self.real(*args, **kw)
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def serve_lm_full_width(dev):
+    """qwen3-14b at build() (40 layers, bfloat16, random weights from seed
+    0) served through `serve_lm` as a user calls it: a warm-up request,
+    then LM_SERVE with the launch counts set to 0 just before. The
+    prefill must launch the tensor-core flash kernel once per layer; the
+    kernel is then held against its plain version on the prefill's own
+    first-layer q, k_exp, v_exp. Returns the serve line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = get_arch("qwen3-14b").build()
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = torch.cuda.memory_allocated(dev)
+    serve.serve_lm("qwen3-14b", **{**LM_SERVE, "new_tokens": 2}, device=dev,
+                   params=model)                                # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.LAUNCHES.reset()
+    with Recorder(ops, "mha") as rec:
+        res = serve.serve_lm("qwen3-14b", **LM_SERVE, device=dev,
+                             params=model)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    gen = res["generated"]
+    check(gen.shape == (LM_SERVE["batch"], LM_SERVE["new_tokens"])
+          and gen.min() >= 0 and gen.max() < cfg.vocab,
+          f"serve_lm: bad tokens {gen.shape}")
+    check(launches["flash_attention_wgmma"] == cfg.n_layers
+          == launches["flash_attention"] == rec.n,
+          f"serve_lm: the prefill launched {launches} for {cfg.n_layers} "
+          f"layers")
+    profiles = lm_profiles(dev, cfg, model)
+    q, k, v = rec.args
+    del rec
+    b, s, h, d = q.shape
+    qf, kf, vf = (t.transpose(1, 2).reshape(b * h, s, d).contiguous()
+                  for t in (q, k, v))
+    qh, kh, vh = (t.view(b, h, s, d) for t in (qf, kf, vf))
+    pairs = s * (s + 1) // 2
+    check_line = substrate_compare(
+        "flash_attention",
+        lambda impl, q_, k_, v_: impl.flash_attention(q_, k_, v_,
+                                                      causal=True),
+        (qf, kf, vf), BF16_RTOL, BF16_ATOL, (b * h, s, s, d, True,
+                                              str(q.dtype)),
+        cost=(4 * b * h * s * d * 2, 4 * b * h * pairs * d, BF16_OPS_PER_S),
+        library=lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                       is_causal=True),
+        plain_reps=(3, 2), phase="serve")
+    del q, k, v, qf, kf, vf, qh, kh, vh, model
+    torch.cuda.empty_cache()
+    p = LM_SERVE
+    n, tokens = LM_SERVE["batch"], LM_SERVE["batch"] * LM_SERVE["prompt_len"]
+    matrix_params = cfg.param_count() - 2 * cfg.vocab * cfg.d_model
+    attn_ops = cfg.n_layers * 4 * n * cfg.n_heads * pairs * d
+    # decode: every weight but the embedding table once a token (bf16),
+    # and the cache at its longest
+    cache_bytes = 2 * 2 * cfg.n_layers * n * (p["prompt_len"]
+                                              + p["new_tokens"]) \
+        * cfg.n_kv_heads * cfg.d_head
+    return dict(
+        phase="serve", model="qwen3-14b", config="build()",
+        depth=cfg.n_layers, reduced=None, dtype=cfg.dtype,
+        params=cfg.param_count(), weight_bytes=weight_bytes, init_s=init_s,
+        **p, prefill_s=res["prefill_s"], decode_s=res["decode_s"],
+        tok_per_s=res["tok_per_s"],
+        decode_ms_per_step=1e3 * res["decode_s"] / p["new_tokens"],
+        peak_bytes=peak, launches=launches, profiles=profiles,
+        prefill_bound_s=(2 * tokens * matrix_params + attn_ops)
+        / BF16_OPS_PER_S,
+        decode_bound_ms=1e3 * (2 * (cfg.param_count()
+                                    - cfg.vocab * cfg.d_model)
+                               + cache_bytes) / HBM_BYTES_PER_S,
+        flash_check=dict((k, check_line[k]) for k in (
+            "max_abs_err", "rel_norm_err", "ms", "plain_ms", "library_ms",
+            "bound_ms")),
+        generated_head=gen[:, :8].tolist())
+
+
+def lm_profiles(dev, cfg, model):
+    """Where a request's time goes (`device_profile`): one decode step at
+    the conversation's last position and one prefill of LM_SERVE's
+    shape, each the card's kernel time against the host's wall time."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.lm_steps import make_prefill_step
+    p = LM_SERVE
+    total = p["prompt_len"] + p["new_tokens"]
+    cache = T.init_cache(cfg, p["batch"], total, device=dev)
+    cache["pos"] = total - 1
+    tok = torch.zeros(p["batch"], 1, dtype=torch.int64, device=dev)
+    prompts = torch.zeros(p["batch"], p["prompt_len"], dtype=torch.int32,
+                          device=dev)
+    out = {}
+    for name, run_once in (
+            ("decode_step", lambda: T.decode_step(cfg, model, cache, tok)),
+            ("prefill", lambda: make_prefill_step(cfg)(model, prompts))):
+        _, wall, profiled, busy, n_k = device_profile(run_once)
+        out[name] = dict(ms=1e3 * wall, profiled_ms=1e3 * profiled,
+                         busy_ms=1e3 * busy, kernels=n_k,
+                         device_idle_share=1.0 - busy / wall)
+    del cache
+    return out
+
+
+def serve_lm_against_cpu(dev):
+    """qwen3-14b's build() cut to 2 layers, one set of weights made from a
+    seed on the card and copied to the host: batch 2, prompt 64, then 4
+    decode steps fed the CPU's greedy tokens, on the card and on the CPU;
+    every step under the bf16 check."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.lm_steps import make_prefill_step
+    cfg = dataclasses.replace(get_arch("qwen3-14b").build(), n_layers=2)
+    card = T.init_params(cfg, torch.Generator(device=dev).manual_seed(1))
+    host = copy.deepcopy(card).to("cpu")
+    prompts = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))
+    t0 = time.perf_counter()
+    runs = {}
+    for name, model, device in (("cpu", host, "cpu"), ("card", card, dev)):
+        logits, cache = make_prefill_step(cfg)(model, prompts.to(device))
+        full = T.init_cache(cfg, 2, 68, device=device)
+        full["k"][:, :, :64] = cache["k"]
+        full["v"][:, :, :64] = cache["v"]
+        cache = dict(k=full["k"], v=full["v"], pos=64)
+        steps = [logits.float().cpu()]
+        for i in range(4):
+            tok = runs["cpu"][i].argmax(-1)[:, None] if name == "card" \
+                else steps[-1].argmax(-1)[:, None]
+            logits, cache = T.decode_step(cfg, model, cache, tok.to(device))
+            steps.append(logits[:, -1].float().cpu())
+        runs[name] = steps
+        if name == "cpu":
+            cpu_s = time.perf_counter() - t0
+    rels, compared = [], 0
+    for i, (got, want) in enumerate(zip(runs["card"], runs["cpu"])):
+        rel, n = bf16_logits_check(got, want, f"qwen3-14b 2 layers, step {i}")
+        rels.append(rel)
+        compared += n
+    del card, host
+    torch.cuda.empty_cache()
+    return dict(config="build(), n_layers=2", batch=2, prompt_len=64,
+                decode_steps=4, rel_norm_err=rels, greedy_rows_compared=compared,
+                rows=10, cpu_s=cpu_s)
+
+
+def serve_recsys_full_width(dev):
+    """two-tower-retrieval at build() (25.8 GB of float32 tables, random
+    weights from seed 0) through `serve_recsys` as a user calls it: a
+    warm-up, then RECSYS_SERVE with the bag kernel's count set to 0 just
+    before; the retrieval's tag bag held against the plain version on its
+    own operands; the smoke config on the card against the same weights
+    on the CPU. Returns the serve line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import recsys as R
+    cfg = get_arch("two-tower-retrieval").build()
+    t0 = time.perf_counter()
+    model = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = torch.cuda.memory_allocated(dev)
+    serve.serve_recsys(**RECSYS_SERVE, device=dev, params=model)  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.LAUNCHES.reset()
+    n_cand = RECSYS_SERVE["n_candidates"]
+    with Recorder(ops, "embedding_bag",
+                  lambda table, ids, *a: ids.shape[0] == n_cand) as rec:
+        res = serve.serve_recsys(**RECSYS_SERVE, device=dev, params=model)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # retrieval: the user's history bag and the candidates' tag bag;
+    # online scoring: the history bag
+    check(launches["embedding_bag_sum"] == rec.n == 3
+          and rec.args is not None,
+          f"serve_recsys launched {launches} in {rec.n} bags")
+    check(res["top_idx"].shape == (RECSYS_SERVE["top_k"],)
+          and bool((res["top_scores"][:-1] >= res["top_scores"][1:]).all()),
+          "serve_recsys: bad top-k")
+    table, ids = rec.args[:2]
+    del rec
+    b, l = ids.shape
+    real = int((ids >= 0).sum())
+    count = (ids >= 0).sum(1, keepdim=True).clamp(min=1)
+    safe, weight = ids.clamp(min=0), ((ids >= 0) / count).float()
+    tag_line = substrate_compare(
+        "embedding_bag_sum",
+        lambda impl, t, i: impl.embedding_bag(t, i, "mean"), (table, ids),
+        1e-5, 1e-5, (table.shape[0], table.shape[1], b, l, "mean"),
+        cost=(4 * (b * l + real * table.shape[1] + b * table.shape[1]),
+              real * table.shape[1], OPS_PER_S),
+        library=lambda: F.embedding_bag(safe, table, mode="sum",
+                                        per_sample_weights=weight),
+        plain_reps=(5, 3), phase="serve")
+    del table, ids, safe, weight, count, model
+    torch.cuda.empty_cache()
+    # the smoke config: one set of weights, the card against the CPU
+    scfg = get_arch("two-tower-retrieval").build_smoke()
+    small = R.init_params(scfg, torch.Generator().manual_seed(0))
+    want = serve.serve_recsys(device="cpu", params=small)
+    got = serve.serve_recsys(device=dev, params=small.to(dev))
+    check(bool((got["top_idx"] == want["top_idx"]).all()),
+          f"two-tower smoke top-k on the card {got['top_idx']} != CPU "
+          f"{want['top_idx']}")
+    smoke_err = {}
+    for key in ("top_scores", "serve_scores"):
+        err = float(abs(got[key] - want[key]).max())
+        check(err <= 1e-5 + 1e-5 * float(abs(want[key]).max()),
+              f"two-tower smoke {key}: card against CPU {err}")
+        smoke_err[key] = err
+    p = RECSYS_SERVE
+    return dict(
+        phase="serve", model="two-tower-retrieval", config="build()",
+        reduced=None, params=cfg.param_count(), weight_bytes=weight_bytes,
+        init_s=init_s, **p, retrieval_s=res["retrieval_s"],
+        serve_s=res["serve_s"], qps=res["qps"], peak_bytes=peak,
+        launches=launches, top_idx=res["top_idx"].tolist(),
+        tag_bag_check=dict((k, tag_line[k]) for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms")),
+        smoke_card_vs_cpu=dict(top_idx_equal=True, **smoke_err))
+
+
+def serve_phase(dev):
+    """The serving path of the substrates at full width: qwen3-14b's prefill
+    on the flash kernel and decode, checked against the CPU at two layers;
+    the two-tower retrieval and online scoring on the bag kernel. Returns
+    the kernels' launches in the two measured requests."""
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm = serve_lm_full_width(dev)
+    lm["cpu_check"] = serve_lm_against_cpu(dev)
+    emit(lm)
+    rec = serve_recsys_full_width(dev)
+    emit(rec)
+    secs = time.perf_counter() - t0
+    emit(dict(phase="serve_done", seconds=secs))
+    return {"flash_attention": lm["launches"]["flash_attention"],
+            "embedding_bag_sum": rec["launches"]["embedding_bag_sum"]}
+
+
 def device_profile(run_once):
     """Where the time of `run_once()` goes: its wall time with the
     profiler off (after a warm-up) against the device's kernel time
@@ -2045,6 +2364,7 @@ def main() -> int:
     trip_profile(dev, prep)
     paths["driver"] = driver_path(dev, g12)
     paths.update(service_paths(dev, g11))
+    serve_launches = serve_phase(dev)
 
     # kernel table: each kernel at the bucket shape the main path launches
     # it most often (the U=64 bucket: most steps and trips), the row
@@ -2123,7 +2443,9 @@ def main() -> int:
             bound_ms=line["bound_ms"], bound_by=line["bound_by"],
             library_ms=line["library_ms"], shape=line["shape"],
             **({k: line[k] for k in ("earlier_ms", "entry_point")
-                if k in line})))
+                if k in line}),
+            **({"serve_launches": serve_launches[name]}
+               if name in serve_launches else {})))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start,
               path_launches=paths,
               note="library_ms is null for the bitset kernels and "

@@ -17,7 +17,10 @@ points (`branch_step`, with the stack after its in-place write, and
 `rcd_dominated`). `pivot_select` is held at the hybrid densities 0.5 and
 1.0 and with its own sweep of A (what `reuse_degrees=False` takes), and
 the driver (`DistributedMCE`, one rank) on the card against the same
-driver on the CPU.
+driver on the CPU. On the serving paths, a smoke LM prefill launches
+flash_attention once per layer (and decode none) and a two-tower bulk
+step launches embedding_bag_sum twice, each against the same model on
+the CPU.
 
 Every test here needs a CUDA device and nvcc (the kernels have no CPU
 mode); without a card they skip. The file imports neither JAX nor the
@@ -1124,3 +1127,59 @@ def test_cuda_mha_layout(cuda_device, full_fp32_matmul, b):
         v.transpose(1, 2).reshape(4 * b, 64, 32)).reshape(b, 4, 64, 32)
     torch.testing.assert_close(out, want.transpose(1, 2), rtol=2e-5,
                                atol=2e-5)
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.parametrize("d_head,wgmma", [(16, False), (128, True)])
+def test_cuda_lm_prefill_launches_flash_per_layer(cuda_device, d_head, wgmma):
+    """A smoke prefill (bfloat16) on the card launches flash_attention once
+    per layer, the tensor-core kernel at D = 128 and the CUDA-core one at
+    the smoke D = 16; decode launches none. Logits agree with the same
+    model on the CPU under the bf16 check (relative norm <= 2e-2)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.lm_steps import make_prefill_step
+    cfg = dataclasses.replace(get_arch("qwen3-14b").build_smoke(),
+                              d_head=d_head)
+    model = T.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 24), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    prefill = make_prefill_step(cfg)
+    want, want_cache = prefill(model, toks)
+    nxt = want.argmax(-1, keepdim=True)
+    want_step, _ = T.decode_step(cfg, model, want_cache, nxt)
+    model.to(cuda_device)
+    fa_ops.LAUNCHES.reset()
+    got, cache = prefill(model, toks.to(cuda_device))
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert fa_ops.LAUNCHES["flash_attention_wgmma"] == (
+        cfg.n_layers if wgmma else 0)
+    assert _rel(got.cpu(), want) <= 2e-2
+    step, _ = T.decode_step(cfg, model, cache, nxt.to(cuda_device))
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert _rel(step.cpu(), want_step) <= 2e-2
+
+
+def test_cuda_two_tower_bulk_launches_two_bags(cuda_device, full_fp32_matmul):
+    """A two-tower bulk_step on the card launches embedding_bag_sum twice
+    (the user's history bag, the item's tag bag) and agrees with the same
+    model on the CPU at 1e-5."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys as R
+    cfg = get_arch("two-tower-retrieval").build_smoke()
+    model = R.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = R.synth_batch(cfg, 64, seed=0)
+    bulk = R.make_bulk_score_step(cfg)
+    want = bulk(model, R.to_device(batch, "cpu"))
+    model.to(cuda_device)
+    eb_ops.LAUNCHES.reset()
+    got = bulk(model, R.to_device(batch, cuda_device))
+    torch.cuda.synchronize()
+    assert eb_ops.LAUNCHES["embedding_bag_sum"] == 2
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

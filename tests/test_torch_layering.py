@@ -9,8 +9,9 @@
 * importing the kernel packages builds and loads nothing; every kernel
   library refuses to build without nvcc; every CUDA source names the TPU
   kernel it replaces, its bound and its C entry points;
-* with no CUDA device, `run(g)`, `DistributedMCE(g)`, `MCEService(g)`
-  and `mce_run.main()` raise instead of falling back, and chip_smoke.py
+* with no CUDA device, `run(g)`, `DistributedMCE(g)`, `MCEService(g)`,
+  `mce_run.main()`, `serve_lm`, `serve_recsys` and `serve.main()` raise
+  instead of falling back, and chip_smoke.py
   exits non-zero without printing a result — also from a directory that
   holds chip_smoke.py alone.
 """
@@ -201,13 +202,21 @@ ENTRY_POINTS = {
     "mce_run.main": "import sys\nfrom repro_torch.launch import mce_run\n"
                     "sys.argv = ['mce_run', '--graph', 'er:n=30,p=0.2']\n"
                     "mce_run.main()\n",
+    "serve_lm": "from repro_torch.launch.serve import serve_lm\n"
+                "serve_lm('qwen3-14b')\n",
+    "serve_recsys": "from repro_torch.launch.serve import serve_recsys\n"
+                    "serve_recsys()\n",
+    "serve.main": "import sys\nfrom repro_torch.launch import serve\n"
+                  "sys.argv = ['serve', '--arch', 'two-tower-retrieval']\n"
+                  "serve.main()\n",
 }
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
 def test_entry_points_without_cuda_raise_in_a_fresh_process(entry):
     """Without a card and without a CPU device asked for, the driver, the
-    service and the CLI raise before any work: no CPU fallback."""
+    service, the CLI and the serving entry points raise before any work:
+    no CPU fallback."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     proc = _run_py("from repro_torch.graph.generators import complete_graph\n"
@@ -218,32 +227,39 @@ def test_entry_points_without_cuda_raise_in_a_fresh_process(entry):
 
 
 def test_launchers_load_no_jax():
-    """The driver, both launchers, the shim and the k-core peel run on the
-    CPU when asked, in a fresh interpreter that never loads JAX or the
-    reference."""
+    """The driver, both MCE launchers, the shim, the k-core peel and the
+    serving of both model families run on the CPU when asked, in a fresh
+    interpreter that never loads JAX or the reference."""
     code = """
 import json, sys
 from repro_torch.core import bitset_engine
 from repro_torch.core.driver import DistributedMCE
 from repro_torch.graph import erdos_renyi, kcore_peel_torch
-from repro_torch.launch import mce_run
+from repro_torch.launch import mce_run, serve
 from repro_torch.launch.mce_service import MCEService
 g = erdos_renyi(60, 0.2, seed=1)
 svc = MCEService(g, device="cpu", chunk=16)
 res = DistributedMCE(g, device="cpu", chunk=16).run()
 sys.argv = ["mce_run", "--graph", "er:n=60,p=0.2,seed=1", "--device", "cpu"]
 mce_run.main()
+lm = serve.serve_lm("qwen3-14b", new_tokens=3, device="cpu")
+rec = serve.serve_recsys(device="cpu")
+serve.main(["--arch", "mixtral-8x7b", "--tokens", "2", "--device", "cpu"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps(dict(cliques=res.cliques, svc=svc.query().cliques,
-                      peel=len(kcore_peel_torch(g, device="cpu")), bad=bad)))
+                      peel=len(kcore_peel_torch(g, device="cpu")),
+                      generated=lm["generated"].shape,
+                      top=rec["top_idx"].shape, bad=bad)))
 """
     proc = _run_py(code)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["cliques"] == out["svc"] > 0 and out["peel"] == 60
+    assert out["generated"] == [4, 3] and out["top"] == [10]
     assert out["bad"] == []
     assert "maximal cliques: %d" % out["cliques"] in proc.stdout
+    assert "tok/s" in proc.stdout
 
 
 def test_chip_smoke_fails_without_cuda():

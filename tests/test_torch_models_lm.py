@@ -1,0 +1,561 @@
+"""PyTorch port, LM models: layers, the transformer, prefill and decode
+against the reference.
+
+The reference's weights (`repro.models.transformer.init_params` at
+PRNGKey(0)) are carried across with
+`repro_torch.interop.transformer_params_from_reference`; the same numpy
+tokens go through both packages. Tolerances:
+
+* float32 (`dataclasses.replace(cfg, dtype="float32")`): layers on
+  unit-scale inputs at rtol = atol = 1e-5, a model layer's attention
+  block (values up to about 30) at rtol 1e-5, atol 1e-4; model logits at
+  relative norm <= 1e-4 and rtol = atol = 1e-3 everywhere (two layers of
+  float32 sums in another order; logits of the tied command-r head reach
+  about 40), and greedy tokens identical;
+* bfloat16 (the configs' own dtype): XLA and torch round bf16 products
+  and sums differently, so "the bf16 check" is logits at relative norm
+  <= 2e-2, and greedy tokens equal wherever the reference's top-2 margin
+  exceeds 2e-2 of the row's largest |logit|. Decode is held step by step
+  on the reference's own cache and tokens (a chain of bf16 steps drifts
+  apart in both packages' own bf16 rounding); in the two MoE configs a
+  top-k routing choice can flip on one bf16 rounding, and their decode
+  steps are held at relative norm <= 5e-2.
+
+The prefill's attention is the flash kernel's `mha` (its plain version
+here); decode and a Mixtral prompt past its 32-token window take
+`blockwise_attention`. The reference's own model tests
+(tests/test_models_lm.py) are repeated on the port as cases here, all but
+the train step, which comes with the training slice.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as ref_arch
+from repro.models import layers as JL
+from repro.models import lm_steps as JS
+from repro.models import transformer as JT
+from repro_torch.configs import get_arch
+from repro_torch.interop import transformer_params_from_reference
+from repro_torch.models import layers as L
+from repro_torch.models import lm_steps as S
+from repro_torch.models import transformer as T
+
+pytest_plugins = ["torch_jax_executables"]
+
+LM_ARCHS = ["qwen3-14b", "chatglm3-6b", "command-r-plus-104b",
+            "mixtral-8x7b", "phi3.5-moe-42b-a6.6b"]
+DTYPES = ["float32", "bfloat16"]
+TOL = dict(rtol=1e-5, atol=1e-5)
+BLOCK_TOL = dict(rtol=1e-5, atol=1e-4)
+BF16_REL = 2e-2
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32)) \
+        if not isinstance(x, torch.Tensor) else x.float().numpy()
+
+
+def _rel(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _cfgs(arch, dtype, **kw):
+    """(reference config, port config) of an arch's smoke build."""
+    return (dataclasses.replace(ref_arch(arch).build_smoke(), dtype=dtype,
+                                **kw),
+            dataclasses.replace(get_arch(arch).build_smoke(), dtype=dtype,
+                                **kw))
+
+
+def _models(arch, dtype, **kw):
+    """(ref cfg, ref params, port cfg, port model): the reference's
+    weights at PRNGKey(0) in both packages."""
+    rcfg, cfg = _cfgs(arch, dtype, **kw)
+    params = JT.init_params(rcfg, jax.random.PRNGKey(0))
+    model = transformer_params_from_reference(
+        jax.tree.map(np.asarray, params), cfg, "cpu")
+    return rcfg, params, cfg, model
+
+
+def _tokens(cfg, b, s, seed):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32)
+
+
+def _close(got, want, dtype):
+    """The module docstring's model tolerance for `dtype`."""
+    if dtype == "float32":
+        assert _rel(got, want) <= 1e-4
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+    else:
+        assert _rel(got, want) <= BF16_REL
+
+
+def _same_greedy(got, want):
+    """Greedy picks equal wherever the reference's top-2 margin exceeds
+    2e-2 of the row's largest |logit|; returns the rows compared."""
+    top2 = np.sort(want, -1)[..., -2:]
+    sure = top2[..., 1] - top2[..., 0] > BF16_REL * np.abs(want).max(-1)
+    np.testing.assert_array_equal(got.argmax(-1)[sure], want.argmax(-1)[sure])
+    return int(sure.sum())
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def test_norms_match_reference():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 5, 24)).astype(np.float32) * 3
+    w, bias = (rng.normal(size=24).astype(np.float32) for _ in range(2))
+    np.testing.assert_allclose(
+        L.rms_norm(_t(x), _t(w), 1e-6).numpy(),
+        np.asarray(JL.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-6)), **TOL)
+    np.testing.assert_allclose(
+        L.layer_norm(_t(x), _t(w), _t(bias)).numpy(),
+        np.asarray(JL.layer_norm(jnp.asarray(x), jnp.asarray(w),
+                                 jnp.asarray(bias))), **TOL)
+    # bf16 activations, float32 weight: computed in float32, one rounding
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    got = L.rms_norm(_t(x).to(torch.bfloat16), _t(w))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(got), _np(JL.rms_norm(xb, jnp.asarray(w))))
+
+
+@pytest.mark.parametrize("d_head,theta,rot", [(16, 1e4, None), (16, 1e6, 8),
+                                              (128, 1e6, None), (16, 1e4, 4)])
+def test_rope_matches_reference(d_head, theta, rot):
+    inv = L.rope_freqs(d_head, theta, rot)
+    want_inv = np.asarray(JL.rope_freqs(d_head, theta, rot))
+    np.testing.assert_array_equal(inv.numpy(), want_inv)
+    rng = np.random.default_rng(d_head)
+    x = rng.normal(size=(2, 7, 3, d_head)).astype(np.float32)
+    pos = rng.integers(0, 4000, (2, 7)).astype(np.int32)
+    got = L.apply_rope(_t(x), _t(pos), inv, rot).numpy()
+    want = np.asarray(JL.apply_rope(jnp.asarray(x), jnp.asarray(pos),
+                                    jnp.asarray(want_inv), rot))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    if rot:
+        np.testing.assert_array_equal(got[..., rot:], x[..., rot:])
+    pos2, blk = L.rope_positions_2d(2, 7)
+    jpos2, jblk = JL.rope_positions_2d(2, 7)
+    np.testing.assert_array_equal(pos2.numpy(), np.asarray(jpos2))
+    np.testing.assert_array_equal(blk.numpy(), np.asarray(jblk))
+
+
+@pytest.mark.parametrize("n_rep", [1, 2, 5])
+def test_repeat_kv_matches_reference(n_rep):
+    x = np.random.default_rng(n_rep).normal(size=(2, 3, 2, 4)).astype(
+        np.float32)
+    np.testing.assert_array_equal(
+        L.repeat_kv(_t(x), n_rep).numpy(),
+        np.asarray(JL.repeat_kv(jnp.asarray(x), n_rep)))
+
+
+# (sq, sk, causal, q_offset, window, valid, kv_block): every mask
+# combination, kv_block dividing Sk or not (padding), one block or several
+ATTN_CASES = [
+    (12, 12, True, 0, None, False, 1024),
+    (12, 12, True, 0, None, False, 5),
+    (12, 12, False, 0, None, False, 4),
+    (12, 12, True, 0, 4, False, 5),
+    (12, 12, False, 0, 4, False, 1024),
+    (3, 12, True, 9, None, False, 5),
+    (3, 12, True, 9, 5, False, 4),
+    (1, 20, False, 0, None, True, 8),
+    (1, 20, False, 0, None, True, 2048),
+    (4, 20, True, 16, 6, True, 7),
+    (12, 12, True, 0, None, True, 5),
+]
+
+
+@pytest.mark.parametrize("sq,sk,causal,q_offset,window,valid,kv_block",
+                         ATTN_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_blockwise_attention_matches_reference(sq, sk, causal, q_offset,
+                                               window, valid, kv_block,
+                                               dtype):
+    rng = np.random.default_rng(sq * sk + kv_block)
+    q = rng.normal(size=(2, sq, 3, 8)).astype(np.float32)
+    k, v = (rng.normal(size=(2, sk, 3, 8)).astype(np.float32)
+            for _ in range(2))
+    vk = None
+    if valid:
+        vk = rng.random((2, sk)) < 0.7
+        vk[:, 0] = True                     # no query row fully masked
+    jdt = jnp.dtype(dtype)
+    want = JL.blockwise_attention(
+        *(jnp.asarray(a).astype(jdt) for a in (q, k, v)), causal=causal,
+        q_offset=q_offset, window=window, kv_block=kv_block,
+        valid_kv=None if vk is None else jnp.asarray(vk))
+    tdt = getattr(torch, dtype)
+    got = L.blockwise_attention(
+        *(_t(a).to(tdt) for a in (q, k, v)), causal=causal,
+        q_offset=q_offset, window=window, kv_block=kv_block,
+        valid_kv=None if vk is None else _t(vk))
+    assert got.dtype == tdt and got.shape == (2, sq, 3, 8)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    else:
+        # inputs the same bf16 values; outputs one bf16 rounding apart
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_glu_ffn_matches_reference(act):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 5, 16)).astype(np.float32)
+    w_in, w_gate = (rng.normal(size=(16, 24)).astype(np.float32) * 0.3
+                    for _ in range(2))
+    w_out = rng.normal(size=(24, 16)).astype(np.float32) * 0.3
+    want = JL.glu_ffn(*(jnp.asarray(a) for a in (x, w_in, w_gate, w_out)),
+                      act=act)
+    got = L.glu_ffn(*(_t(a) for a in (x, w_in, w_gate, w_out)), act=act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# (b, s, e, top_k, capacity_factor, group_size, router scale): capacity
+# drops (factor 0.5), several groups, and a zero router (every gate tied:
+# the top-k order decides which experts a token takes)
+MOE_CASES = [(2, 32, 4, 2, 1.25, 64, 1.0), (2, 32, 4, 2, 0.5, 16, 1.0),
+             (1, 48, 8, 2, 1.25, 1024, 1.0), (2, 16, 4, 2, 1.25, 64, 0.0),
+             (2, 16, 4, 1, 0.5, 8, 0.0)]
+
+
+@pytest.mark.parametrize("b,s,e,k,cf,gs,scale", MOE_CASES)
+def test_moe_ffn_matches_reference(b, s, e, k, cf, gs, scale):
+    rng = np.random.default_rng(b * s + e)
+    d, f = 16, 24
+    x = rng.normal(size=(b, s, d)).astype(np.float32)
+    router = rng.normal(size=(d, e)).astype(np.float32) * scale
+    w_in, w_gate = (rng.normal(size=(e, d, f)).astype(np.float32) * 0.3
+                    for _ in range(2))
+    w_out = rng.normal(size=(e, f, d)).astype(np.float32) * 0.3
+    args = (x, router, w_in, w_gate, w_out)
+    kw = dict(top_k=k, capacity_factor=cf, group_size=gs)
+    want, want_aux = JL.moe_ffn(*(jnp.asarray(a) for a in args), **kw)
+    got, aux = L.moe_ffn(*(_t(a) for a in args), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
+
+
+def test_ordered_top_k_breaks_ties_as_the_reference():
+    x = np.array([1, 3, 3, 2, 3, 0] * 20, np.float32)
+    vals, idx = L.ordered_top_k(_t(x), 5)
+    jvals, jidx = jax.lax.top_k(jnp.asarray(x), 5)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
+    assert idx.tolist() == [1, 2, 4, 7, 8]
+
+
+def test_dense_init_scale_and_generator():
+    gen = torch.Generator().manual_seed(3)
+    w = L.dense_init(gen, (400, 300))
+    assert w.dtype == torch.float32 and w.shape == (400, 300)
+    assert abs(float(w.std()) - 1 / 20) < 2e-3          # 1/sqrt(fan-in)
+    b = L.dense_init(torch.Generator().manual_seed(3), (400, 300), 0.5,
+                     torch.bfloat16)
+    assert b.dtype == torch.bfloat16
+    # the same draws, scaled and rounded to nearest even
+    torch.testing.assert_close(b, (w * 10).to(torch.bfloat16), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the transformer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_forward_matches_reference(arch, dtype):
+    rcfg, params, cfg, model = _models(arch, dtype)
+    toks = _tokens(cfg, 2, 24, 0)
+    want, want_aux = JT.forward(rcfg, params, jnp.asarray(toks))
+    got, aux = T.forward(cfg, model, _t(toks))
+    assert got.dtype == torch.float32 and got.shape == (2, 24, cfg.vocab)
+    assert torch.isfinite(got).all()
+    _close(got.numpy(), np.asarray(want), dtype)
+    np.testing.assert_allclose(float(aux), float(want_aux),
+                               **(TOL if dtype == "float32" else
+                                  dict(rtol=1e-2, atol=1e-2)))
+    torch.testing.assert_close(model(_t(toks))[0], got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mixtral-8x7b"])
+def test_attention_routes_prefill_to_flash(arch, monkeypatch):
+    """`_attention` takes `mha` (the flash kernel's entry point) for a
+    causal prompt within the window, `blockwise_attention` past it, and
+    both equal the reference's `_attention` (blockwise) at float32."""
+    from repro_torch.kernels.flash_attention import ops as flash
+    rcfg, params, cfg, model = _models(arch, "float32")
+    calls = []
+    real = flash.mha
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return real(*a, **k)
+    monkeypatch.setattr(flash, "mha", counted)
+    lengths = [12, 40] if cfg.sliding_window == 32 else [12, 64]
+    for s in lengths:
+        rng = np.random.default_rng(s)
+        x = rng.normal(size=(2, s, cfg.d_model)).astype(np.float32)
+        pos = np.broadcast_to(np.arange(s, dtype=np.int32), (2, s))
+        lp = jax.tree.map(lambda a: a[0], params["layers"])
+        want, (wk, wv) = JT._attention(rcfg, lp, jnp.asarray(x),
+                                       jnp.asarray(pos))
+        before = len(calls)
+        got, (k, v) = T._attention(cfg, model.layers[0], _t(x), _t(pos),
+                                   inv_freq=model.inv_freq)
+        flash_taken = len(calls) - before
+        assert flash_taken == int(T.takes_flash(cfg, s))
+        assert flash_taken == int(cfg.sliding_window is None
+                                  or s <= cfg.sliding_window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **BLOCK_TOL)
+        np.testing.assert_allclose(k.numpy(), np.asarray(wk), **BLOCK_TOL)
+        np.testing.assert_allclose(v.numpy(), np.asarray(wv), **BLOCK_TOL)
+    assert calls and all(c[2] == cfg.n_heads for c in calls)
+    assert not T.takes_flash(cfg, 4, valid_kv=np.ones(1))
+    assert not T.takes_flash(cfg, 4, q_offset=3)
+
+
+def _ref_prefill(rcfg, params, prompts, total):
+    """The reference's prefill, its cache moved into a buffer of `total`
+    positions (as its serve_lm does)."""
+    logits, cache = jax.jit(JS.make_prefill_step(rcfg))(
+        params, jnp.asarray(prompts))
+    full = JT.init_cache(rcfg, prompts.shape[0], total)
+    c = cache["k"].shape[2]
+    return np.asarray(logits), dict(
+        k=full["k"].at[:, :, :c].set(cache["k"]),
+        v=full["v"].at[:, :, :c].set(cache["v"]), pos=cache["pos"])
+
+
+def _port_prefill(cfg, model, prompts, total):
+    logits, cache = S.make_prefill_step(cfg)(model, _t(prompts))
+    full = T.init_cache(cfg, prompts.shape[0], total)
+    c = cache["k"].shape[2]
+    full["k"][:, :, :c] = cache["k"]
+    full["v"][:, :, :c] = cache["v"]
+    return logits.numpy(), dict(k=full["k"], v=full["v"], pos=cache["pos"])
+
+
+def _cache_from_reference(cache, cfg):
+    dt = T.compute_dtype(cfg)
+    return dict(pos=int(cache["pos"]), **{
+        n: torch.from_numpy(np.array(cache[n].astype(jnp.float32))).to(dt)
+        for n in ("k", "v")})
+
+
+# the Mixtral prompt (40) is longer than its window (32): a rolling cache
+@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prefill_and_decode_match_reference(arch, dtype):
+    """Prefill, the cache moved into a conversation-long buffer, then six
+    greedy decode steps in each package."""
+    rcfg, params, cfg, model = _models(arch, dtype)
+    prompt_len = 40 if cfg.sliding_window else 16
+    prompts = _tokens(cfg, 2, prompt_len, 7)
+    n = 6
+    want, rcache = _ref_prefill(rcfg, params, prompts, prompt_len + n)
+    got, cache = _port_prefill(cfg, model, prompts, prompt_len + n)
+    _close(got, want, dtype)
+    compared = _same_greedy(got, want)
+    decode = jax.jit(JS.make_decode_step(rcfg))
+    for _ in range(n):
+        tok = want.argmax(-1).astype(np.int32)[:, None]
+        if dtype == "float32":
+            # the port's own chain: its greedy tokens are the reference's
+            np.testing.assert_array_equal(got.argmax(-1), tok[:, 0])
+        else:
+            cache = _cache_from_reference(rcache, cfg)
+        logits, rcache = decode(params, rcache, jnp.asarray(tok))
+        want = np.asarray(logits[:, -1])
+        logits, cache = T.decode_step(cfg, model, cache, _t(tok))
+        got = logits[:, -1].numpy()
+        if dtype == "float32" or not cfg.is_moe:
+            _close(got, want, dtype)
+        else:
+            assert _rel(got, want) <= 5e-2
+        compared += _same_greedy(got, want)
+    assert compared >= n + 1            # the margin rule leaves most rows
+
+
+def test_rolling_cache_layout_matches_reference():
+    """Mixtral's prefill past its window packs the last `window` positions
+    at slot p % window, as the reference's `_roll_pack`."""
+    rcfg, params, cfg, model = _models("mixtral-8x7b", "float32")
+    prompts = _tokens(cfg, 2, 45, 3)
+    _, want = jax.jit(JS.make_prefill_step(rcfg))(params, jnp.asarray(prompts))
+    _, got = S.make_prefill_step(cfg)(model, _t(prompts))
+    assert got["pos"] == int(want["pos"]) == 45
+    assert got["k"].shape == tuple(want["k"].shape) == (2, 2, 32, 2, 16)
+    np.testing.assert_allclose(got["k"].numpy(), np.asarray(want["k"]),
+                               **BLOCK_TOL)
+    np.testing.assert_allclose(got["v"].numpy(), np.asarray(want["v"]),
+                               **BLOCK_TOL)
+    x = np.arange(2 * 45 * 3).reshape(2, 45, 3).astype(np.float32)
+    np.testing.assert_array_equal(S._roll_pack(_t(x), 32).numpy(),
+                                  np.asarray(JS._roll_pack(jnp.asarray(x), 32)))
+
+
+def test_shard_hints_are_refused():
+    cfg = dataclasses.replace(get_arch("qwen3-14b").build_smoke(),
+                              shard_hints=(("data",), "model", False))
+    with pytest.raises(ValueError, match="sharding slice"):
+        T.init_params(cfg, torch.Generator().manual_seed(0))
+    _, _, base_cfg, model = _models("qwen3-14b", "float32")
+    with pytest.raises(ValueError, match="sharding slice"):
+        T.forward(cfg, model, torch.zeros(1, 4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_init_params_shapes_and_scales(arch):
+    """The port's own init: the reference's leaves (split per layer) at
+    its dtypes and scales; matrices in cfg.dtype, norms float32 ones."""
+    cfg = get_arch(arch).build_smoke()
+    model = T.init_params(cfg, torch.Generator().manual_seed(0))
+    ref = JT.init_params(ref_arch(arch).build_smoke(), jax.random.PRNGKey(0))
+    lp = model.layers[0]
+    for name, leaf in ref["layers"].items():
+        mine = getattr(lp, name)
+        assert tuple(mine.shape) == leaf.shape[1:]
+        assert mine.dtype == (torch.float32 if name in T.NORM_WEIGHTS
+                              else torch.bfloat16)
+        want_std = float(np.std(np.asarray(leaf)))
+        got_std = float(torch.stack([getattr(l, name) for l in model.layers]
+                                    ).float().std()) if mine.numel() > 1 else 0
+        assert got_std == pytest.approx(want_std, rel=0.25, abs=1e-6)
+    assert (model.lm_head is None) == ("lm_head" not in ref)
+    assert tuple(model.embed.shape) == ref["embed"].shape
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        a.size for a in jax.tree.leaves(ref))
+
+
+# ---------------------------------------------------------------------------
+# the reference's own model tests (tests/test_models_lm.py) on the port
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_smoke_forward(arch):
+    cfg = get_arch(arch).build_smoke()
+    model = T.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = _t(_tokens(cfg, 2, 24, 0))
+    logits, aux = T.forward(cfg, model, toks)
+    assert logits.shape == (2, 24, cfg.vocab)
+    assert logits.dtype == torch.float32
+    assert not torch.isnan(logits).any() and not torch.isnan(aux)
+
+
+def _consistent(got, want, dtype):
+    """Two paths of the port on the same weights: the reference test's
+    elementwise 2e-2 at float32 (its paths agree far closer), the bf16
+    check at bf16 (the forward's flash attention keeps P in float32 where
+    the decode's blockwise attention rounds it to bf16 before P·V; the
+    reference's test passes elementwise because both of its paths take
+    blockwise)."""
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    else:
+        assert _rel(got.numpy(), want.numpy()) <= BF16_REL
+        _same_greedy(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "chatglm3-6b", "mixtral-8x7b"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_matches_forward(arch, dtype):
+    """Teacher-forced step-by-step decode reproduces the parallel forward
+    (MoE: capacity raised so no token is dropped), on the reference
+    test's weights."""
+    moe = get_arch(arch).build_smoke().is_moe
+    _, _, cfg, model = _models(arch, dtype, **(
+        dict(capacity_factor=8.0) if moe else {}))
+    s = 12
+    toks = _t(_tokens(cfg, 2, s, 2))
+    full_logits, _ = T.forward(cfg, model, toks)
+    cache = T.init_cache(cfg, 2, s)
+    outs = []
+    for i in range(s):
+        logits, cache = T.decode_step(cfg, model, cache, toks[:, i:i + 1])
+        outs.append(logits[:, 0])
+    _consistent(torch.stack(outs, 1), full_logits, dtype)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mixtral-8x7b"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prefill_matches_forward(arch, dtype):
+    _, _, cfg, model = _models(arch, dtype)
+    toks = _t(_tokens(cfg, 2, 10, 3))
+    full_logits, _ = T.forward(cfg, model, toks)
+    last, cache = S.make_prefill_step(cfg)(model, toks)
+    _consistent(last, full_logits[:, -1], dtype)
+    assert cache["pos"] == 10
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prefill_then_decode_continues(dtype):
+    _, _, cfg, model = _models("qwen3-14b", dtype)
+    s, extra = 8, 4
+    toks = _t(_tokens(cfg, 1, s + extra, 4))
+    full_logits, _ = T.forward(cfg, model, toks)
+    _, cache = S.make_prefill_step(cfg)(model, toks[:, :s])
+    buf = T.init_cache(cfg, 1, s + extra)
+    buf["k"][:, :, :s] = cache["k"]
+    buf["v"][:, :, :s] = cache["v"]
+    cache = dict(k=buf["k"], v=buf["v"], pos=cache["pos"])
+    outs = []
+    for i in range(extra):
+        logits, cache = T.decode_step(cfg, model, cache,
+                                      toks[:, s + i:s + i + 1])
+        outs.append(logits[:, 0])
+    _consistent(torch.stack(outs, 1), full_logits[:, s:], dtype)
+
+
+def test_sliding_window_masks_far_tokens():
+    """SWA: logits at position t do not depend on tokens outside the
+    receptive field (n_layers × window); dense FFN."""
+    cfg = dataclasses.replace(get_arch("mixtral-8x7b").build_smoke(),
+                              name="swa-test", sliding_window=4,
+                              n_experts=None)
+    model = T.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = _tokens(cfg, 1, 10, 5)
+    toks2 = toks.copy()
+    toks2[0, 0] = (toks2[0, 0] + 7) % cfg.vocab
+    l1, _ = T.forward(cfg, model, _t(toks))
+    l2, _ = T.forward(cfg, model, _t(toks2))
+    torch.testing.assert_close(l1[0, 9], l2[0, 9], rtol=1e-4, atol=1e-4)
+    assert not torch.allclose(l1[0, 1], l2[0, 1], rtol=1e-4, atol=1e-4)
+
+
+def test_moe_conservation():
+    """Uniform routing: output finite, Switch aux loss near top_k."""
+    gen = torch.Generator().manual_seed(0)
+    b, s, d, e, f = 2, 64, 16, 4, 32
+    x = torch.randn(b, s, d, generator=gen)
+    router = torch.zeros(d, e)
+    w_in, w_gate = (torch.randn(e, d, f, generator=gen) * 0.1
+                    for _ in range(2))
+    w_out = torch.randn(e, f, d, generator=gen) * 0.1
+    y, aux = L.moe_ffn(x, router, w_in, w_gate, w_out, top_k=2,
+                       group_size=64)
+    assert y.shape == x.shape and not torch.isnan(y).any()
+    assert abs(float(aux) - 2.0) < 0.3
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_param_counts_match_reference(arch):
+    for build in ("build", "build_smoke"):
+        got = getattr(get_arch(arch), build)()
+        want = getattr(ref_arch(arch), build)()
+        assert got.param_count() == want.param_count()
+        assert got.active_param_count() == want.active_param_count()
+    n = get_arch("mixtral-8x7b").build().param_count()
+    assert 45e9 < n < 50e9
+    assert 12e9 < get_arch("mixtral-8x7b").build().active_param_count() < 14e9
