@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the MCE engine, the
-substrate kernels and the serving path of the substrate models.
+substrate kernels and the serving and training paths of the substrate
+models.
 
     python3 chip_smoke.py
 
@@ -80,21 +81,41 @@ together) and then, printing one JSON line per phase:
    `serve_recsys(smoke=False)`'s path (25.8 GB of tables, 512 users, 1e6
    candidates), whose bags must launch `embedding_bag_sum`, the
    retrieval's tag bag held against the plain version on its own
-   operands, and the smoke config on the card against the CPU.
+   operands, and the smoke config on the card against the CPU;
+11. train: the training path (float32 master weights, AdamW,
+   `data.TokenStream`, `lm_steps.make_train_step`,
+   `recsys.make_train_step`, `launch/train.train`): qwen3-14b at build()
+   widths cut to 2 layers, one sequence of 4,096 tokens, 3 steps, each
+   of which must launch the tensor-core flash forward twice a layer
+   (forward and remat's recompute) and the three backward kernels once a
+   layer, one more backward reaching every parameter, the backward
+   kernels then held against the plain backward on layer 0's own q, k,
+   v; a narrow two-layer qwen3 with d_head 128 on the card against the
+   CPU (every gradient under relative norm 2e-2); two-tower-retrieval at
+   build() widths with 2^22 users and items and a batch of 16,384, 3
+   steps, each launching the bag forward and backward kernels twice, the
+   backward kernel then held against the plain version on a step's own
+   history-bag operands; and `train()` at smoke for both archs, killed at
+   step 6 and resumed from step 4 to the uninterrupted run's parameters
+   within 1e-5. Every line carries the card's name and power limit.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after, and fails if a kernel of that path was not launched.
 
 Every check raises on failure (exit code 1). The last two lines are the
-kernel table (all eleven kernels, launches summed over every path;
-`serve_launches` on rows 9 and 11, the launches of the serve phase's
-measured requests) as JSON and `{"ok": true, "device": {...}}`. It imports nothing of JAX or
+kernel table (the eleven kernels that replace the TPU's, launches summed
+over every path; `serve_launches` and `train_launches` on rows 9 and 11,
+the launches of the serve phase's measured requests and of the train
+phase's measured steps; then the two backward kernels, launches in the
+train phase's measured steps) as JSON and `{"ok": true, "device":
+{...}}`. It imports nothing of JAX or
 of the reference package `repro`.
 """
 from __future__ import annotations
 
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2155,7 +2176,7 @@ def serve_recsys_full_width(dev):
     check(res["top_idx"].shape == (RECSYS_SERVE["top_k"],)
           and bool((res["top_scores"][:-1] >= res["top_scores"][1:]).all()),
           "serve_recsys: bad top-k")
-    table, ids = rec.args[:2]
+    table, ids = rec.args[0].detach(), rec.args[1]
     del rec
     b, l = ids.shape
     real = int((ids >= 0).sum())
@@ -2218,12 +2239,455 @@ def serve_phase(dev):
             "embedding_bag_sum": rec["launches"]["embedding_bag_sum"]}
 
 
-def device_profile(run_once):
+# --------------------------------------------------------------------------
+# phase 11: training the substrate models
+# --------------------------------------------------------------------------
+
+# qwen3-14b at build() widths cut to 2 of its 40 layers, one sequence of
+# the train_4k cell's 4,096 tokens (its global batch of 256 cut to 1);
+# two-tower-retrieval at build() widths with 2^22 users and items (dense
+# AdamW over the full 25.8 GB of tables would need about 103 GB) and a
+# batch of 16,384 (train_batch's 65,536 makes 17 GB of in-batch logits)
+LM_TRAIN = dict(n_layers=2, batch=1, seq=4096, steps=3)
+RECSYS_TRAIN = dict(n_users=1 << 22, n_items=1 << 22, batch=16_384, steps=3)
+# the backward kernels: kernel -> (package, source, the reference function
+# whose XLA-differentiated gradient it computes; no TPU kernel)
+BACKWARD = {
+    "flash_attention_bwd": (
+        "flash_attention",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/models/layers.py:93"),
+    "embedding_bag_sum_bwd": (
+        "embedding_bag",
+        "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
+        "src/repro/models/recsys.py:72"),
+}
+
+
+def train_steps(step, dev, batches, n):
+    """`n` calls of `step(batch(i))` (the step updates its model in place),
+    each with every substrate kernel's count set to 0 just before and read
+    just after. Returns (losses, seconds, launches) a step."""
+    import torch
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    losses, secs, launches = [], [], []
+    for i in range(n):
+        batch = batches(i)
+        for ops in (flash_ops, bag_ops):
+            ops.LAUNCHES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        launches.append({**flash_ops.LAUNCHES, **bag_ops.LAUNCHES})
+    check(all(map(math.isfinite, losses)), f"non-finite losses {losses}")
+    return losses, secs, launches
+
+
+def train_kernel_group(name):
+    """A training step's kernels by what they compute: the substrate
+    kernels by name (the backward's first pass is the CUDA-core forward's
+    STATS instance: `flash_attention_kernel<T, D, true>`, mangled
+    `...ELb1E...`), cuBLAS's products, the rest (elementwise, reductions,
+    copies, AdamW)."""
+    if "dkdv_kernel" in name or "dq_kernel" in name or (
+            "flash_attention_kernel" in name
+            and ("Lb1E" in name or ", true>" in name)):
+        return "flash_attention_bwd"
+    for kernel in ("flash_attention", "embedding_bag_sum_bwd",
+                   "embedding_bag_sum"):
+        if kernel in name:
+            return kernel
+    low = name.lower()
+    if any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "matrix products"
+    return "other"
+
+
+def train_profile(one, batch):
+    """One more training step under `device_profile`: wall and busy ms,
+    the idle share, the busy ms by `train_kernel_group` and of the eight
+    kernels that take the most."""
+    _, plain_wall, wall, busy, n, split, by_name = device_profile(
+        lambda: one(batch), train_kernel_group)
+
+    def ms(d, k=None):
+        return {name[:90]: 1e3 * v for name, v in sorted(
+            d.items(), key=lambda kv: -kv[1])[:k]}
+    return dict(ms=1e3 * plain_wall, profiled_ms=1e3 * wall,
+                busy_ms=1e3 * busy, kernels=n,
+                device_idle_share=1.0 - busy / plain_wall,
+                busy_ms_by_group=ms(split), top_kernels_ms=ms(by_name, 8))
+
+
+def every_gradient(model, loss):
+    """Backward of `loss`; fails unless every parameter of `model` has a
+    finite gradient with a non-zero norm. Returns the norms by name."""
+    import torch
+    for p in model.parameters():
+        p.grad = None
+    loss.backward()
+    norms = {}
+    for name, p in model.named_parameters():
+        check(p.grad is not None, f"{name} has no gradient")
+        norms[name] = float(p.grad.float().norm())
+        check(math.isfinite(norms[name]) and norms[name] > 0,
+              f"{name}: gradient norm {norms[name]}")
+        p.grad = None
+    torch.cuda.synchronize()
+    return norms
+
+
+def flash_bwd_check(dev, q, k, v, name_power):
+    """The backward kernels against the plain backward on layer 0's own q,
+    k, v of a training step (GQA-expanded, (B, S, H, D) bf16) and a seeded
+    dO, under the bf16 check; timed beside the bound (5 Sq Sk D BH FLOP,
+    causal, at the bf16 rate), the plain version and SDPA's backward
+    through autograd. Returns the kernel-table line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    b, s, h, d = q.shape
+    qf, kf, vf = (t.detach().transpose(1, 2).reshape(b * h, s, d)
+                  .contiguous() for t in (q, k, v))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    do = torch.randn(qf.shape, generator=gen, device=dev).to(qf.dtype)
+    got = ops.flash_attention_bwd(qf, kf, vf, do, causal=True)
+    want = ref.flash_attention_bwd(qf, kf, vf, do, causal=True)
+    torch.cuda.synchronize()
+    errs, rels = [], []
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        check(g.dtype == w.dtype == qf.dtype and bool(torch.isfinite(g).all()),
+              f"flash_attention_bwd {what}: {g.dtype} or non-finite")
+        err, rel, ok = close(g, w, BF16_RTOL, BF16_ATOL)
+        check(ok, f"flash_attention_bwd {what} differs from the plain "
+              f"backward by {err} (relative norm {rel})")
+        errs.append(err)
+        rels.append(rel)
+    del got, want
+    torch.cuda.empty_cache()
+    lq, lk, lv = (t.view(b, h, s, d).detach().requires_grad_()
+                  for t in (qf, kf, vf))
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    lib_do = do.view(b, h, s, d)
+    ms = cuda_ms(lambda: ops.flash_attention_bwd(qf, kf, vf, do,
+                                                 causal=True), 5, 3)[0]
+    plain_ms = cuda_ms(lambda: ref.flash_attention_bwd(qf, kf, vf, do,
+                                                       causal=True), 3, 2)[0]
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (lq, lk, lv), lib_do, retain_graph=True), 5, 3)[0]
+    bound_ms, bound_by = bound(0, 5 * s * s * d * b * h, BF16_OPS_PER_S)
+    line = dict(phase="train", check="flash_attention_bwd",
+                shape=[b * h, s, s, d, True, str(qf.dtype)],
+                max_abs_err=max(errs), rel_norm_err=rels, rtol=BF16_RTOL,
+                atol=BF16_ATOL, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                name_power=name_power)
+    emit(line)
+    del lib_out, lq, lk, lv
+    torch.cuda.empty_cache()
+    return line
+
+
+def train_lm_full_width(dev, name_power):
+    """qwen3-14b at build() widths cut to LM_TRAIN's depth, float32 master
+    weights from seed 0, bf16 compute, the default remat: LM_TRAIN's
+    steps of `lm_steps.make_train_step` on `data.TokenStream`'s batches.
+    Each step must launch the flash forward twice a layer (forward and
+    remat's recompute, the tensor-core kernel) and the backward's three
+    kernels once a layer; one more backward must reach every parameter
+    (wq, wk, wv, q_norm and k_norm through the backward kernels); then
+    the backward kernels are held against the plain backward on layer 0's
+    own q, k, v. Returns (the line, the flash_attention_bwd table line)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.lm_steps import make_train_step
+    from repro_torch.optim import adamw_init
+    p = LM_TRAIN
+    cfg = dataclasses.replace(get_arch("qwen3-14b").build(),
+                              n_layers=p["n_layers"])
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          dtype=torch.float32)
+    opt = adamw_init(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    stream = TokenStream(cfg.vocab, p["seq"], p["batch"], seed=0)
+    step = make_train_step(cfg)
+    state = dict(model=model, opt=opt)
+
+    def one(batch):
+        state["model"], state["opt"], loss = step(state["model"],
+                                                  state["opt"], *batch)
+        return loss
+
+    def batches(i):
+        return tuple(torch.from_numpy(a).to(dev) for a in stream.batch(i))
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Recorder(ops, "mha") as rec:
+        losses, secs, launches = train_steps(one, dev, batches, p["steps"])
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = cfg.n_layers
+    for got in launches:
+        check(got["flash_attention"] == got["flash_attention_wgmma"] == 2 * n
+              and got["flash_attention_bwd"] == 3 * n,
+              f"qwen3-14b train step launched {got} for {n} layers")
+    profile = train_profile(one, batches(p["steps"]))
+    norms = every_gradient(model, T.lm_loss(cfg, model, *batches(p["steps"])))
+    q, k, v = (t.detach() for t in rec.args)
+    del rec, state, opt, model
+    torch.cuda.empty_cache()
+    table_line = flash_bwd_check(dev, q, k, v, name_power)
+    del q, k, v
+    torch.cuda.empty_cache()
+    tokens = p["batch"] * p["seq"]
+    return dict(
+        phase="train", model="qwen3-14b", config="build()",
+        depth=cfg.n_layers, reduced=dict(n_layers="40 -> 2",
+                                         global_batch="256 -> 1"),
+        storage="float32", compute=cfg.dtype, remat=cfg.remat,
+        params=cfg.param_count(), init_s=init_s, **p, losses=losses,
+        step_s=secs, tok_per_s=[tokens / t for t in secs], peak_bytes=peak,
+        launches_per_step=launches, profile=profile, attention_grad_norms={
+            k: v for k, v in norms.items()
+            if k.split(".")[-1] in ("wq", "wk", "wv", "q_norm", "k_norm")},
+        name_power=name_power), table_line
+
+
+def train_lm_against_cpu(dev):
+    """A two-layer narrow qwen3 (d_head 128, so the card's forward takes
+    the tensor-core kernel; float32 master weights, bf16 compute), one set
+    of weights made on the CPU from a seed: the loss and every parameter's
+    gradient on the card against the CPU, each gradient under relative
+    norm 2e-2."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_arch("qwen3-14b").build_smoke(),
+                              d_model=256, n_heads=4, n_kv_heads=2,
+                              d_head=128, d_ff=512, vocab=1024)
+    host = T.init_params(cfg, torch.Generator().manual_seed(1),
+                         dtype=torch.float32)
+    card = copy.deepcopy(host).to(dev)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 256)).astype(np.int32))
+    grads, losses = [], []
+    for model, device in ((host, "cpu"), (card, dev)):
+        ops.LAUNCHES.reset()
+        loss = T.lm_loss(cfg, model, toks.to(device),
+                         toks.roll(-1, 1).to(device))
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()})
+    check(ops.LAUNCHES["flash_attention_wgmma"] == 2 * cfg.n_layers
+          and ops.LAUNCHES["flash_attention_bwd"] == 3 * cfg.n_layers,
+          f"the narrow config's card run launched {dict(ops.LAUNCHES)}")
+    rels = {}
+    for name, want in grads[0].items():
+        rels[name] = float((grads[1][name] - want).norm() / want.norm())
+        check(rels[name] <= 2e-2, f"narrow qwen3 gradient {name}: card "
+              f"against CPU relative norm {rels[name]} > 2e-2")
+    return dict(config="build_smoke(), d_model=256, 4 heads over 2, "
+                       "d_head=128, d_ff=512, vocab=1024",
+                batch=2, seq=256, losses=dict(cpu=losses[0], card=losses[1]),
+                worst_rel_norm=max(rels.values()),
+                worst=max(rels, key=rels.get))
+
+
+def bag_bwd_check(dev, table, args, name_power):
+    """The bag backward kernel against the plain version on a training
+    step's own history-bag operands (grad_out, ids, V) at rtol = atol =
+    1e-5 (atomics add in another order), timed beside the bound (zeroing
+    the gradient, reading grad_out and the ids, a read-modify-write of
+    every row touched), the plain version and F.embedding_bag's backward.
+    Returns the kernel-table line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import ops, ref
+    grad_out, ids, v = args
+    (b, d), l = grad_out.shape, ids.shape[1]
+    got = ops.embedding_bag_sum_bwd(grad_out, ids, v)
+    want = ref.embedding_bag_sum_bwd(grad_out, ids, v)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "embedding_bag_sum_bwd: "
+          "non-finite")
+    err, rel, ok = close(got, want, 1e-5, 1e-5)
+    check(ok, f"embedding_bag_sum_bwd differs from the plain version by "
+          f"{err} (relative norm {rel})")
+    del got, want
+    real = ids >= 0
+    touched = int(torch.unique(ids[real].clamp(max=v - 1)).numel())
+    safe = ids.clamp(min=0).long()
+    leaf = table.detach().requires_grad_()
+    lib_out = F.embedding_bag(safe, leaf, mode="sum",
+                              per_sample_weights=real.float())
+    ms = cuda_ms(lambda: ops.embedding_bag_sum_bwd(grad_out, ids, v), 5, 3)[0]
+    plain_ms = cuda_ms(lambda: ref.embedding_bag_sum_bwd(grad_out, ids, v),
+                       3, 2)[0]
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, leaf, grad_out, retain_graph=True), 5, 3)[0]
+    nbytes = 4 * (v * d + b * d + b * l + 2 * touched * d)
+    bound_ms, bound_by = bound(nbytes, int(real.sum()) * d)
+    line = dict(phase="train", check="embedding_bag_sum_bwd",
+                shape=[v, d, b, l], real_ids=int(real.sum()),
+                touched_rows=touched, max_abs_err=err, rel_norm_err=rel,
+                rtol=1e-5, atol=1e-5, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, name_power=name_power)
+    emit(line)
+    del lib_out, leaf
+    torch.cuda.empty_cache()
+    return line
+
+
+def train_recsys_full_width(dev, name_power):
+    """two-tower-retrieval at build() widths with RECSYS_TRAIN's cuts:
+    RECSYS_TRAIN's steps of `recsys.make_train_step` on `synth_batch`'s
+    batches. Each step must launch the bag forward and backward kernels
+    twice (the history bag, the tag bag); one more backward must reach
+    every parameter (item_id_table and tag_table through the bag
+    backward); the backward kernel is then held against the plain version
+    on the last step's history-bag operands. Returns (the line, the
+    embedding_bag_sum_bwd table line)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.models import recsys as R
+    from repro_torch.optim import adamw_init
+    p = RECSYS_TRAIN
+    cfg = dataclasses.replace(get_arch("two-tower-retrieval").build(),
+                              n_users=p["n_users"], n_items=p["n_items"])
+    t0 = time.perf_counter()
+    model = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt = adamw_init(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = R.make_train_step(cfg)
+    state = dict(model=model, opt=opt)
+
+    def one(batch):
+        state["model"], state["opt"], loss = step(state["model"],
+                                                  state["opt"], batch)
+        return loss
+
+    def batches(i):
+        return R.to_device(R.synth_batch(cfg, p["batch"], seed=i), dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Recorder(ops, "embedding_bag_sum_bwd",
+                  lambda g, ids, v: v == cfg.n_items) as rec:
+        losses, secs, launches = train_steps(one, dev, batches, p["steps"])
+    peak = torch.cuda.max_memory_allocated(dev)
+    for got in launches:
+        check(got["embedding_bag_sum"] == got["embedding_bag_sum_bwd"] == 2,
+              f"two-tower train step launched {got}")
+    profile = train_profile(one, batches(p["steps"]))
+    every_gradient(model, R.retrieval_loss(cfg, model, batches(p["steps"])))
+    args = rec.args
+    del rec, state, opt
+    torch.cuda.empty_cache()
+    table_line = bag_bwd_check(dev, model.item_id_table, args, name_power)
+    del model, args
+    torch.cuda.empty_cache()
+    return dict(
+        phase="train", model="two-tower-retrieval", config="build()",
+        reduced=dict(n_users="2^25 -> 2^22", n_items="2^24 -> 2^22",
+                     batch="65,536 -> 16,384"),
+        params=cfg.param_count(), init_s=init_s, **p, losses=losses,
+        step_s=secs, examples_per_s=[p["batch"] / t for t in secs],
+        peak_bytes=peak, launches_per_step=launches, profile=profile,
+        name_power=name_power), table_line
+
+
+def train_launcher_on_card(dev, name_power):
+    """`launch/train.train` at smoke on the card for both archs: 8 steps
+    with checkpoints every 4, a run that fails at step 6, and a resume
+    that must restore step 4 and end with the uninterrupted run's
+    parameters within 1e-5 (the bags' atomics make the last bits
+    run-dependent)."""
+    import tempfile
+    import torch
+    from repro_torch.launch.train import train
+    out = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for arch in ("qwen3-14b", "two-tower-retrieval"):
+            t0 = time.perf_counter()
+            full = train(arch, steps=8, ckpt_dir=f"{tmp}/{arch}-a",
+                         ckpt_every=4, log_every=4, device=dev)
+            try:
+                train(arch, steps=8, ckpt_dir=f"{tmp}/{arch}-b",
+                      ckpt_every=4, fail_at_step=6, log_every=4, device=dev)
+                check(False, f"train({arch}) did not fail at step 6")
+            except RuntimeError as e:
+                check("simulated node failure" in str(e), repr(e))
+            resumed = train(arch, steps=8, ckpt_dir=f"{tmp}/{arch}-b",
+                            ckpt_every=4, resume=True, log_every=4,
+                            device=dev)
+            check(resumed["restored_from"] == 4,
+                  f"{arch}: resumed from {resumed['restored_from']}")
+            got = dict(resumed["params"].named_parameters())
+            worst = 0.0
+            for name, p in full["params"].named_parameters():
+                diff = float((p - got[name]).detach().abs().max())
+                check(diff <= 1e-5, f"{arch} resume: {name} differs by {diff}")
+                worst = max(worst, diff)
+            check(full["final_loss"] < full["losses"][0][1],
+                  f"{arch}: loss did not decrease {full['losses']}")
+            out[arch] = dict(losses=full["losses"], restored_from=4,
+                             resume_max_abs_diff=worst,
+                             seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    return dict(phase="train", check="launch/train.train smoke", **out,
+                name_power=name_power)
+
+
+def train_phase(dev, name_power):
+    """The training path of the substrates: qwen3-14b at full width (2
+    layers, 4,096 tokens) and its narrow form against the CPU, the
+    two-tower model at full widths, and `train()` at smoke with a kill and
+    a resume. Returns the backward kernels' table lines and the substrate
+    kernels' launches in the measured steps."""
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm, flash_line = train_lm_full_width(dev, name_power)
+    lm["cpu_check"] = train_lm_against_cpu(dev)
+    emit(lm)
+    rec, bag_line = train_recsys_full_width(dev, name_power)
+    emit(rec)
+    emit(train_launcher_on_card(dev, name_power))
+    emit(dict(phase="train_done", seconds=time.perf_counter() - t0))
+    launches = {}
+    for line in (lm, rec):
+        for got in line["launches_per_step"]:
+            for name, n in got.items():
+                launches[name] = launches.get(name, 0) + n
+    flash_line["launches"] = launches["flash_attention_bwd"]
+    bag_line["launches"] = launches["embedding_bag_sum_bwd"]
+    return {"flash_attention_bwd": flash_line,
+            "embedding_bag_sum_bwd": bag_line}, launches
+
+
+def device_profile(run_once, group=None):
     """Where the time of `run_once()` goes: its wall time with the
     profiler off (after a warm-up) against the device's kernel time
     (torch.profiler's CUDA kernel events, profiler on). Returns (output,
     wall s, profiled wall s, device busy s, kernel count); the idle share
-    is the part of the unprofiled wall time in which no kernel runs."""
+    is the part of the unprofiled wall time in which no kernel runs. With
+    `group` (kernel name -> group name), also the busy s by group."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2241,7 +2705,14 @@ def device_profile(run_once):
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6
-    return out, plain_wall, wall, busy, len(kernels)
+    if group is None:
+        return out, plain_wall, wall, busy, len(kernels)
+    split, by_name = {}, {}
+    for e in kernels:
+        g, us = group(e.name), e.time_range.elapsed_us()
+        split[g] = split.get(g, 0.0) + us * 1e-6
+        by_name[e.name] = by_name.get(e.name, 0.0) + us * 1e-6
+    return out, plain_wall, wall, busy, len(kernels), split, by_name
 
 
 def step_profile(dev, prep, u=64, steps=64, backend="pivot"):
@@ -2365,6 +2836,7 @@ def main() -> int:
     paths["driver"] = driver_path(dev, g12)
     paths.update(service_paths(dev, g11))
     serve_launches = serve_phase(dev)
+    backward, train_launches = train_phase(dev, name_power)
 
     # kernel table: each kernel at the bucket shape the main path launches
     # it most often (the U=64 bucket: most steps and trips), the row
@@ -2445,13 +2917,27 @@ def main() -> int:
             **({k: line[k] for k in ("earlier_ms", "entry_point")
                 if k in line}),
             **({"serve_launches": serve_launches[name]}
-               if name in serve_launches else {})))
+               if name in serve_launches else {}),
+            **({"train_launches": train_launches[name]}
+               if name in train_launches else {})))
+    # the backward kernels at the training path's full-width shapes, with
+    # their launches in the train phase's measured steps
+    for name, (_, source, replaces) in BACKWARD.items():
+        line = backward[name]
+        table.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=line["launches"], max_abs_err=line["max_abs_err"],
+            ms=line["ms"], plain_ms=line["plain_ms"],
+            bound_ms=line["bound_ms"], bound_by=line["bound_by"],
+            library_ms=line["library_ms"], shape=line["shape"]))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start,
               path_launches=paths,
               note="library_ms is null for the bitset kernels and "
                    "has_common_neighbor: no single PyTorch call computes "
                    "AND+popcount over bit words, a BK walk, or a "
-                   "common-neighbour test"))
+                   "common-neighbour test; the backward kernels replace no "
+                   "TPU kernel: their 'replaces' is the reference function "
+                   "whose XLA-differentiated gradient they compute"))
     print(name_power, flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

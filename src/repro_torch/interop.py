@@ -9,12 +9,18 @@ over; nothing here imports the reference.
 * The substrate models do: `transformer_params_from_reference` and
   `two_tower_params_from_reference` build the port's modules from the
   reference's `init_params` pytrees (as numpy arrays), so both packages
-  serve the same weights. Neither package reproduces the other's random
-  draws.
+  serve and train the same weights. Neither package reproduces the
+  other's random draws.
+* Training state: `transformer_named` and `two_tower_named` key a
+  params-shaped pytree of the reference (its params, or its AdamW
+  moments) by the port's parameter names, and
+  `adamw_state_from_reference` builds the port's AdamW state from the
+  reference's (`mu`, `nu`, `step`), so one step from one state can be
+  compared across packages.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -47,14 +53,16 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def transformer_params_from_reference(params_np: dict,
-                                      cfg: T.TransformerConfig,
-                                      device) -> T.Transformer:
+                                      cfg: T.TransformerConfig, device,
+                                      dtype: Optional[torch.dtype] = None
+                                      ) -> T.Transformer:
     """The port's `Transformer` for the reference's `init_params(cfg, key)`
     pytree as numpy float32 arrays: each stacked (n_layers, ...) leaf of
-    `layers` split along dim 0 into the layers, matrices cast to
-    cfg.dtype (the cast the reference makes at every use), norm weights
+    `layers` split along dim 0 into the layers, matrices stored in `dtype`
+    (cfg.dtype by default, the cast the reference makes at every use;
+    float32 to train, as the reference stores them), norm weights
     float32, on `device`."""
-    dt = T.compute_dtype(cfg)
+    dt = dtype or T.compute_dtype(cfg)
 
     def leaf(name, a):
         return _tensor(a, torch.float32 if name in T.NORM_WEIGHTS else dt,
@@ -86,3 +94,45 @@ def two_tower_params_from_reference(params_np: dict, cfg: R.TwoTowerConfig,
             "user_id_table", "item_id_table", "geo_table", "tag_table")},
         user_mlp=mlp(params_np["user_mlp"]),
         item_mlp=mlp(params_np["item_mlp"]))
+
+
+def transformer_named(tree: dict, cfg: T.TransformerConfig
+                      ) -> Dict[str, np.ndarray]:
+    """A params-shaped pytree of the reference's transformer (params, or
+    AdamW's mu / nu) keyed by the port's parameter names: `embed`,
+    `layers.<i>.<leaf>` (dim 0 of each stacked leaf), `ln_final`,
+    `lm_head` unless tied."""
+    out = {"embed": tree["embed"]}
+    for i in range(cfg.n_layers):
+        out.update({f"layers.{i}.{name}": a[i]
+                    for name, a in tree["layers"].items()})
+    out["ln_final"] = tree["ln_final"]
+    if "lm_head" in tree:
+        out["lm_head"] = tree["lm_head"]
+    return out
+
+
+def two_tower_named(tree: dict) -> Dict[str, np.ndarray]:
+    """A params-shaped pytree of the reference's two-tower model keyed by
+    the port's parameter names: the four tables, `<tower>.w.<i>` and
+    `<tower>.b.<i>` for each MLP's w{i} / b{i}."""
+    out = {k: tree[k] for k in ("user_id_table", "item_id_table",
+                                "geo_table", "tag_table")}
+    for tower in ("user_mlp", "item_mlp"):
+        for name, a in tree[tower].items():
+            out[f"{tower}.{name[0]}.{name[1:]}"] = a
+    return out
+
+
+def adamw_state_from_reference(opt_np: dict, named: Callable[[dict], Dict],
+                               device) -> dict:
+    """The port's AdamW state (`optim.adamw_init`'s layout) for the
+    reference's `adamw_init` / `adamw_update` state as numpy: `mu` and
+    `nu` keyed by `named` (`transformer_named` with its config, or
+    `two_tower_named`), float32 on `device`, and the int32 step."""
+    def moments(tree):
+        return {n: _tensor(a, torch.float32, device)
+                for n, a in named(tree).items()}
+    return dict(mu=moments(opt_np["mu"]), nu=moments(opt_np["nu"]),
+                step=torch.tensor(int(opt_np["step"]), dtype=torch.int32,
+                                  device=device))

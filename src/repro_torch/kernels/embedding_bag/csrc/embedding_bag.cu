@@ -27,6 +27,21 @@
 // them with __shfl_sync, so every row load is independent of the last and
 // the loop can keep several in flight. Row offsets are 64-bit: at V = 2^24,
 // D = 128 they reach 2^31.
+//
+// Backward (embedding_bag_sum_bwd; no TPU kernel: the reference trains
+// through its own jnp bag, which XLA differentiates, while the port's
+// forward runs on the kernel above). grad_table (V, D) float32 is zero
+// (the wrapper allocates it zeroed) plus grad_out[b] added into row
+// ids[b, l] for every id >= 0; an id >= V adds into row V - 1, as the
+// forward reads it.
+// Bound on an H100 SXM: bytes: zeroing grad_table, reading grad_out and
+// the ids, and a read-modify-write of each row the bags touch.
+// Design: the forward's geometry (a warp a bag, lanes across D, ids walked
+// with __shfl_sync), each lane holding its grad_out columns in registers
+// for the whole bag and adding them with float32 atomicAdd, 16 bytes at a
+// time (the float4 atomicAdd of sm_90) when D % 4 == 0 and both rows are
+// 16-byte aligned. Atomics make the order of additions into a row shared
+// by several bags, and so its last bits, run-dependent.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -85,6 +100,50 @@ embedding_bag_sum_kernel(const float* __restrict__ table,
   }
 }
 
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+embedding_bag_sum_bwd_kernel(const float* __restrict__ grad_out,
+                             const int32_t* __restrict__ ids,
+                             float* __restrict__ grad_table, int64_t B, int L,
+                             int64_t V, int D) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (b >= B) return;                     // the whole warp leaves together
+  const int32_t* bag = ids + b * L;
+  const float* src = grad_out + b * D;
+  for (int c0 = 0; c0 < D; c0 += 32 * VEC) {
+    const int c = c0 + lane * VEC;
+    const bool mine = c < D;
+    float g[VEC];
+    if constexpr (VEC == 4) {
+      const float4 x = mine ? *reinterpret_cast<const float4*>(src + c)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      g[0] = x.x;
+      g[1] = x.y;
+      g[2] = x.z;
+      g[3] = x.w;
+    } else {
+      g[0] = mine ? src[c] : 0.f;
+    }
+    for (int l0 = 0; l0 < L; l0 += 32) {
+      const int32_t my_id = l0 + lane < L ? bag[l0 + lane] : -1;
+      const int n = L - l0 < 32 ? L - l0 : 32;
+      for (int k = 0; k < n; ++k) {
+        const int64_t id = __shfl_sync(kFull, my_id, k);
+        if (id < 0 || !mine) continue;
+        float* row = grad_table + (id < V ? id : V - 1) * D + c;
+        if constexpr (VEC == 4) {
+          atomicAdd(reinterpret_cast<float4*>(row),
+                    make_float4(g[0], g[1], g[2], g[3]));
+        } else {
+          atomicAdd(row, g[0]);
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -103,6 +162,24 @@ int embedding_bag_sum(const void* table, const void* ids, void* out,
   } else {
     embedding_bag_sum_kernel<1><<<blocks, kThreads, 0, s>>>(t, i, o, B, L, V,
                                                             D);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int embedding_bag_sum_bwd(const void* grad_out, const void* ids,
+                          void* grad_table, long long B, int L, long long V,
+                          int D, int vec4, void* stream) {
+  const unsigned blocks = static_cast<unsigned>((B + kWarps - 1) / kWarps);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* g = static_cast<const float*>(grad_out);
+  const auto* i = static_cast<const int32_t*>(ids);
+  auto* t = static_cast<float*>(grad_table);
+  if (vec4) {
+    embedding_bag_sum_bwd_kernel<4><<<blocks, kThreads, 0, s>>>(g, i, t, B, L,
+                                                                V, D);
+  } else {
+    embedding_bag_sum_bwd_kernel<1><<<blocks, kThreads, 0, s>>>(g, i, t, B, L,
+                                                                V, D);
   }
   return static_cast<int>(cudaGetLastError());
 }

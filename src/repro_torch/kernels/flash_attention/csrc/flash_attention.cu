@@ -1,5 +1,6 @@
-// Hopper (sm_90a) kernels for softmax attention forward (flash attention):
-// the LM substrate's attention with the scores kept out of device memory.
+// Hopper (sm_90a) kernels for softmax attention (flash attention), forward
+// and backward: the LM substrate's attention with the scores kept out of
+// device memory.
 // Plain C entry points, loaded with ctypes by
 // repro_torch/kernels/flash_attention/ops.py; each returns
 // cudaGetLastError() (or cudaErrorInvalidValue for arguments it refuses)
@@ -90,6 +91,36 @@
 // D/4 of the row's accumulator columns (c = t + 4j) in registers, sized at
 // compile time for D <= 64, 128 or 256.
 
+// Backward (flash_attention_bwd_rows, _dkdv, _dq; no TPU kernel: the
+// reference trains through its pure-JAX blockwise attention, which XLA
+// differentiates, while the port's forward runs on the kernels above, so
+// its gradient comes from kernels too). Given q, k, v and dO, it returns
+// dQ, dK, dV in q's type: P = exp(S - lse), dV = P^T dO, dP = dO V^T,
+// dS = P * (dP - delta) with delta = rowsum(dO * O) = rowsum(P * dP), dQ =
+// dS K / sqrt(D), dK = dS^T Q / sqrt(D), every sum in float32; causal or
+// not, top-left aligned as the forward, Sq != Sk, D <= 256, float32,
+// bfloat16 and float16 inputs. O is the unrounded float32 output,
+// recomputed: delta from the forward's bf16-rounded output moves 0.1-0.2 %
+// of the gradient's elements past the bf16 checks (atol 1e-3) against the
+// reference's autodiff, which differentiates the unrounded softmax.
+// Bound on an H100 SXM: operations, 5 * Sq * Sk * D * BH FLOP for causal
+// attention (twice that without the mask): 429.5 GFLOP at qwen3-14b's
+// train_4k (40 heads, S = 4,096, D = 128), 0.434 ms at 989 TFLOP/s bf16.
+// Design: a simple, correct first kernel on the CUDA cores in float32 (67
+// TFLOP/s; the tensor cores are later work), in three passes, no atomics,
+// so the result is deterministic; the forward kernels compute as before.
+// - rows: the CUDA-core forward kernel's STATS instance recomputes each
+//   query row's float32 O and log-sum-exp (the forward saves neither) and
+//   writes lse and delta = rowsum(dO * O) in place of the output.
+// - dkdv: a block per (head, 64 key rows), K and V resident in shared
+//   memory as float32, query tiles of 32 rows streamed from the diagonal
+//   on; four threads a key row share its P and dS through shared memory
+//   and keep D/4 of its dK and dV columns in registers.
+// - dq: a block per (head, 64 query rows), Q and dO resident, key tiles of
+//   32 rows up to the diagonal; dQ a row in registers the same way.
+// Shared memory at D = 256: 214,528 bytes (dkdv), under the 232,448 a
+// block may use.
+
 #include <cstdint>
 #include <cstring>
 #include <cuda.h>           // CUtensorMap and its enums (types only)
@@ -126,11 +157,17 @@ size_t smem_bytes(int D) {
   return sizeof(float) * (kBQ * dp + kBK * dp + kBK * D + kBQ * (kBK + 1));
 }
 
-template <typename T, int DMAX>
+// With STATS, the backward's first pass: instead of the output it writes
+// each query row's log-sum-exp (m + log l) and delta = rowsum(dO * O) of
+// the unrounded float32 O (o is not written; dO, lse, delta are read and
+// written only then).
+template <typename T, int DMAX, bool STATS = false>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq,
-                       int Sk, int D, float scale, int causal) {
+                       int Sk, int D, float scale, int causal,
+                       const T* __restrict__ dO, float* __restrict__ lse,
+                       float* __restrict__ delta) {
   extern __shared__ float smem[];
   const int DP = D + 1;
   float* sQ = smem;                       // kBQ x DP
@@ -223,9 +260,27 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
+  const float denom = fmaxf(l, 1e-30f);
+  if constexpr (STATS) {
+    float dd = 0.f;
+    if (qpos < Sq) {
+      const T* drow = dO + (bh * Sq + qpos) * static_cast<int64_t>(D);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = t + 4 * j;
+        if (c < D) dd += to_f32(drow[c]) * (acc[j] / denom);
+      }
+    }
+    dd += __shfl_xor_sync(kFull, dd, 1);
+    dd += __shfl_xor_sync(kFull, dd, 2);
+    if (qpos < Sq && t == 0) {
+      lse[bh * Sq + qpos] = m + logf(l);
+      delta[bh * Sq + qpos] = dd;
+    }
+    return;
+  }
   if (qpos >= Sq) return;
   T* orow = o + (bh * Sq + qpos) * static_cast<int64_t>(D);
-  const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     const int c = t + 4 * j;
@@ -247,7 +302,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                   static_cast<unsigned>((Sq + kBQ - 1) / kBQ));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, D, scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, D, scale, causal,
+      nullptr, nullptr, nullptr);
   return cudaGetLastError();
 }
 
@@ -265,6 +321,260 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 }
 
 }  // namespace
+
+// ===========================================================================
+// flash_attention_bwd_{rows,dkdv,dq}: the backward (CUDA cores, float32)
+// ===========================================================================
+namespace bwd {
+
+constexpr int kRows = 64;       // rows a block owns (query or key rows)
+constexpr int kTile = 32;       // rows a streamed tile
+constexpr int kThreads = 256;   // four threads a row
+constexpr int kPS = kTile + 1;  // row stride of the P and dS tiles
+
+// Loads rows [r0, r0 + n) of a (S, D) slice into shared memory as float32,
+// row stride D + 1, zeros past S.
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
+                                          int n, int S, int D) {
+  const int DP = D + 1;
+  for (int i = threadIdx.x; i < n * D; i += kThreads) {
+    const int rr = i / D, c = i - rr * D;
+    const int p = r0 + rr;
+    dst[rr * DP + c] = p < S ? to_f32(src[static_cast<int64_t>(p) * D + c])
+                             : 0.f;
+  }
+}
+
+// Whether query qpos sees key kpos.
+__device__ __forceinline__ bool visible(int qpos, int kpos, int Sq, int Sk,
+                                        int causal) {
+  return qpos < Sq && kpos < Sk && (!causal || qpos >= kpos);
+}
+
+// Key tiles a query tile [q0, q0 + kRows) reads: those below its last
+// row's diagonal when causal.
+__device__ __forceinline__ int key_tiles(int q0, int Sk, int causal) {
+  const int n = (Sk + kTile - 1) / kTile;
+  const int last = (q0 + kRows - 1) / kTile + 1;
+  return causal && last < n ? last : n;
+}
+
+// Pass 2: dK and dV. A block per (head, 64 key rows), K and V resident in
+// shared memory, query tiles of 32 rows streamed from the first one that
+// reaches the block's keys (causal) to the end. Four threads a key row:
+// each computes the scores and dP = dO.V of 8 of the tile's queries
+// (P = exp(S - lse), dS = P * (dP - delta)), the row's quad shares P and dS
+// through shared memory, and each thread keeps D/4 of the row's dK and dV
+// columns (c = t + 4j) in registers.
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const T* __restrict__ dO,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int D,
+            float scale, int causal) {
+  extern __shared__ float smem[];
+  const int DP = D + 1;
+  float* sK = smem;                       // kRows x DP
+  float* sV = sK + kRows * DP;            // kRows x DP
+  float* sQ = sV + kRows * DP;            // kTile x DP
+  float* sO = sQ + kTile * DP;            // kTile x DP (dO)
+  float* sP = sO + kTile * DP;            // kRows x kPS
+  float* sS = sP + kRows * kPS;           // kRows x kPS (dS)
+  float* sL = sS + kRows * kPS;           // kTile (lse)
+  float* sD = sL + kTile;                 // kTile (delta)
+  const int64_t bh = blockIdx.x;
+  const int k0 = blockIdx.y * kRows;
+  const int r = threadIdx.x >> 2, t = threadIdx.x & 3;
+  const int kpos = k0 + r;
+  const int64_t kvo = bh * Sk * static_cast<int64_t>(D);
+  const int64_t qo = bh * Sq * static_cast<int64_t>(D);
+  load_rows(sK, k + kvo, k0, kRows, Sk, D);
+  load_rows(sV, v + kvo, k0, kRows, Sk, D);
+  constexpr int NJ = DMAX / 4;
+  float gk[NJ], gv[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) gk[j] = gv[j] = 0.f;
+  const int n_tiles = (Sq + kTile - 1) / kTile;
+  for (int qt = causal ? k0 / kTile : 0; qt < n_tiles; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();                      // the last tile's readers are done
+    load_rows(sQ, q + qo, q0, kTile, Sq, D);
+    load_rows(sO, dO + qo, q0, kTile, Sq, D);
+    if (threadIdx.x < kTile) {
+      const int p = q0 + threadIdx.x;
+      sL[threadIdx.x] = p < Sq ? lse[bh * Sq + p] : 0.f;
+      sD[threadIdx.x] = p < Sq ? delta[bh * Sq + p] : 0.f;
+    }
+    __syncthreads();
+    float s[kTile / 4], dp[kTile / 4];
+#pragma unroll
+    for (int j = 0; j < kTile / 4; ++j) s[j] = dp[j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float kd = sK[r * DP + d], vd = sV[r * DP + d];
+#pragma unroll
+      for (int j = 0; j < kTile / 4; ++j) {
+        s[j] += sQ[(t + 4 * j) * DP + d] * kd;
+        dp[j] += sO[(t + 4 * j) * DP + d] * vd;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kTile / 4; ++j) {
+      const int jq = t + 4 * j;
+      const float p = visible(q0 + jq, kpos, Sq, Sk, causal)
+                          ? expf(s[j] * scale - sL[jq]) : 0.f;
+      sP[r * kPS + jq] = p;
+      sS[r * kPS + jq] = p * (dp[j] - sD[jq]);
+    }
+    __syncwarp();                         // the row's quad is one warp's
+    for (int jq = 0; jq < kTile; ++jq) {
+      const float p = sP[r * kPS + jq], ds = sS[r * kPS + jq];
+      const float* qr = sQ + jq * DP;
+      const float* orow = sO + jq * DP;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = t + 4 * j;
+        if (c < D) {
+          gv[j] += p * orow[c];
+          gk[j] += ds * qr[c];
+        }
+      }
+    }
+  }
+  if (kpos >= Sk) return;
+  const int64_t row = kvo + static_cast<int64_t>(kpos) * D;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = t + 4 * j;
+    if (c < D) {
+      store(dk + row + c, gk[j] * scale);
+      store(dv + row + c, gv[j]);
+    }
+  }
+}
+
+// Pass 3: dQ. A block per (head, 64 query rows), Q and dO resident, key
+// tiles of 32 rows streamed up to the block's diagonal (causal); four
+// threads a query row, as pass 2 with the roles of queries and keys
+// swapped: dQ = scale * sum_k dS K.
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const T* __restrict__ dO,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          T* __restrict__ dq, int Sq, int Sk, int D, float scale,
+          int causal) {
+  extern __shared__ float smem[];
+  const int DP = D + 1;
+  float* sQ = smem;                       // kRows x DP
+  float* sO = sQ + kRows * DP;            // kRows x DP (dO)
+  float* sK = sO + kRows * DP;            // kTile x DP
+  float* sV = sK + kTile * DP;            // kTile x DP
+  float* sS = sV + kTile * DP;            // kRows x kPS (dS)
+  const int64_t bh = blockIdx.x;
+  const int q0 = blockIdx.y * kRows;
+  const int r = threadIdx.x >> 2, t = threadIdx.x & 3;
+  const int qpos = q0 + r;
+  const int64_t qo = bh * Sq * static_cast<int64_t>(D);
+  const int64_t kvo = bh * Sk * static_cast<int64_t>(D);
+  load_rows(sQ, q + qo, q0, kRows, Sq, D);
+  load_rows(sO, dO + qo, q0, kRows, Sq, D);
+  const float L = qpos < Sq ? lse[bh * Sq + qpos] : 0.f;
+  const float Dl = qpos < Sq ? delta[bh * Sq + qpos] : 0.f;
+  constexpr int NJ = DMAX / 4;
+  float acc[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
+  const int n_tiles = key_tiles(q0, Sk, causal);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();                      // the last tile's readers are done
+    load_rows(sK, k + kvo, k0, kTile, Sk, D);
+    load_rows(sV, v + kvo, k0, kTile, Sk, D);
+    __syncthreads();
+    float s[kTile / 4], dp[kTile / 4];
+#pragma unroll
+    for (int j = 0; j < kTile / 4; ++j) s[j] = dp[j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float qd = sQ[r * DP + d], od = sO[r * DP + d];
+#pragma unroll
+      for (int j = 0; j < kTile / 4; ++j) {
+        s[j] += qd * sK[(t + 4 * j) * DP + d];
+        dp[j] += od * sV[(t + 4 * j) * DP + d];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kTile / 4; ++j) {
+      const int kj = t + 4 * j;
+      const float p = visible(qpos, k0 + kj, Sq, Sk, causal)
+                          ? expf(s[j] * scale - L) : 0.f;
+      sS[r * kPS + kj] = p * (dp[j] - Dl);
+    }
+    __syncwarp();                         // the row's quad is one warp's
+    for (int kk = 0; kk < kTile; ++kk) {
+      const float ds = sS[r * kPS + kk];
+      const float* kr = sK + kk * DP;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = t + 4 * j;
+        if (c < D) acc[j] += ds * kr[c];
+      }
+    }
+  }
+  if (qpos >= Sq) return;
+  const int64_t row = qo + static_cast<int64_t>(qpos) * D;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = t + 4 * j;
+    if (c < D) store(dq + row + c, acc[j] * scale);
+  }
+}
+
+size_t dkdv_smem(int D) {
+  return sizeof(float) * ((2 * kRows + 2 * kTile) * (D + 1) + 2 * kRows * kPS
+                          + 2 * kTile);
+}
+size_t dq_smem(int D) {
+  return sizeof(float) * ((2 * kRows + 2 * kTile) * (D + 1) + kRows * kPS);
+}
+
+template <typename T> struct Tag { using type = T; };
+template <int N> struct Width { static constexpr int value = N; };
+
+// Calls f(Tag<T>, Width<DMAX>) for the dtype code (0 float32, 1 bfloat16,
+// 2 float16) and the accumulator width that holds D (64, 128 or 256).
+template <typename F>
+cudaError_t dispatch(int dtype, int D, F&& f) {
+  if (D <= 0 || D > 256) return cudaErrorInvalidValue;
+  auto by_width = [&](auto tag) -> cudaError_t {
+    if (D <= 64) return f(tag, Width<64>{});
+    if (D <= 128) return f(tag, Width<128>{});
+    return f(tag, Width<256>{});
+  };
+  if (dtype == 0) return by_width(Tag<float>{});
+  if (dtype == 1) return by_width(Tag<__nv_bfloat16>{});
+  if (dtype == 2) return by_width(Tag<__half>{});
+  return cudaErrorInvalidValue;
+}
+
+// A grid of (BH, blocks of kRows over S), refused where CUDA cannot launch
+// it.
+bool grid(long long BH, int S, dim3* g) {
+  const long long y = (S + kRows - 1) / kRows;
+  if (BH <= 0 || S <= 0 || BH > 0x7fffffffLL || y > 65535) return false;
+  *g = dim3(static_cast<unsigned>(BH), static_cast<unsigned>(y));
+  return true;
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace bwd
 
 // ===========================================================================
 // flash_attention_fwd_sm90: the tensor-core kernel (bf16 wgmma fed by TMA)
@@ -826,6 +1136,76 @@ int flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
     err = sm90::launch<64>(q, k, v, o, BH, Sq, Sk, scale, causal, s);
   }
   return static_cast<int>(err);
+}
+
+// Backward pass 1: lse and delta (float32, (BH, Sq)) of q, k, v and dO,
+// on the CUDA-core forward kernel's STATS instance (its grid and shared
+// memory).
+int flash_attention_bwd_rows(const void* q, const void* k, const void* v,
+                             const void* dO, void* lse, void* delta,
+                             long long BH, int Sq, int Sk, int D, float scale,
+                             int causal, int dtype, void* stream) {
+  static_assert(bwd::kRows == kBQ, "the forward kernel's query tile");
+  dim3 g;
+  if (!bwd::grid(BH, Sq, &g) || Sk <= 0) return cudaErrorInvalidValue;
+  return static_cast<int>(bwd::dispatch(dtype, D, [&](auto tag, auto width) {
+    using T = typename decltype(tag)::type;
+    auto kernel = flash_attention_kernel<T, decltype(width)::value, true>;
+    const size_t smem = smem_bytes(D);
+    cudaError_t err = bwd::set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<g, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), nullptr, Sq, Sk, D, scale, causal,
+        static_cast<const T*>(dO), static_cast<float*>(lse),
+        static_cast<float*>(delta));
+    return cudaGetLastError();
+  }));
+}
+
+// Backward pass 2: dK and dV ((BH, Sk, D) in the inputs' type).
+int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
+                             const void* dO, const void* lse,
+                             const void* delta, void* dk, void* dv,
+                             long long BH, int Sq, int Sk, int D, float scale,
+                             int causal, int dtype, void* stream) {
+  dim3 g;
+  if (!bwd::grid(BH, Sk, &g) || Sq <= 0) return cudaErrorInvalidValue;
+  return static_cast<int>(bwd::dispatch(dtype, D, [&](auto tag, auto width) {
+    using T = typename decltype(tag)::type;
+    auto kernel = bwd::dkdv_kernel<T, decltype(width)::value>;
+    const size_t smem = bwd::dkdv_smem(D);
+    cudaError_t err = bwd::set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<g, bwd::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dO),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, D, scale, causal);
+    return cudaGetLastError();
+  }));
+}
+
+// Backward pass 3: dQ ((BH, Sq, D) in the inputs' type).
+int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                           const void* dO, const void* lse, const void* delta,
+                           void* dq, long long BH, int Sq, int Sk, int D,
+                           float scale, int causal, int dtype, void* stream) {
+  dim3 g;
+  if (!bwd::grid(BH, Sq, &g) || Sk <= 0) return cudaErrorInvalidValue;
+  return static_cast<int>(bwd::dispatch(dtype, D, [&](auto tag, auto width) {
+    using T = typename decltype(tag)::type;
+    auto kernel = bwd::dq_kernel<T, decltype(width)::value>;
+    const size_t smem = bwd::dq_smem(D);
+    cudaError_t err = bwd::set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<g, bwd::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dO),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dq), Sq, Sk, D, scale, causal);
+    return cudaGetLastError();
+  }));
 }
 
 }  // extern "C"

@@ -10,11 +10,13 @@ Conventions (as in the reference's `repro.models.layers`):
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(generator: torch.Generator, shape, scale: Optional[float] = None,
@@ -109,8 +111,8 @@ def _attend_block(q, k, v, mask, scale):
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, q_offset: int = 0,
                         window: Optional[int] = None, kv_block: int = 1024,
-                        valid_kv: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        valid_kv: Optional[torch.Tensor] = None,
+                        remat_blocks: bool = False) -> torch.Tensor:
     """Streaming softmax attention.
 
     q: (B, Sq, H, D); k, v: (B, Sk, H, D) (same head count — GQA expansion is
@@ -120,6 +122,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     `window`: sliding-window attention width (Mistral/Mixtral SWA) — queries
     attend to keys in (pos_q - window, pos_q].
     `valid_kv`: (B, Sk) bool mask for ragged/rolling caches.
+    `remat_blocks`: while gradients are on, recompute each block's scores
+    and probabilities in the backward instead of saving them (a
+    checkpoint around each block's step, as the reference's flash-style
+    backward).
     """
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -135,6 +141,16 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)   # (B, H, Sk_pad, D)
     q_pos = q_offset + torch.arange(sq, device=dev)
 
+    def step(acc, m_run, l_run, kb, vb, mask):
+        o, m, l = _attend_block(qt, kb, vb, mask, scale)
+        m_new = torch.maximum(m_run, m)
+        alpha = torch.exp(m_run - m_new)
+        beta = torch.exp(m - m_new)
+        return (acc * alpha[..., None] + o * beta[..., None],
+                m_new, l_run * alpha + l * beta)
+
+    if remat_blocks and torch.is_grad_enabled():
+        step = functools.partial(checkpoint, step, use_reentrant=False)
     acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
     m_run = torch.full((b, h, sq), -1e30, dtype=torch.float32, device=dev)
     l_run = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
@@ -151,14 +167,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if valid_kv is not None:
             vk = valid_kv[:, k_pos.clamp(0, sk - 1)]
             mask = mask & vk[:, None, None, :]
-        o, m, l = _attend_block(qt, kt[:, :, lo:lo + kv_block],
-                                vt[:, :, lo:lo + kv_block], mask, scale)
-        m_new = torch.maximum(m_run, m)
-        alpha = torch.exp(m_run - m_new)
-        beta = torch.exp(m - m_new)
-        acc = acc * alpha[..., None] + o * beta[..., None]
-        l_run = l_run * alpha + l * beta
-        m_run = m_new
+        acc, m_run, l_run = step(acc, m_run, l_run,
+                                 kt[:, :, lo:lo + kv_block],
+                                 vt[:, :, lo:lo + kv_block], mask)
     out = acc / l_run.clamp(min=1e-30)[..., None]
     return out.to(q.dtype).transpose(1, 2)          # (B, Sq, H, D)
 

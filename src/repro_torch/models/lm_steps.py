@@ -1,11 +1,28 @@
-"""Step functions for LM serving: the serving half of the reference's
-`repro.models.lm_steps` (the train step comes with the training slice)."""
+"""Step functions for LM training and serving: the port of the
+reference's `repro.models.lm_steps`."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.optim import AdamWConfig, apply_gradients
+
+
+def make_train_step(cfg: T.TransformerConfig,
+                    opt_cfg: AdamWConfig = AdamWConfig(), lr: float = 3e-4):
+    """train_step(params, opt_state, tokens, targets) -> (params, opt_state,
+    loss): `lm_loss`, its backward (the flash kernel's on the card), then
+    one AdamW step at `lr` that updates `params` (a `Transformer`, float32
+    master weights for training) in place."""
+
+    def train_step(params: T.Transformer, opt_state, tokens: torch.Tensor,
+                   targets: torch.Tensor):
+        loss = T.lm_loss(cfg, params, tokens, targets)
+        opt_state = apply_gradients(params, loss, opt_state, lr, opt_cfg)
+        return params, opt_state, loss.detach()
+
+    return train_step
 
 
 def make_prefill_step(cfg: T.TransformerConfig):

@@ -1,5 +1,5 @@
-"""Two-tower retrieval model (YouTube DNN / RecSys'19 lineage): the serving
-half of the reference's `repro.models.recsys`.
+"""Two-tower retrieval model (YouTube DNN / RecSys'19 lineage): the port
+of the reference's `repro.models.recsys`, serving and training.
 
 Architecture (assigned config): embed_dim=256, tower MLP 1024-512-256,
 dot-product interaction.
@@ -7,8 +7,9 @@ dot-product interaction.
 The hot path is the sparse embedding lookup over huge tables. The bag
 features (the user's item history, an item's tags) go through the port's
 EmbeddingBag entry point, `kernels.embedding_bag.ops.embedding_bag`: the
-hand-written `embedding_bag_sum` kernel on the card, its plain version on
-the CPU. The reference computes the same bags in plain jnp.
+hand-written `embedding_bag_sum` kernel on the card (its backward kernel
+gives the tables their gradient), the plain versions on the CPU. The
+reference computes the same bags in plain jnp.
 
 Feature schema (fixed, production-plausible):
   user tower:  user_id (1-hot, huge table), user_geo (1-hot),
@@ -19,7 +20,8 @@ Feature schema (fixed, production-plausible):
 
 ``retrieval_cand`` scores one query against n_candidates=1e6 candidate
 items via one batched item tower, a matrix-vector product and a top-k.
-Training (`retrieval_loss`, the train step) comes with the training slice.
+Training: sampled softmax with in-batch negatives (`retrieval_loss`),
+AdamW without weight decay (`make_train_step`).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from torch import nn
 
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.models.layers import dense_init, ordered_top_k
+from repro_torch.optim import AdamWConfig, apply_gradients
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,8 +98,8 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _weight(t: torch.Tensor) -> nn.Parameter:
-    # serving weights; the training slice turns gradients on
-    return nn.Parameter(t, requires_grad=False)
+    # trainable; the serving steps run under torch.no_grad()
+    return nn.Parameter(t)
 
 
 class MLP(nn.Module):
@@ -181,6 +184,34 @@ def item_tower(cfg: TwoTowerConfig, params: TwoTower,
     tags = embedding_bag(params.tag_table, batch[f"{prefix}_tags"]).to(dt)
     x = torch.cat([iid, tags], dim=-1)
     return _unit(_mlp(params.item_mlp, x))
+
+
+# ---------------------------------------------------------------------------
+# Training: sampled softmax with in-batch negatives
+# ---------------------------------------------------------------------------
+
+def retrieval_loss(cfg: TwoTowerConfig, params: TwoTower,
+                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """In-batch sampled softmax: the positives on the diagonal of
+    U @ I^T / temperature (uniform negatives, no log-Q correction)."""
+    u = user_tower(cfg, params, batch)                       # (B, D)
+    v = item_tower(cfg, params, batch)                       # (B, D)
+    logp = torch.log_softmax((u @ v.T) / cfg.temperature, dim=-1)
+    return -logp.diagonal().mean()
+
+
+def make_train_step(cfg: TwoTowerConfig, opt_cfg=None, lr: float = 1e-3):
+    """train_step(params, opt_state, batch) -> (params, opt_state, loss):
+    `retrieval_loss`, its backward, one AdamW step (no weight decay) that
+    updates `params` in place."""
+    opt_cfg = opt_cfg or AdamWConfig(weight_decay=0.0)
+
+    def train_step(params: TwoTower, opt_state,
+                   batch: Dict[str, torch.Tensor]):
+        loss = retrieval_loss(cfg, params, batch)
+        opt_state = apply_gradients(params, loss, opt_state, lr, opt_cfg)
+        return params, opt_state, loss.detach()
+    return train_step
 
 
 # ---------------------------------------------------------------------------

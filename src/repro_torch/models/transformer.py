@@ -1,5 +1,6 @@
 """Decoder-only LM transformer covering the five assigned LM architectures:
-the serving half of the reference's `repro.models.transformer`.
+the port of the reference's `repro.models.transformer`, serving and
+training.
 
 One parameterised implementation:
   * GQA with arbitrary (n_heads, n_kv_heads),
@@ -11,28 +12,38 @@ One parameterised implementation:
 
 The weights are a `Transformer` module: a `ModuleList` of `Layer`s in
 place of the reference's stacked (n_layers, ...) leaves and `lax.scan`.
-Matrices are held in `cfg.dtype` and norm weights in float32: the
-reference stores float32 and casts each matrix to `cfg.dtype` at every
-use, and the cast rounds to nearest even in both packages, so holding the
-cast computes the same values at half the memory.
+Norm weights are float32; matrices are stored in the type `init_params`
+is given. The reference stores float32 and casts each matrix to
+`cfg.dtype` at every use, as the port's products do. Training stores
+float32 (master weights: an update below cfg.dtype's resolution is kept);
+serving stores cfg.dtype, the cast made once, which rounds to nearest
+even in both packages and so computes the same values at half the memory.
 
 Forward modes:
   * `forward(cfg, params, tokens)`           — full-sequence logits,
+  * `lm_loss(cfg, params, tokens, targets)`  — training loss (mean next-
+    token NLL + the MoE aux loss), chunked over the sequence when
+    `cfg.loss_chunk` is set; each layer under the remat policy
+    `cfg.remat` while gradients are on,
   * `lm_steps.make_prefill_step(cfg)`        — last logits + KV cache,
   * `decode_step(cfg, params, cache, token)` — single-token serve step.
 
-Training (`lm_loss`, remat, chunked loss) comes with the training slice;
-`shard_hints` (GSPMD sharding constraints) with the sharding slice: a
-config that sets it is refused.
+The full-sequence attention runs on the flash kernel, forward and
+backward (`kernels.flash_attention.ops.mha`). `shard_hints` (GSPMD
+sharding constraints) come with the sharding slice: a config that sets
+it is refused.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.models import layers as L
@@ -66,9 +77,9 @@ class TransformerConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
-    # training-only in the reference (remat policy, XLA scan unrolling,
-    # chunked cross-entropy, flash-block remat): kept so that configs
-    # compare field by field; serving reads none of them
+    # training: the remat policy of each layer, XLA's scan unrolling (no
+    # torch counterpart: the layers are a Python loop), chunked
+    # cross-entropy, recompute of the blockwise attention's blocks
     remat: str = "nothing_saveable"     # 'none' | 'nothing_saveable' | 'dots'
     moe_group_size: int = 1024
     unroll_scans: bool = False
@@ -130,8 +141,8 @@ def compute_dtype(cfg) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def _weight(t: torch.Tensor) -> nn.Parameter:
-    # serving weights; the training slice turns gradients on
-    return nn.Parameter(t, requires_grad=False)
+    # trainable; the serving steps run under torch.no_grad()
+    return nn.Parameter(t)
 
 
 class Layer(nn.Module):
@@ -181,10 +192,11 @@ class Transformer(nn.Module):
         return forward(self.cfg, self, tokens)
 
 
-def init_params(cfg: TransformerConfig, generator: torch.Generator
-                ) -> Transformer:
-    """Random weights on the generator's device. Each matrix is drawn in
-    float32 and cast to cfg.dtype before the next is drawn, so the peak
+def init_params(cfg: TransformerConfig, generator: torch.Generator,
+                dtype: Optional[torch.dtype] = None) -> Transformer:
+    """Random weights on the generator's device, matrices stored in `dtype`
+    (cfg.dtype by default, for serving; float32 for training). Each matrix
+    is drawn in float32 and cast before the next is drawn, so the peak
     memory is the model's plus one float32 matrix.
 
     Scales are the reference's. It draws each stacked (n_layers, ...) leaf
@@ -192,7 +204,7 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator
     an explicit scale (wq, wk, wv, and the dense w_in, w_gate) are
     N(0, 1/n_layers); the others are as written below."""
     check_supported(cfg)
-    dt = compute_dtype(cfg)
+    dt = dtype or compute_dtype(cfg)
     dev = generator.device
     d, hd, nl = cfg.d_model, cfg.d_head, cfg.n_layers
     stacked = 1.0 / np.sqrt(nl)
@@ -303,7 +315,8 @@ def _attention(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
     else:
         out = L.blockwise_attention(
             q, k_exp, v_exp, causal=cache_kv is None, q_offset=q_offset,
-            window=cfg.sliding_window, valid_kv=valid_kv, kv_block=kv_block)
+            window=cfg.sliding_window, valid_kv=valid_kv, kv_block=kv_block,
+            remat_blocks=cfg.remat_blocks)
     return _out_proj(out, lp.wo), (k, v)
 
 
@@ -337,19 +350,109 @@ def positions_of(b: int, s: int, device) -> torch.Tensor:
 # Forward modes
 # ---------------------------------------------------------------------------
 
-def forward(cfg: TransformerConfig, params: Transformer, tokens: torch.Tensor):
-    """tokens: (B, S) -> (logits (B, S, V) float32, aux_loss)."""
+# the matrix products a 'dots' remat saves: those without batch dims, as
+# the reference's `jax.checkpoint_policies.dots_with_no_batch_dims_saveable`
+# (the weight products; attention's and the MoE dispatch's batched
+# products are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(cfg: TransformerConfig, fn):
+    """The reference's remat policy of a layer (`jax.checkpoint` with a
+    policy) in torch, applied while gradients are on: 'nothing_saveable'
+    recomputes the whole layer in the backward (a non-reentrant
+    `torch.utils.checkpoint.checkpoint`), 'dots' saves the matrix products'
+    outputs and recomputes the rest (a selective checkpoint), 'none'
+    saves every activation."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = dict(use_reentrant=False)
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat != "nothing_saveable":
+        raise ValueError(f"{cfg.name}: unknown remat policy {cfg.remat!r}")
+    return functools.partial(checkpoint, fn, **kw)
+
+
+def _trunk(cfg: TransformerConfig, params: Transformer, tokens: torch.Tensor):
+    """The embedded tokens through every layer, each under the remat
+    policy: (x (B, S, D) in cfg.dtype, the layers' aux loss summed)."""
     check_supported(cfg)
     b, s = tokens.shape
     x = embed_tokens(cfg, params, tokens)
     positions = positions_of(b, s, x.device)
+
+    def body(lp, x):
+        x2, aux2, _ = _layer(cfg, lp, x, positions, inv_freq=params.inv_freq)
+        return x2, aux2
+
+    body = _remat_wrap(cfg, body)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params.layers:
-        x, aux_l, _ = _layer(cfg, lp, x, positions, inv_freq=params.inv_freq)
+        x, aux_l = body(lp, x)
         aux = aux + aux_l
+    return x, aux
+
+
+def forward(cfg: TransformerConfig, params: Transformer, tokens: torch.Tensor):
+    """tokens: (B, S) -> (logits (B, S, V) float32, aux_loss)."""
+    x, aux = _trunk(cfg, params, tokens)
     x = L.rms_norm(x, params.ln_final, cfg.norm_eps)
     logits = x @ params.head().to(x.dtype)
     return logits.float(), aux / cfg.n_layers
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """-log_softmax(logits)[target] a position."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0]
+
+
+def lm_loss(cfg: TransformerConfig, params: Transformer, tokens: torch.Tensor,
+            targets: torch.Tensor, aux_weight: float = 0.01) -> torch.Tensor:
+    """Mean next-token NLL of `targets` (B, S) + aux_weight * the MoE aux
+    loss, a float32 scalar. With cfg.loss_chunk, `_lm_loss_chunked`."""
+    if not cfg.loss_chunk:
+        logits, aux = forward(cfg, params, tokens)
+        return _nll(logits, targets).mean() + aux_weight * aux
+    return _lm_loss_chunked(cfg, params, tokens, targets, aux_weight)
+
+
+def _lm_loss_chunked(cfg: TransformerConfig, params: Transformer,
+                     tokens: torch.Tensor, targets: torch.Tensor,
+                     aux_weight: float) -> torch.Tensor:
+    """Memory-lean loss: run the trunk once, then the vocab projection and
+    log-softmax one sequence chunk of cfg.loss_chunk positions at a time,
+    each under a checkpoint, so no more than one chunk's (B, c, V) logits
+    live at once; the backward recomputes each. As in the reference, a
+    sequence that the chunk does not divide is padded with zero
+    activations and target 0, and the padded positions' NLL (log V each)
+    counts in the sum, which is divided by B * S."""
+    x, aux = _trunk(cfg, params, tokens)
+    x = L.rms_norm(x, params.ln_final, cfg.norm_eps)
+    head = params.head()
+    b, s = tokens.shape
+    c = cfg.loss_chunk
+    pad = -s % c
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+
+    def chunk_nll(xi, ti):
+        return _nll((xi @ head.to(xi.dtype)).float(), ti).sum()
+
+    nll = chunk_nll if not torch.is_grad_enabled() else functools.partial(
+        checkpoint, chunk_nll, use_reentrant=False)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s + pad, c):
+        total = total + nll(x[:, i:i + c], targets[:, i:i + c])
+    return total / (b * s) + aux_weight * aux / cfg.n_layers
 
 
 # ---- serving --------------------------------------------------------------

@@ -20,7 +20,12 @@ the driver (`DistributedMCE`, one rank) on the card against the same
 driver on the CPU. On the serving paths, a smoke LM prefill launches
 flash_attention once per layer (and decode none) and a two-tower bulk
 step launches embedding_bag_sum twice, each against the same model on
-the CPU.
+the CPU. The two backward kernels (flash attention's three passes and
+the bag's atomic scatter) are held against their plain versions over
+the dtypes, D = 64, 128 and 256, causal on and off, Sq != Sk, and bags
+with padding and ids past the vocabulary; a loss through `mha` and
+through `embedding_bag` on CUDA tensors gives q, k, v and the table
+gradients equal to autograd through the plain versions.
 
 Every test here needs a CUDA device and nvcc (the kernels have no CPU
 mode); without a card they skip. The file imports neither JAX nor the
@@ -1183,3 +1188,134 @@ def test_cuda_two_tower_bulk_launches_two_bags(cuda_device, full_fp32_matmul):
     torch.cuda.synchronize()
     assert eb_ops.LAUNCHES["embedding_bag_sum"] == 2
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# the backward kernels: (Sq, Sk) with Sq == Sk across several tiles, and
+# Sq != Sk both ways (top-left causal masking)
+FA_BWD_SEQS = [(130, 130), (150, 70), (70, 150)]
+FA_BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+              torch.bfloat16: dict(rtol=1e-2, atol=1e-3),
+              torch.float16: dict(rtol=1e-2, atol=1e-3)}
+
+
+def _close_bwd(got, want, dtype):
+    """float32: rtol = atol = 1e-4 (gradients sum up to S products in
+    another order, and the kernel's P is exp(S - lse) where the plain
+    version's is exp(S - m) / l, its delta rowsum(dO * O) where the plain
+    version's is rowsum(P * dP)); bfloat16 and float16: the forward's
+    checks, rtol 1e-2, atol 1e-3 and a relative norm under 1e-2 (both
+    compute in float32 and round once)."""
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **FA_BWD_TOL[dtype])
+    if dtype != torch.float32:
+        assert _rel(got, want) < 1e-2
+
+
+@pytest.mark.parametrize("sq,sk", FA_BWD_SEQS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_cuda_flash_attention_bwd_matches_plain_version(
+        cuda_device, full_fp32_matmul, dtype, d, causal, sq, sk):
+    """The three backward launches against `ref.flash_attention_bwd` on the
+    same q, k, v and dO."""
+    rng = np.random.default_rng(sq + 3 * sk + d + causal)
+    q, k, v = (torch.from_numpy(rng.normal(size=(3, s, d))).to(
+        cuda_device, dtype) for s in (sq, sk, sk))
+    do = torch.from_numpy(rng.normal(size=(3, sq, d))).to(cuda_device, dtype)
+    before = fa_ops.LAUNCHES["flash_attention_bwd"]
+    got = fa_ops.flash_attention_bwd(q, k, v, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention_bwd"] == before + 3
+    want = fa_ref.flash_attention_bwd(q, k, v, do, causal=causal)
+    for g, w in zip(got, want):
+        _close_bwd(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.float32, 64)])
+def test_cuda_mha_backward_reaches_q_k_v(cuda_device, full_fp32_matmul, dtype,
+                                         d):
+    """The fault the backward kernels close: a backward through `mha` on
+    CUDA tensors gives q, k and v gradients (the forward kernel's output
+    has a grad_fn), equal to autograd through the plain forward on the
+    same tensors, GQA's repeated heads summed."""
+    from repro_torch.models.layers import repeat_kv
+    rng = np.random.default_rng(d)
+    b, s, h, kv = 2, 96, 4, 2
+    leaves = [torch.from_numpy(rng.normal(size=(b, s, n, d))).to(
+        cuda_device, dtype).requires_grad_() for n in (h, kv, kv)]
+    do = torch.from_numpy(rng.normal(size=(b, s, h, d))).to(cuda_device,
+                                                            dtype)
+    def qkv():
+        return leaves[0], repeat_kv(leaves[1], 2), repeat_kv(leaves[2], 2)
+    before = dict(fa_ops.LAUNCHES)
+    fa_ops.mha(*qkv(), causal=True).backward(do)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa_ops.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 3
+    assert all(t.grad is not None for t in leaves)
+    got = [t.grad for t in leaves]
+    for t in leaves:
+        t.grad = None
+    flat = [t.transpose(1, 2).reshape(b * h, s, d) for t in qkv()]
+    want = fa_ref.flash_attention(*flat, causal=True)
+    want.reshape(b, h, s, d).transpose(1, 2).backward(do)
+    for g, t in zip(got, leaves):
+        _close_bwd(g, t.grad, dtype)
+
+
+@pytest.mark.parametrize("v,d,b,l", EB_SHAPES)
+def test_cuda_embedding_bag_bwd_matches_plain_version(cuda_device, v, d, b,
+                                                      l):
+    """rtol = atol = 1e-5: each row sums the bags' gradients in another
+    order (atomics); pads and ids past the vocabulary (into the last
+    row) as in the forward's test."""
+    rng = np.random.default_rng(v + d + b + l + 1)
+    ids = np.where(rng.random((b, l)) < 0.8, rng.integers(0, v, (b, l)),
+                   -1).astype(np.int32)
+    ids[0, 0] = v
+    ids[-1, -1] = np.iinfo(np.int32).max
+    ids[-1, 0] = -7
+    ids = torch.from_numpy(ids).to(cuda_device)
+    g = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(
+        cuda_device)
+    before = eb_ops.LAUNCHES["embedding_bag_sum_bwd"]
+    got = eb_ops.embedding_bag_sum_bwd(g, ids, v)
+    torch.cuda.synchronize()
+    assert eb_ops.LAUNCHES["embedding_bag_sum_bwd"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (v, d)
+    torch.testing.assert_close(got, eb_ref.embedding_bag_sum_bwd(g, ids, v),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_embedding_bag_backward_reaches_the_table(cuda_device, dtype,
+                                                       combiner):
+    """The fault the backward kernel closes: a loss through
+    `embedding_bag` on CUDA tensors gives the table a gradient (in the
+    table's type), equal to autograd through the plain version on the
+    same tensors: float32 at 1e-5, a bfloat16 table at one bf16 rounding
+    (rtol 1e-2, atol 1e-3)."""
+    rng = np.random.default_rng(11)
+    v, d, b, l = 300, 32, 64, 9
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(
+        cuda_device, dtype).requires_grad_()
+    ids = torch.from_numpy(np.where(rng.random((b, l)) < 0.7,
+                                    rng.integers(0, v, (b, l)), -1)).to(
+        cuda_device)
+    w = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(
+        cuda_device)
+    before = eb_ops.LAUNCHES["embedding_bag_sum_bwd"]
+    (eb_ops.embedding_bag(table, ids, combiner) * w).sum().backward()
+    torch.cuda.synchronize()
+    assert eb_ops.LAUNCHES["embedding_bag_sum_bwd"] == before + 1
+    got, table.grad = table.grad, None
+    assert got is not None and got.dtype == dtype
+    (eb_ref.embedding_bag(table.float(), ids, combiner) * w).sum().backward()
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=1e-2, atol=1e-3)
+    torch.testing.assert_close(got.float(), table.grad.float(), **tol)

@@ -7,10 +7,14 @@ at rtol = atol = 1e-5 (sums of at most L float32 terms in another order):
 the reference kernel test's shapes and vocabulary tiles, bags with no
 real id, padding other than -1. An id past the vocabulary is out of
 contract: the port's plain version reads the last row, as the reference's
-jnp gather does. The CUDA kernel itself runs in
-tests/test_torch_cuda_kernels.py (skipped without a card) and in
-chip_smoke.py.
+jnp gather does. The plain backward `ref.embedding_bag_sum_bwd` is held
+against `jax.grad` of the reference model's bag (`repro.models.recsys.
+embedding_bag`), sum and mean, at rtol = atol = 1e-5; on CPU tensors the
+autograd Function behind `embedding_bag_sum` routes its backward to it.
+The CUDA kernels themselves run in tests/test_torch_cuda_kernels.py
+(skipped without a card) and in chip_smoke.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ import torch
 from repro.kernels.embedding_bag import kernel as jkernel
 from repro.kernels.embedding_bag import ops as jops
 from repro.kernels.embedding_bag import ref as jref
+from repro.models import recsys as jrecsys
 from repro_torch.kernels.embedding_bag import ops, ref
 
 pytest_plugins = ["torch_jax_executables"]
@@ -122,7 +127,8 @@ def test_cpu_dispatch_takes_the_plain_version_without_counting():
     for combiner in ops.COMBINERS:
         assert torch.equal(ops.embedding_bag(table, ids, combiner),
                            ref.embedding_bag(table, ids, combiner))
-    assert ops.LAUNCHES == {"embedding_bag_sum": 0}
+    assert ops.LAUNCHES == {"embedding_bag_sum": 0,
+                            "embedding_bag_sum_bwd": 0}
     with pytest.raises(ValueError):
         ops.embedding_bag(table, ids, "max")
 
@@ -134,3 +140,67 @@ def test_dispatch_refuses_other_devices():
         ops.embedding_bag(table, ids)
     with pytest.raises(ValueError):
         ops.embedding_bag_sum(table, torch.zeros(3, 2, dtype=torch.int32))
+
+
+def _jax_table_grad(bag, table, ids, combiner, w):
+    """jax.grad of sum(bag(table, ids, combiner) * w) in the table."""
+    return np.asarray(jax.grad(lambda t: jnp.sum(
+        bag(t, jnp.asarray(ids), combiner) * jnp.asarray(w)))(
+        jnp.asarray(table)))
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("v,d,b,l", SHAPES)
+def test_embedding_bag_bwd_matches_jax_grad(v, d, b, l, combiner):
+    """Pads (an empty bag, padding other than -1) through autograd of the
+    port's `embedding_bag` (whose sum's backward is the plain
+    `embedding_bag_sum_bwd` here) against jax.grad of the reference
+    model's jnp bag."""
+    table, ids = _inputs(v, d, b, l, 2 * v + d)
+    w = np.random.default_rng(l).normal(size=(b, d)).astype(np.float32)
+    want = _jax_table_grad(jrecsys.embedding_bag, table, ids, combiner, w)
+    t = torch.from_numpy(table).requires_grad_()
+    (ops.embedding_bag(t, torch.from_numpy(ids), combiner)
+     * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(t.grad.numpy(), want, **TOL)
+
+
+def test_embedding_bag_bwd_ids_past_the_vocabulary():
+    """An id at or above V adds its gradient into row V - 1: the
+    derivative of the forward, which reads that row. The reference's JAX
+    gather clamps such an id when it reads but drops it from its
+    gradient's scatter, so its gradient is not this function's; the port's
+    equals jax.grad with those ids replaced by V - 1."""
+    table, ids = _inputs(50, 8, 6, 5, 3)
+    ids[1, 2] = 50
+    ids[2, 0] = np.iinfo(np.int32).max
+    clamped = np.where(ids >= 50, 49, ids).astype(np.int32)
+    g = np.random.default_rng(0).normal(size=(6, 8)).astype(np.float32)
+    got = ref.embedding_bag_sum_bwd(torch.from_numpy(g), torch.from_numpy(ids),
+                                    50)
+    want = _jax_table_grad(jref.embedding_bag, table, clamped, "sum", g)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    dropped = _jax_table_grad(jref.embedding_bag, table, ids, "sum", g)
+    assert not np.allclose(dropped[49], want[49])
+
+
+def test_autograd_takes_the_plain_backward_on_cpu(monkeypatch):
+    """On CPU tensors a backward through `embedding_bag` calls
+    `ref.embedding_bag_sum_bwd` once and launches nothing; a bfloat16
+    table gets a bfloat16 gradient."""
+    calls = []
+    real = ref.embedding_bag_sum_bwd
+
+    def record(*a):
+        calls.append(a[2])
+        return real(*a)
+    monkeypatch.setattr(ref, "embedding_bag_sum_bwd", record)
+    table, ids = _inputs(40, 4, 8, 3, 1)
+    ops.LAUNCHES.reset()
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.from_numpy(table).to(dtype).requires_grad_()
+        ops.embedding_bag(t, torch.from_numpy(ids), "mean").sum().backward()
+        assert t.grad.dtype == dtype and t.grad.shape == (40, 4)
+    assert calls == [40, 40]
+    assert ops.LAUNCHES == {"embedding_bag_sum": 0,
+                            "embedding_bag_sum_bwd": 0}

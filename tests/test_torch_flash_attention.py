@@ -6,10 +6,15 @@ Pallas flash kernel in interpret mode and its jnp `ref`: float32 at
 rtol = atol = 2e-5 (the reference kernel test's tolerance: online against
 full softmax), bfloat16 at 5e-2, causal top-left also when Sq != Sk, and
 `mha`'s (B, S, H, D) layout against the reference's `mha` and the
-models' blockwise attention. The CUDA kernel itself runs in
-tests/test_torch_cuda_kernels.py (skipped without a card) and in
-chip_smoke.py.
+models' blockwise attention. The plain backward `ref.flash_attention_bwd`
+is held against `jax.vjp` of the reference's jnp `ref`: float32 at rtol =
+atol = 1e-5 (causal and not, Sq != Sk), bfloat16 at the card's bf16
+checks (rtol 1e-2, atol 1e-3, relative norm 1e-2); on CPU tensors the
+autograd Function behind `flash_attention` and `mha` routes its backward
+to it. The CUDA kernels themselves run in tests/test_torch_cuda_kernels.py
+(skipped without a card) and in chip_smoke.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -124,7 +129,8 @@ def test_cpu_dispatch_takes_the_plain_version_without_counting():
     for causal in (True, False):
         assert torch.equal(ops.flash_attention(q, k, v, causal=causal),
                            ref.flash_attention(q, k, v, causal=causal))
-    assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_wgmma": 0}
+    assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_wgmma": 0,
+                            "flash_attention_bwd": 0}
 
 
 @pytest.mark.parametrize("dtype,d,tensor_cores", [
@@ -148,3 +154,74 @@ def test_dispatch_refuses_other_devices():
         ops.flash_attention(q, q, q)
     with pytest.raises(ValueError):
         ops.flash_attention(q, torch.zeros(2, 8, 16), q)
+
+
+def _jax_vjp(q, k, v, do, causal, dtype=jnp.float32):
+    """(dq, dk, dv) of the reference's jnp flash attention on inputs cast to
+    `dtype`."""
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(dtype) for a in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, b, c: jref.flash_attention(a, b, c,
+                                                          causal=causal),
+                     jq, jk, jv)
+    return vjp(jdo)
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal", SHAPES)
+def test_flash_attention_bwd_matches_jax_grad(bh, sq, sk, d, causal):
+    q, k, v = _qkv(bh, sq, sk, d, bh + sq + d)
+    do = np.random.default_rng(d).normal(size=(bh, sq, d)).astype(np.float32)
+    want = _jax_vjp(q, k, v, do, causal)
+    got = ref.flash_attention_bwd(*map(torch.from_numpy, (q, k, v, do)),
+                                  causal=causal)
+    for g, w, name in zip(got, want, "qkv"):
+        assert g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_bf16(causal):
+    """bfloat16 inputs: the reference's jnp version differentiated by JAX
+    in float32 and rounded once, as the plain backward. The card's bf16
+    checks: rtol 1e-2, atol 1e-3 and a relative norm under 1e-2."""
+    q, k, v = _qkv(2, 96, 80, 64, 4)
+    do = np.random.default_rng(5).normal(size=(2, 96, 64)).astype(np.float32)
+    want = _jax_vjp(q, k, v, do, causal, jnp.bfloat16)
+    args = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do)]
+    got = ref.flash_attention_bwd(*args, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=1e-2,
+                                   atol=1e-3)
+        assert np.linalg.norm(g.float().numpy() - w) / np.linalg.norm(w) \
+            < 1e-2
+
+
+def test_autograd_takes_the_plain_backward_on_cpu(monkeypatch):
+    """On CPU tensors a backward through `mha` calls
+    `ref.flash_attention_bwd` once, launches nothing, and gives q, k and v
+    the reference's gradients."""
+    calls = []
+    real = ref.flash_attention_bwd
+
+    def record(*a, **kw):
+        calls.append(kw["causal"])
+        return real(*a, **kw)
+    monkeypatch.setattr(ref, "flash_attention_bwd", record)
+    rng = np.random.default_rng(6)
+    q, k, v, do = (rng.normal(size=(2, 20, 3, 8)).astype(np.float32)
+                   for _ in range(4))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    ops.LAUNCHES.reset()
+    ops.mha(*leaves, causal=True).backward(torch.from_numpy(do))
+    assert calls == [True]
+    assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_wgmma": 0,
+                            "flash_attention_bwd": 0}
+    flat = [a.transpose(0, 2, 1, 3).reshape(6, 20, 8) for a in (q, k, v, do)]
+    want = _jax_vjp(*flat, True)
+    for t, w in zip(leaves, want):
+        np.testing.assert_allclose(
+            t.grad.numpy(),
+            np.asarray(w).reshape(2, 3, 20, 8).transpose(0, 2, 1, 3),
+            rtol=1e-5, atol=1e-5)

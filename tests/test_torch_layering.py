@@ -10,8 +10,9 @@
   library refuses to build without nvcc; every CUDA source names the TPU
   kernel it replaces, its bound and its C entry points;
 * with no CUDA device, `run(g)`, `DistributedMCE(g)`, `MCEService(g)`,
-  `mce_run.main()`, `serve_lm`, `serve_recsys` and `serve.main()` raise
-  instead of falling back, and chip_smoke.py
+  `mce_run.main()`, `serve_lm`, `serve_recsys`, `serve.main()`,
+  `train.train` and `train.main()` raise instead of falling back, and
+  chip_smoke.py
   exits non-zero without printing a result — also from a directory that
   holds chip_smoke.py alone.
 """
@@ -64,8 +65,14 @@ def _port_sources():
 
 
 def test_port_imports_neither_jax_nor_the_reference():
+    sources = _port_sources()
+    # the training path's modules are among those checked
+    for mod in ("optim/adamw.py", "optim/schedule.py", "optim/compress.py",
+                "data/tokens.py", "data/prefetch.py", "checkpoint/store.py",
+                "launch/train.py"):
+        assert PKG / mod in sources, mod
     bad = [(str(p.relative_to(ROOT)), ln, mod)
-           for p in _port_sources() for ln, mod in _imports(p)
+           for p in sources for ln, mod in _imports(p)
            if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad
 
@@ -209,14 +216,19 @@ ENTRY_POINTS = {
     "serve.main": "import sys\nfrom repro_torch.launch import serve\n"
                   "sys.argv = ['serve', '--arch', 'two-tower-retrieval']\n"
                   "serve.main()\n",
+    "train": "from repro_torch.launch.train import train\n"
+             "train('qwen3-14b', steps=1)\n",
+    "train.main": "import sys\nfrom repro_torch.launch import train\n"
+                  "sys.argv = ['train', '--arch', 'two-tower-retrieval']\n"
+                  "train.main()\n",
 }
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
 def test_entry_points_without_cuda_raise_in_a_fresh_process(entry):
     """Without a card and without a CPU device asked for, the driver, the
-    service, the CLI and the serving entry points raise before any work:
-    no CPU fallback."""
+    service, the CLI, the serving and the training entry points raise
+    before any work: no CPU fallback."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     proc = _run_py("from repro_torch.graph.generators import complete_graph\n"
@@ -228,14 +240,15 @@ def test_entry_points_without_cuda_raise_in_a_fresh_process(entry):
 
 def test_launchers_load_no_jax():
     """The driver, both MCE launchers, the shim, the k-core peel and the
-    serving of both model families run on the CPU when asked, in a fresh
-    interpreter that never loads JAX or the reference."""
+    serving and training of both model families run on the CPU when
+    asked, in a fresh interpreter that never loads JAX or the
+    reference."""
     code = """
 import json, sys
 from repro_torch.core import bitset_engine
 from repro_torch.core.driver import DistributedMCE
 from repro_torch.graph import erdos_renyi, kcore_peel_torch
-from repro_torch.launch import mce_run, serve
+from repro_torch.launch import mce_run, serve, train
 from repro_torch.launch.mce_service import MCEService
 g = erdos_renyi(60, 0.2, seed=1)
 svc = MCEService(g, device="cpu", chunk=16)
@@ -245,21 +258,25 @@ mce_run.main()
 lm = serve.serve_lm("qwen3-14b", new_tokens=3, device="cpu")
 rec = serve.serve_recsys(device="cpu")
 serve.main(["--arch", "mixtral-8x7b", "--tokens", "2", "--device", "cpu"])
+fit = train.train("qwen3-14b", steps=2, device="cpu")
+train.main(["--arch", "two-tower-retrieval", "--steps", "2", "--device",
+            "cpu"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps(dict(cliques=res.cliques, svc=svc.query().cliques,
                       peel=len(kcore_peel_torch(g, device="cpu")),
                       generated=lm["generated"].shape,
-                      top=rec["top_idx"].shape, bad=bad)))
+                      top=rec["top_idx"].shape, fit=len(fit["losses"]),
+                      bad=bad)))
 """
     proc = _run_py(code)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["cliques"] == out["svc"] > 0 and out["peel"] == 60
     assert out["generated"] == [4, 3] and out["top"] == [10]
-    assert out["bad"] == []
+    assert out["fit"] == 2 and out["bad"] == []
     assert "maximal cliques: %d" % out["cliques"] in proc.stdout
-    assert "tok/s" in proc.stdout
+    assert "tok/s" in proc.stdout and "final loss:" in proc.stdout
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -47,6 +47,14 @@ from repro_torch.models import transformer as T
 
 pytest_plugins = ["torch_jax_executables"]
 
+
+@pytest.fixture(autouse=True)
+def _no_grad():
+    """Each test here serves: it runs without autograd, as the serving
+    steps do (the models' parameters are trainable)."""
+    with torch.no_grad():
+        yield
+
 LM_ARCHS = ["qwen3-14b", "chatglm3-6b", "command-r-plus-104b",
             "mixtral-8x7b", "phi3.5-moe-42b-a6.6b"]
 DTYPES = ["float32", "bfloat16"]

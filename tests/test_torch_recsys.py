@@ -26,6 +26,14 @@ from repro_torch.models import recsys as R
 
 pytest_plugins = ["torch_jax_executables"]
 
+
+@pytest.fixture(autouse=True)
+def _no_grad():
+    """Each test here serves: it runs without autograd, as the serving
+    steps do (the models' parameters are trainable)."""
+    with torch.no_grad():
+        yield
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
