@@ -64,9 +64,10 @@ together) and then, printing one JSON line per phase:
    walk, against the reference's counters and stats;
 7. step and trip profiles: where a per-root step's (pivot and rcd) and
    a persistent trip's time goes (host against device);
-8. driver: `DistributedMCE(kronecker(12, 16, seed=0), chunk=512)` with
+8. driver: `DistributedMCE(kronecker(11, 16, seed=0), chunk=512)` with
    mce_run's other defaults on one rank, against run()'s counters and the
-   reference driver's occupancy pair, with its chunk and overlap stats;
+   reference driver's occupancy pair, with its chunk and overlap stats
+   (scale 11, cut from 12 for the time limit);
 9. service: one `MCEService` on the scale-11 graph and three queries
    (pivot cold, hybrid and pivot with reuse_degrees=False from the
    cached buckets, which must pack nothing) against the reference
@@ -197,22 +198,19 @@ WINDOW_STATS = dict(iters=5_071, live_iters=3_008_993, lane_iters=4_758_576,
                     steals=16_737, entry_terms=0, window_spills=117_930,
                     window_hits=139_058, spans=3)
 # The driver and the service, with mce_run's defaults (streamed buckets of
-# 1,024 roots, 512 roots a chunk, per root, pivot) on one shard. Their
-# counters are run()'s (SLICE_EXPECT on scale 12, SLICE11_EXPECT and
-# HYBRID11_EXPECT on scale 11); the reference's occupancy pair of
-#   d = DistributedMCE(kronecker(12, 16, seed=0), chunk=512); d.run();
-#   print(d.last_counters)
-# (repro.core.driver, JAX on the CPU), and its per-query stats of
+# 1,024 roots, 512 roots a chunk, per root, pivot) on one shard, both on
+# scale 11. Their counters are run()'s (SLICE11_EXPECT and
+# HYBRID11_EXPECT); the reference service's per-query stats of
 #   svc = MCEService(kronecker(11, 16, seed=0), chunk=512)
 #   for cfg in (EngineConfig(), EngineConfig(backend="hybrid"),
 #               EngineConfig(reuse_degrees=False)):
 #       r = svc.query(cfg); print(r.cliques, r.calls, r.branches,
 #                                 r.sum_px, r.pre_reported, r.stats)
 # (repro.launch.mce_service): the third query, the paper's three sweeps
-# (the pivot select sweeps A itself), finds the default's counters.
-DRIVER12_COUNTERS = dict(truncated=0, live_iters=1_073_805,
-                         lane_iters=33_062_952, steals=0, entry_terms=0,
-                         window_spills=0, window_hits=0)
+# (the pivot select sweeps A itself), finds the default's counters. The
+# first query is one run of the reference's DistributedMCE with these
+# defaults, so its stats are also the driver's occupancy pair
+# (d.last_counters of DistributedMCE(kronecker(11, 16, seed=0), chunk=512)).
 REUSE_OFF11_EXPECT = dict(cliques=122_478, calls=113_416, branches=112_187,
                           sum_px=683_947, pre_reported=1_031)
 _NO_CHOICE = {"perroot": 0, "persistent": 0}
@@ -1849,7 +1847,7 @@ def scale12_paths(dev, g):
 
 def driver_path(dev, g):
     """The driver path: `DistributedMCE(g, device=dev, chunk=512)` with
-    mce_run's other defaults (streamed, per root, pivot) on the scale-12
+    mce_run's other defaults (streamed, per root, pivot) on the scale-11
     graph, on one rank, with the kernels' launch counts set to 0 just
     before and read just after; its counters against run()'s and the
     reference driver's occupancy pair, and the row kernels launched."""
@@ -1864,7 +1862,7 @@ def driver_path(dev, g):
     got = dict(cliques=res.cliques, calls=res.calls, branches=res.branches,
                sum_px=res.sum_px, pre_reported=res.pre_reported)
     lc, st = drv.last_counters, drv.stats
-    emit(dict(phase="driver", graph="kron:scale=12,ef=16,seed=0", n=g.n,
+    emit(dict(phase="driver", graph="kron:scale=11,ef=16,seed=0", n=g.n,
               m=g.m, chunk=drv.chunk, shards=drv.n_shards,
               device=str(drv.device), **got,
               iters_exhausted=res.iters_exhausted, seconds=secs,
@@ -1875,10 +1873,13 @@ def driver_path(dev, g):
               lane_occupancy=lc["live_iters"] / max(lc["lane_iters"], 1),
               counters=lc, prep_timings=dict(drv.stream.timings),
               launches=launches))
-    check(got == SLICE_EXPECT, f"driver counters {got} != {SLICE_EXPECT}")
+    check(got == SLICE11_EXPECT,
+          f"driver counters {got} != {SLICE11_EXPECT}")
     check(not res.iters_exhausted, "driver truncated")
-    for k, v in DRIVER12_COUNTERS.items():
-        check(lc[k] == v, f"driver counter {k}: {lc[k]} != reference {v}")
+    for k, v in SERVICE11_STATS["pivot"].items():
+        if k != "engine_choices":
+            check(lc[k] == v,
+                  f"driver counter {k}: {lc[k]} != reference {v}")
     for name in ROW_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the driver path")
@@ -2085,7 +2086,7 @@ def lm_profiles(dev, cfg, model):
     for name, run_once in (
             ("decode_step", lambda: T.decode_step(cfg, model, cache, tok)),
             ("prefill", lambda: make_prefill_step(cfg)(model, prompts))):
-        _, wall, profiled, busy, n_k = device_profile(run_once)
+        _, wall, profiled, busy, n_k, _ = device_profile(run_once)
         out[name] = dict(ms=1e3 * wall, profiled_ms=1e3 * profiled,
                          busy_ms=1e3 * busy, kernels=n_k,
                          device_idle_share=1.0 - busy / wall)
@@ -2311,8 +2312,12 @@ def train_profile(one, batch):
     """One more training step under `device_profile`: wall and busy ms,
     the idle share, the busy ms by `train_kernel_group` and of the eight
     kernels that take the most."""
-    _, plain_wall, wall, busy, n, split, by_name = device_profile(
-        lambda: one(batch), train_kernel_group)
+    _, plain_wall, wall, busy, n, by_name = device_profile(
+        lambda: one(batch))
+    split = {}
+    for name, sec in by_name.items():
+        group = train_kernel_group(name)
+        split[group] = split.get(group, 0.0) + sec
 
     def ms(d, k=None):
         return {name[:90]: 1e3 * v for name, v in sorted(
@@ -2444,6 +2449,7 @@ def train_lm_full_width(dev, name_power):
     q, k, v = (t.detach() for t in rec.args)
     del rec, state, opt, model
     torch.cuda.empty_cache()
+    witness = train_lm_witness(dev, cfg, batches, losses)
     table_line = flash_bwd_check(dev, q, k, v, name_power)
     del q, k, v
     torch.cuda.empty_cache()
@@ -2455,10 +2461,57 @@ def train_lm_full_width(dev, name_power):
         storage="float32", compute=cfg.dtype, remat=cfg.remat,
         params=cfg.param_count(), init_s=init_s, **p, losses=losses,
         step_s=secs, tok_per_s=[tokens / t for t in secs], peak_bytes=peak,
-        launches_per_step=launches, profile=profile, attention_grad_norms={
+        launches_per_step=launches, witness=witness,
+        profile=profile, attention_grad_norms={
             k: v for k, v in norms.items()
             if k.split(".")[-1] in ("wq", "wk", "wv", "q_norm", "k_norm")},
         name_power=name_power), table_line
+
+
+def train_lm_witness(dev, cfg, batches, losses):
+    """Two more runs of LM_TRAIN's steps from the same weights (seed 0)
+    and batches, against the kernel run's `losses`: the attention on the
+    plain `blockwise_attention`, forward and backward by autograd (the
+    reference's training attention; no flash launch), and the kernels at
+    a tenth of the learning rate. Each loss of the plain run must be the
+    kernel run's within 1e-2 relative (the same weights, the attention
+    rounded otherwise). Returns the losses of both."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.lm_steps import make_train_step
+    from repro_torch.optim import adamw_init
+    out = {}
+    for name, lr, flash in (("plain_attention", 3e-4, False),
+                            ("lr_3e-5", 3e-5, True)):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = T.init_params(cfg, gen, dtype=torch.float32)
+        state = dict(model=model,
+                     opt=adamw_init(dict(model.named_parameters())))
+        step = make_train_step(cfg, lr=lr)
+
+        def one(batch):
+            state["model"], state["opt"], loss = step(state["model"],
+                                                      state["opt"], *batch)
+            return loss
+        takes_flash = T.takes_flash
+        if not flash:
+            T.takes_flash = lambda *a, **kw: False
+        try:
+            got, secs, launches = train_steps(one, dev, batches,
+                                              LM_TRAIN["steps"])
+        finally:
+            T.takes_flash = takes_flash
+        for n in launches:
+            check((n["flash_attention"] > 0) == flash,
+                  f"qwen3-14b {name} run launched {n}")
+        out[name] = dict(losses=got, step_s=secs)
+        del state, model, step
+        torch.cuda.empty_cache()
+    plain = out["plain_attention"]["losses"]
+    check(all(abs(p - k) <= 1e-2 * abs(k) for p, k in zip(plain, losses)),
+          f"qwen3-14b losses {losses} on the kernels, {plain} on the plain "
+          f"attention")
+    return out
 
 
 def train_lm_against_cpu(dev):
@@ -2509,10 +2562,12 @@ def train_lm_against_cpu(dev):
 def bag_bwd_check(dev, table, args, name_power):
     """The bag backward kernel against the plain version on a training
     step's own history-bag operands (grad_out, ids, V) at rtol = atol =
-    1e-5 (atomics add in another order), timed beside the bound (zeroing
-    the gradient, reading grad_out and the ids, a read-modify-write of
-    every row touched), the plain version and F.embedding_bag's backward.
-    Returns the kernel-table line."""
+    1e-5 (atomics add in another order), timed beside the bound (what
+    any design must move: the (V, D) gradient written once, grad_out and
+    the ids read once), the plain version and F.embedding_bag's backward;
+    this design's own traffic (the gradient zeroed, then a read-modify-
+    write of every row touched) beside it. Returns the kernel-table
+    line."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.embedding_bag import ops, ref
@@ -2538,14 +2593,16 @@ def bag_bwd_check(dev, table, args, name_power):
                        3, 2)[0]
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         lib_out, leaf, grad_out, retain_graph=True), 5, 3)[0]
-    nbytes = 4 * (v * d + b * d + b * l + 2 * touched * d)
+    nbytes = 4 * (v * d + b * d + b * l)
+    atomic = nbytes + 4 * 2 * touched * d
     bound_ms, bound_by = bound(nbytes, int(real.sum()) * d)
     line = dict(phase="train", check="embedding_bag_sum_bwd",
                 shape=[v, d, b, l], real_ids=int(real.sum()),
                 touched_rows=touched, max_abs_err=err, rel_norm_err=rel,
                 rtol=1e-5, atol=1e-5, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bytes=nbytes, name_power=name_power)
+                bytes=nbytes, bound_ms_atomic_design=bound(atomic, 0)[0],
+                atomic_design_bytes=atomic, name_power=name_power)
     emit(line)
     del lib_out, leaf
     torch.cuda.empty_cache()
@@ -2681,13 +2738,13 @@ def train_phase(dev, name_power):
             "embedding_bag_sum_bwd": bag_line}, launches
 
 
-def device_profile(run_once, group=None):
+def device_profile(run_once):
     """Where the time of `run_once()` goes: its wall time with the
     profiler off (after a warm-up) against the device's kernel time
     (torch.profiler's CUDA kernel events, profiler on). Returns (output,
-    wall s, profiled wall s, device busy s, kernel count); the idle share
-    is the part of the unprofiled wall time in which no kernel runs. With
-    `group` (kernel name -> group name), also the busy s by group."""
+    wall s, profiled wall s, device busy s, kernel count, busy s by kernel
+    name); the idle share is the part of the unprofiled wall time in
+    which no kernel runs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2705,14 +2762,11 @@ def device_profile(run_once, group=None):
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6
-    if group is None:
-        return out, plain_wall, wall, busy, len(kernels)
-    split, by_name = {}, {}
+    by_name = {}
     for e in kernels:
-        g, us = group(e.name), e.time_range.elapsed_us()
-        split[g] = split.get(g, 0.0) + us * 1e-6
-        by_name[e.name] = by_name.get(e.name, 0.0) + us * 1e-6
-    return out, plain_wall, wall, busy, len(kernels), split, by_name
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() * 1e-6)
+    return out, plain_wall, wall, busy, len(kernels), by_name
 
 
 def step_profile(dev, prep, u=64, steps=64, backend="pivot"):
@@ -2723,7 +2777,7 @@ def step_profile(dev, prep, u=64, steps=64, backend="pivot"):
     b = next(b for b in prep.buckets if b.u_pad == u)
     args = bucket_tensors(b.a, b.p0, b.x_rows, b.x_alive0, b.rsz0, dev)
     cfg = fr.EngineConfig(backend=backend, max_iters=steps)
-    out, plain_wall, wall, busy, n_k = device_profile(
+    out, plain_wall, wall, busy, n_k, _ = device_profile(
         lambda: run_bucket(*args, cfg))
     n = out["steps"]
     emit(dict(phase="step_profile", backend=backend, bucket_u=u,
@@ -2764,7 +2818,7 @@ def trip_profile(dev, prep, u=64, trips=64, paths=None):
                 *args, fr.EngineConfig(max_iters=16 * trips, **win)))):
         if paths is not None and path not in paths:
             continue
-        out, plain_wall, wall, busy, n_k = device_profile(run_once)
+        out, plain_wall, wall, busy, n_k, _ = device_profile(run_once)
         n = out["iters"] if path != "perroot_window" else out["steps"]
         emit(dict(phase="trip_profile", path=path, bucket_u=u,
                   roots=b.num_roots, lanes=lanes, trips=n,
@@ -2833,7 +2887,7 @@ def main() -> int:
     step_profile(dev, prep, backend="rcd")
     paths.update(scale12_paths(dev, g12))
     trip_profile(dev, prep)
-    paths["driver"] = driver_path(dev, g12)
+    paths["driver"] = driver_path(dev, g11)
     paths.update(service_paths(dev, g11))
     serve_launches = serve_phase(dev)
     backward, train_launches = train_phase(dev, name_power)
@@ -2929,7 +2983,9 @@ def main() -> int:
             launches=line["launches"], max_abs_err=line["max_abs_err"],
             ms=line["ms"], plain_ms=line["plain_ms"],
             bound_ms=line["bound_ms"], bound_by=line["bound_by"],
-            library_ms=line["library_ms"], shape=line["shape"]))
+            library_ms=line["library_ms"], shape=line["shape"],
+            **({"bound_ms_atomic_design": line["bound_ms_atomic_design"]}
+               if "bound_ms_atomic_design" in line else {})))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start,
               path_launches=paths,
               note="library_ms is null for the bitset kernels and "

@@ -34,8 +34,9 @@
 // (the wrapper allocates it zeroed) plus grad_out[b] added into row
 // ids[b, l] for every id >= 0; an id >= V adds into row V - 1, as the
 // forward reads it.
-// Bound on an H100 SXM: bytes: zeroing grad_table, reading grad_out and
-// the ids, and a read-modify-write of each row the bags touch.
+// Bound on an H100 SXM: bytes. Any design must write grad_table once and
+// read grad_out and the ids once. This design moves more: it zeroes
+// grad_table, then reads and writes each row the bags touch (the atomics).
 // Design: the forward's geometry (a warp a bag, lanes across D, ids walked
 // with __shfl_sync), each lane holding its grad_out columns in registers
 // for the whole bag and adding them with float32 atomicAdd, 16 bytes at a
