@@ -2290,11 +2290,12 @@ def train_steps(step, dev, batches, n):
 
 def train_kernel_group(name):
     """A training step's kernels by what they compute: the substrate
-    kernels by name (the backward's first pass is the CUDA-core forward's
-    STATS instance: `flash_attention_kernel<T, D, true>`, mangled
-    `...ELb1E...`), cuBLAS's products, the rest (elementwise, reductions,
-    copies, AdamW)."""
-    if "dkdv_kernel" in name or "dq_kernel" in name or (
+    kernels by name (the tensor-core backward's three passes are
+    `bwd90::rows_kernel`, `dkdv_kernel` and `dq_kernel`; the CUDA-core
+    backward's first pass is the CUDA-core forward's STATS instance:
+    `flash_attention_kernel<T, D, true>`, mangled `...ELb1E...`), cuBLAS's
+    products, the rest (elementwise, reductions, copies, AdamW)."""
+    if "bwd90" in name or "dkdv_kernel" in name or "dq_kernel" in name or (
             "flash_attention_kernel" in name
             and ("Lb1E" in name or ", true>" in name)):
         return "flash_attention_bwd"
@@ -2349,9 +2350,11 @@ def every_gradient(model, loss):
 def flash_bwd_check(dev, q, k, v, name_power):
     """The backward kernels against the plain backward on layer 0's own q,
     k, v of a training step (GQA-expanded, (B, S, H, D) bf16) and a seeded
-    dO, under the bf16 check; timed beside the bound (5 Sq Sk D BH FLOP,
-    causal, at the bf16 rate), the plain version and SDPA's backward
-    through autograd. Returns the kernel-table line."""
+    dO, under the bf16 check: the tensor-core passes (what the step runs)
+    and the CUDA-core passes forced on the same inputs. Timed in turns
+    (tensor cores, CUDA cores, CUDA cores, tensor cores) beside the bound
+    (5 Sq Sk D BH FLOP, causal, at the bf16 rate), the plain version and
+    SDPA's backward through autograd. Returns the kernel-table line."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -2360,37 +2363,64 @@ def flash_bwd_check(dev, q, k, v, name_power):
                   .contiguous() for t in (q, k, v))
     gen = torch.Generator(device=dev).manual_seed(3)
     do = torch.randn(qf.shape, generator=gen, device=dev).to(qf.dtype)
-    got = ops.flash_attention_bwd(qf, kf, vf, do, causal=True)
+
+    def new():
+        return ops.flash_attention_bwd(qf, kf, vf, do, causal=True)
+
+    def old():
+        return ops._backward(qf, kf, vf, do, True, cuda_cores=True)
     want = ref.flash_attention_bwd(qf, kf, vf, do, causal=True)
-    torch.cuda.synchronize()
-    errs, rels = [], []
-    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
-        check(g.dtype == w.dtype == qf.dtype and bool(torch.isfinite(g).all()),
-              f"flash_attention_bwd {what}: {g.dtype} or non-finite")
-        err, rel, ok = close(g, w, BF16_RTOL, BF16_ATOL)
-        check(ok, f"flash_attention_bwd {what} differs from the plain "
-              f"backward by {err} (relative norm {rel})")
-        errs.append(err)
-        rels.append(rel)
-    del got, want
+    errors = {}
+    for label, fn, tc in (("tensor cores", new, 3), ("CUDA cores", old, 0)):
+        before = ops.LAUNCHES["flash_attention_bwd_wgmma"]
+        got = fn()
+        torch.cuda.synchronize()
+        check(ops.LAUNCHES["flash_attention_bwd_wgmma"] - before == tc,
+              f"flash_attention_bwd ({label}) took the wrong kernels")
+        errs, rels = [], []
+        for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+            check(g.dtype == w.dtype == qf.dtype
+                  and bool(torch.isfinite(g).all()),
+                  f"flash_attention_bwd ({label}) {what}: {g.dtype} or "
+                  f"non-finite")
+            err, rel, ok = close(g, w, BF16_RTOL, BF16_ATOL)
+            check(ok, f"flash_attention_bwd ({label}) {what} differs from "
+                  f"the plain backward by {err} (relative norm {rel})")
+            errs.append(err)
+            rels.append(rel)
+        errors[label] = (errs, rels)
+        del got
+    again = new()
+    check(all(bool(torch.equal(a, b)) for a, b in zip(again, new())),
+          "flash_attention_bwd: two calls differ")
+    del want, again
     torch.cuda.empty_cache()
     lq, lk, lv = (t.view(b, h, s, d).detach().requires_grad_()
                   for t in (qf, kf, vf))
     lib_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
     lib_do = do.view(b, h, s, d)
-    ms = cuda_ms(lambda: ops.flash_attention_bwd(qf, kf, vf, do,
-                                                 causal=True), 5, 3)[0]
+    turns = [cuda_ms(new, 5, 3)[0], cuda_ms(old, 3, 1)[0],
+             cuda_ms(old, 3, 1)[0], cuda_ms(new, 5, 3)[0]]
     plain_ms = cuda_ms(lambda: ref.flash_attention_bwd(qf, kf, vf, do,
                                                        causal=True), 3, 2)[0]
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         lib_out, (lq, lk, lv), lib_do, retain_graph=True), 5, 3)[0]
     bound_ms, bound_by = bound(0, 5 * s * s * d * b * h, BF16_OPS_PER_S)
+    ms, earlier_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    check(ms < earlier_ms, f"the tensor-core backward ({ms} ms) is not "
+          f"faster than the CUDA-core one ({earlier_ms} ms)")
     line = dict(phase="train", check="flash_attention_bwd",
                 shape=[b * h, s, s, d, True, str(qf.dtype)],
-                max_abs_err=max(errs), rel_norm_err=rels, rtol=BF16_RTOL,
-                atol=BF16_ATOL, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                name_power=name_power)
+                max_abs_err=max(errors["tensor cores"][0]),
+                rel_norm_err=errors["tensor cores"][1],
+                earlier_max_abs_err=max(errors["CUDA cores"][0]),
+                earlier_rel_norm_err=errors["CUDA cores"][1],
+                rtol=BF16_RTOL, atol=BF16_ATOL, deterministic=True, ms=ms,
+                earlier_ms=earlier_ms,
+                earlier="CUDA-core backward, forced",
+                in_turns_ms=dict(order="new, old, old, new", ms=turns),
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, name_power=name_power)
     emit(line)
     del lib_out, lq, lk, lv
     torch.cuda.empty_cache()
@@ -2403,7 +2433,8 @@ def train_lm_full_width(dev, name_power):
     steps of `lm_steps.make_train_step` on `data.TokenStream`'s batches.
     Each step must launch the flash forward twice a layer (forward and
     remat's recompute, the tensor-core kernel) and the backward's three
-    kernels once a layer; one more backward must reach every parameter
+    tensor-core passes once a layer; one more backward must reach every
+    parameter
     (wq, wk, wv, q_norm and k_norm through the backward kernels); then
     the backward kernels are held against the plain backward on layer 0's
     own q, k, v. Returns (the line, the flash_attention_bwd table line)."""
@@ -2442,7 +2473,8 @@ def train_lm_full_width(dev, name_power):
     n = cfg.n_layers
     for got in launches:
         check(got["flash_attention"] == got["flash_attention_wgmma"] == 2 * n
-              and got["flash_attention_bwd"] == 3 * n,
+              and got["flash_attention_bwd"]
+              == got["flash_attention_bwd_wgmma"] == 3 * n,
               f"qwen3-14b train step launched {got} for {n} layers")
     profile = train_profile(one, batches(p["steps"]))
     norms = every_gradient(model, T.lm_loss(cfg, model, *batches(p["steps"])))
@@ -2545,7 +2577,8 @@ def train_lm_against_cpu(dev):
         grads.append({n: p.grad.float().cpu()
                       for n, p in model.named_parameters()})
     check(ops.LAUNCHES["flash_attention_wgmma"] == 2 * cfg.n_layers
-          and ops.LAUNCHES["flash_attention_bwd"] == 3 * cfg.n_layers,
+          and ops.LAUNCHES["flash_attention_bwd"]
+          == ops.LAUNCHES["flash_attention_bwd_wgmma"] == 3 * cfg.n_layers,
           f"the narrow config's card run launched {dict(ops.LAUNCHES)}")
     rels = {}
     for name, want in grads[0].items():
@@ -2733,6 +2766,7 @@ def train_phase(dev, name_power):
             for name, n in got.items():
                 launches[name] = launches.get(name, 0) + n
     flash_line["launches"] = launches["flash_attention_bwd"]
+    flash_line["wgmma_launches"] = launches["flash_attention_bwd_wgmma"]
     bag_line["launches"] = launches["embedding_bag_sum_bwd"]
     return {"flash_attention_bwd": flash_line,
             "embedding_bag_sum_bwd": bag_line}, launches
@@ -2984,8 +3018,9 @@ def main() -> int:
             ms=line["ms"], plain_ms=line["plain_ms"],
             bound_ms=line["bound_ms"], bound_by=line["bound_by"],
             library_ms=line["library_ms"], shape=line["shape"],
-            **({"bound_ms_atomic_design": line["bound_ms_atomic_design"]}
-               if "bound_ms_atomic_design" in line else {})))
+            **({k: line[k] for k in ("bound_ms_atomic_design", "earlier_ms",
+                                     "in_turns_ms", "wgmma_launches")
+                if k in line})))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start,
               path_launches=paths,
               note="library_ms is null for the bitset kernels and "

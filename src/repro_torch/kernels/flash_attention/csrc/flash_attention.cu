@@ -91,27 +91,82 @@
 // D/4 of the row's accumulator columns (c = t + 4j) in registers, sized at
 // compile time for D <= 64, 128 or 256.
 
-// Backward (flash_attention_bwd_rows, _dkdv, _dq; no TPU kernel: the
-// reference trains through its pure-JAX blockwise attention, which XLA
-// differentiates, while the port's forward runs on the kernels above, so
-// its gradient comes from kernels too). Given q, k, v and dO, it returns
-// dQ, dK, dV in q's type: P = exp(S - lse), dV = P^T dO, dP = dO V^T,
-// dS = P * (dP - delta) with delta = rowsum(dO * O) = rowsum(P * dP), dQ =
-// dS K / sqrt(D), dK = dS^T Q / sqrt(D), every sum in float32; causal or
-// not, top-left aligned as the forward, Sq != Sk, D <= 256, float32,
-// bfloat16 and float16 inputs. O is the unrounded float32 output,
-// recomputed: delta from the forward's bf16-rounded output moves 0.1-0.2 %
-// of the gradient's elements past the bf16 checks (atol 1e-3) against the
-// reference's autodiff, which differentiates the unrounded softmax.
+// Backward (no TPU kernel: the reference trains through its pure-JAX
+// blockwise attention, which XLA differentiates, while the port's forward
+// runs on the kernels above, so its gradient comes from kernels too).
+// Given q, k, v and dO, it returns dQ, dK, dV in q's type: P = exp(S -
+// lse), dV = P^T dO, dP = dO V^T, dS = P * (dP - delta) with delta =
+// rowsum(dO * O) = rowsum(P * dP), dQ = dS K / sqrt(D), dK = dS^T Q /
+// sqrt(D), every sum in float32; causal or not, top-left aligned as the
+// forward, Sq != Sk. O is the unrounded output (the forward saves neither
+// it nor lse, so the first pass recomputes them): delta from the forward's
+// bf16-rounded output moves 0.1-0.2 % of the gradient's elements past the
+// bf16 checks (atol 1e-3) against the reference's autodiff, which
+// differentiates the unrounded softmax. Three launches, no atomics, so two
+// calls give bit-identical gradients.
 // Bound on an H100 SXM: operations, 5 * Sq * Sk * D * BH FLOP for causal
 // attention (twice that without the mask): 429.5 GFLOP at qwen3-14b's
 // train_4k (40 heads, S = 4,096, D = 128), 0.434 ms at 989 TFLOP/s bf16.
-// Design: a simple, correct first kernel on the CUDA cores in float32 (67
-// TFLOP/s; the tensor cores are later work), in three passes, no atomics,
-// so the result is deterministic; the forward kernels compute as before.
+//
+// Which shapes take which backward (ops.py::takes_tensor_cores, the
+// forward's rule): bfloat16 at D = 64 or 128 the tensor-core passes
+// flash_attention_bwd_{rows,dkdv,dq}_sm90; float32 (its 1e-4 checks are
+// beyond TF32), float16 and bfloat16 at any other D <= 256 the CUDA-core
+// passes flash_attention_bwd_{rows,dkdv,dq} (ops._backward(...,
+// cuda_cores=True) forces them on bf16 too, to test and time them).
+//
+// Design: the tensor-core backward (bf16 wgmma fed by TMA, as the forward:
+// 3-D tensor maps, boxes of 64 columns x 64 rows, 128-byte swizzle, rings
+// of stages on "full" and "empty" mbarriers, a wait of 60 s traps). It
+// does 14 products of the bound's 5 (S and dP twice more, P and dS as
+// several bf16 terms): 2.8x the bound's work, 1.22 ms at the bf16 rate.
+// - rows_sm90: a CTA per (head, 128 query rows), a producer warpgroup and
+//   two consumer warpgroups of 64 rows; K and V tiles of 128 rows stream.
+//   S = Q.K^T and dP = dO.V^T by wgmma, online (m, l, t = sum 2^(x - m)
+//   dP) in float32; it writes lse2 = m + log2(l) (the log2 domain of x = s
+//   * scale * log2(e), so that passes 2 and 3 form P = 2^(x - lse2) by one
+//   fma: converting a natural-log lse back cost a rounding that flipped
+//   gradients) and delta = t / l, rowsum(P * dP) of the unrounded P, which
+//   is what the plain backward computes. Two products a tile.
+// - dkdv_sm90: a CTA per (head, 128 key rows), each warpgroup 64 key rows
+//   with their dK and dV in registers (128 a thread at D = 128); K and V
+//   stay in shared memory, query tiles of 64 rows stream from the diagonal
+//   on with their lse2 and delta. S^T = K.Q^T and dP^T = V.dO^T with the
+//   key rows as M, so P^T and dS^T come out in the accumulator layout that
+//   is the A fragment of the next products: dV += P^T.dO, dK += dS^T.Q, B
+//   MN-major. Registers are the hard part: ptxas compiles every thread of
+//   a 384-thread CTA against its 168-register entry budget (setmaxnreg
+//   raises a warpgroup's registers at run time, not the budget its code
+//   was compiled for), and there this pass spilled (ptxas -v, as
+//   tools/flash_attention_probe.py prints it). So it runs as 256 threads
+//   without a producer warpgroup: thread 0 issues each tile's loads two
+//   tiles ahead once both warpgroups have released the stage, and the
+//   consumers get up to 255 registers.
+//   dV is issued and waited for before dS is split, so the terms of P and
+//   dS are never live together.
+// - dq_sm90: a CTA per (head, 128 query rows), producer and two consumer
+//   warpgroups; Q, dO resident, each row's lse2 and delta in registers,
+//   K and V tiles of 64 rows stream up to the diagonal: S, dP, dS, dQ +=
+//   dS.K with K MN-major.
+// - Precision: P (in dV) and dS (in dK, dQ) enter the products as sums of
+//   bf16 terms (hi = bf16(x), then the bf16 of each remainder), as the
+//   forward splits P. One term misses the card's bf16 checks on every
+//   causal card-test shape; two pass them, but a flipped rounding of one
+//   head's dV or dK shows in GQA's sum of two heads, so those take three
+//   (x to about 2^-27); dQ takes two (tools/flash_attention_probe.py has
+//   the study).
+// - Masks on the diagonal and ragged tiles only (TMA's zeros past Sq or
+//   Sk are scores of 0, not masked scores); a query row past Sq gives
+//   P = dS = 0 whatever its lse2; a warpgroup skips a tile wholly masked
+//   for it but still waits for it and releases it. lse2 and delta are
+//   (BH, Sq_pad) scratch, Sq rounded up to 128, so each 64-row slice is
+//   one bulk copy; rows past Sq hold 0.
+//
+// Design: the CUDA-core backward, a simple first kernel in float32 on the
+// CUDA cores (67 TFLOP/s), in three passes:
 // - rows: the CUDA-core forward kernel's STATS instance recomputes each
-//   query row's float32 O and log-sum-exp (the forward saves neither) and
-//   writes lse and delta = rowsum(dO * O) in place of the output.
+//   query row's float32 O and log-sum-exp and writes lse and delta =
+//   rowsum(dO * O) in place of the output.
 // - dkdv: a block per (head, 64 key rows), K and V resident in shared
 //   memory as float32, query tiles of 32 rows streamed from the diagonal
 //   on; four threads a key row share its P and dS through shared memory
@@ -1059,16 +1114,16 @@ cudaError_t encode_fn(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// (BH, S, D) bf16, contiguous: boxes of 64 columns x 128 rows of one head,
-// 128-byte swizzle, zeros past S.
+// (BH, S, D) bf16, contiguous: boxes of 64 columns x `box_rows` rows of one
+// head (128 for the forward), 128-byte swizzle, zeros past S.
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, long long BH,
-            int S, int D) {
+            int S, int D, int box_rows = kRows) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(BH)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(S) * D * 2};
-  const cuuint32_t box[3] = {64, kRows, 1};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -1104,6 +1159,728 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 }  // namespace sm90
+
+// ===========================================================================
+// flash_attention_bwd_{rows,dkdv,dq}_sm90: the backward on the tensor cores
+// (bf16 wgmma fed by TMA)
+// ===========================================================================
+namespace bwd90 {
+
+constexpr int kThreads = 384;             // producer + two consumer warpgroups
+constexpr int kDkdvThreads = 256;         // two warpgroups, no producer
+constexpr int kBox = 64 * 128;            // one TMA box: 64 rows x 64 bf16
+constexpr int kStages = 2;                // rows pass: K/V tiles of 128 rows
+constexpr int kRingStages = 3;            // dkdv, dq: tiles of 64 rows
+
+// The (BH, Sq_pad) rows of lse and delta: Sq rounded up to a whole 128-row
+// query tile, so every tile of the rows pass writes all its rows and every
+// 64-row slice of them is a 256-byte bulk copy at a 256-byte boundary.
+__host__ __device__ __forceinline__ int padded_rows(int Sq) {
+  return (Sq + 127) / 128 * 128;
+}
+
+// A tile of R rows x D columns (R * D * 2 bytes) into shared memory: D / 64
+// column groups of R rows x 128 bytes (128-byte swizzle), each loaded as
+// R / 64 boxes.
+template <int R, int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int r0, int bh) {
+#pragma unroll
+  for (int g = 0; g < D / 64; ++g) {
+#pragma unroll
+    for (int b = 0; b < R / 64; ++b) {
+      sm90::tma_load(dst + g * R * 128 + b * kBox, map, bar, 64 * g,
+                     r0 + 64 * b, bh);
+    }
+  }
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
+// memory into shared memory by one bulk copy, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Descriptor of k-step kk (columns 16kk..16kk+15) of 64 or N rows from row
+// `row` (a multiple of 8) of an R-row tile, K-major: 32 bytes a step into
+// the 128-byte rows of a column group, 1024 bytes from one 8-row group to
+// the next.
+template <int R>
+__device__ __forceinline__ uint64_t k_major(uint32_t tile, int row, int kk) {
+  return sm90::smem_desc(tile + (kk / 4) * R * 128 + row * 128 + (kk % 4) * 32,
+                         16, 1024);
+}
+
+// Descriptor of k-step kk (rows 16kk..16kk+15) of an R-row tile read as a
+// K x D operand, MN-major (the transpose bit of 16-bit types): 1024 bytes
+// per 8 rows, R * 128 bytes from one 64-column group to the next.
+template <int R>
+__device__ __forceinline__ uint64_t mn_major(uint32_t tile, int kk) {
+  return sm90::smem_desc(tile + kk * 2048, R * 128, 1024);
+}
+
+#define F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
+#define W4(a, i) "=f"(a[i]), "=f"(a[i + 1]), "=f"(a[i + 2]), "=f"(a[i + 3])
+#define SS_N64                                                              \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+
+// S[64 x 64] = A[64 x 16] . B[16 x 64], both K-major in shared memory; the
+// first step writes S without reading it ...
+__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" SS_N64
+               : W4(d, 0), W4(d, 4), W4(d, 8), W4(d, 12), W4(d, 16),
+                 W4(d, 20), W4(d, 24), W4(d, 28)
+               : "l"(da), "l"(db), "r"(0));
+}
+
+// ... and every later one adds to it.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" SS_N64
+               : F4(d, 0), F4(d, 4), F4(d, 8), F4(d, 12), F4(d, 16),
+                 F4(d, 20), F4(d, 24), F4(d, 28)
+               : "l"(da), "l"(db), "r"(1));
+}
+
+#undef F4
+#undef W4
+#undef SS_N64
+
+// acc[64 x N] = A . B^T over D: A the 64 rows from `a_row` of an RA-row
+// tile, B the N rows of an RB-row tile, both (rows, D) K-major.
+template <int N, int D, int RA, int RB>
+__device__ __forceinline__ void issue_ss(float (&acc)[N / 2], uint32_t a,
+                                         int a_row, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = k_major<RA>(a, a_row, kk);
+    const uint64_t db = k_major<RB>(b, 0, kk);
+    if constexpr (N == 128) {
+      if (kk == 0) {
+        sm90::wgmma_ss_n128_first(acc, da, db);
+      } else {
+        sm90::wgmma_ss_n128(acc, da, db);
+      }
+    } else {
+      if (kk == 0) {
+        wgmma_ss_n64_first(acc, da, db);
+      } else {
+        wgmma_ss_n64(acc, da, db);
+      }
+    }
+  }
+}
+
+// A 64 x 64 operand x as N bf16 terms in registers (A fragments): term 0
+// is bf16(x), each next one the bf16 of what the earlier ones leave (each
+// difference exact in float32), so N terms hold x to about 2^(-9N).
+template <int N>
+struct Terms {
+  uint32_t r[N][16];
+};
+
+// x (a 64 x 64 accumulator fragment) as N terms in the A-fragment order:
+// register i holds elements 2i and 2i + 1.
+template <int N>
+__device__ __forceinline__ void split(const float (&x)[32], Terms<N>& out) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    float a = x[2 * i], b = x[2 * i + 1];
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      out.r[n][i] = sm90::bits(h);
+      const float2 hf = __bfloat1622float2(h);
+      a -= hf.x;
+      b -= hf.y;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void keep(Terms<N>& a) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) sm90::keep(a.r[n]);
+}
+
+// acc[64 x D] += (sum of the N terms)[64 x 64] . B[64 x D]: the terms from
+// registers, smallest first, B the 64 rows of a 64-row tile, MN-major.
+template <int D, int N>
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2],
+                                         const Terms<N>& a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = mn_major<64>(b, kk);
+#pragma unroll
+    for (int n = N - 1; n >= 0; --n) {
+      if constexpr (D == 128) {
+        sm90::wgmma_rs_n128(acc, a.r[n] + 4 * kk, db);
+      } else {
+        sm90::wgmma_rs_n64(acc, a.r[n] + 4 * kk, db);
+      }
+    }
+  }
+}
+
+// Terms of P (in dV) and dS (in dK, dQ). One term misses the bf16 checks
+// against the plain backward on every causal card-test shape; two pass
+// them, but in dV and dK a flipped rounding of one head's gradient shows
+// in GQA's sum of two heads (tests/test_torch_cuda_kernels.py::
+// test_cuda_mha_backward_reaches_q_k_v), so dV and dK take three; dQ,
+// summed over no heads, two (tools/flash_attention_probe.py's study).
+constexpr int kTermsDkdv = 3;
+constexpr int kTermsDq = 2;
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(sm90::kFull, x, 1);
+  return x + __shfl_xor_sync(sm90::kFull, x, 2);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(sm90::kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(sm90::kFull, x, 2));
+}
+
+__device__ __forceinline__ uint32_t aligned_base(uint8_t* smem_raw) {
+  return (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) &
+         ~1023u;
+}
+
+// Pass 1 shared memory: Q and dO tiles of 128 rows, then a ring of
+// kStages (K, V) tiles of 128 rows, then the mbarriers: Q's (Q and dO), a
+// "full" (TMA bytes) and an "empty" (one arrival a consumer warpgroup) one
+// a stage.
+template <int D>
+struct RowsSmem {
+  static constexpr int kTile = 128 * D * 2;            // 128 rows
+  static constexpr int kQ = 0;
+  static constexpr int kO = kTile;
+  static constexpr int kK = 2 * kTile;                  // + stage * 2 kTile
+  static constexpr int kBarQ = kK + kStages * 2 * kTile;
+  static constexpr int kFull = kBarQ + 8;               // + stage * 8
+  static constexpr int kEmpty = kFull + 8 * kStages;
+  static constexpr int kBytes = kEmpty + 8 * kStages + 1024;  // + align
+};
+
+// Pass 1: each query row's lse2 = m + log2(l) (the log-sum-exp in the log2
+// domain of x = s * scale * log2(e), so that passes 2 and 3 form P =
+// 2^(x - lse2) by one fma and need no conversion, a rounding that moved
+// gradients past the bf16 checks) and delta = rowsum(P * dP) of the
+// unrounded float32 P, online over key tiles of 128: S = Q.K^T and dP =
+// dO.V^T by wgmma, then (m, l, t = sum 2^(x - m) dP) in float32. A CTA per
+// (head, 128-row query tile), heaviest causal tiles first; rows past Sq
+// (up to Sq_pad) get lse2 = delta = 0.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+rows_kernel(const __grid_constant__ CUtensorMap qmap,
+            const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap,
+            const __grid_constant__ CUtensorMap omap,
+            float* __restrict__ lse, float* __restrict__ delta, int BH,
+            int Sq, int Sk, float scale_log2, int causal) {
+  using L = RowsSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = aligned_base(smem_raw);
+  const uint32_t bar_q = base + L::kBarQ;
+  const int n_qt = (Sq + 127) / 128;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / BH);
+  const int bh = static_cast<int>(blockIdx.x % BH);
+  const int n_kt = (Sk + 127) / 128;
+  const int n_tiles = causal ? min(n_kt, qt + 1) : n_kt;
+  auto stage = [](int j) { return j % kStages; };
+  auto parity = [](int j) { return static_cast<uint32_t>(j / kStages) & 1u; };
+  auto k_tile = [&](int j) { return base + L::kK + stage(j) * 2 * L::kTile; };
+  auto v_tile = [&](int j) { return k_tile(j) + L::kTile; };
+  auto full = [&](int j) { return base + L::kFull + 8 * stage(j); };
+  auto empty = [&](int j) { return base + L::kEmpty + 8 * stage(j); };
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(full(s), 1);
+      sm90::mbar_init(empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup's role from a value ptxas can prove warp-uniform (a
+  // shuffle from lane 0), as CUTLASS derives it
+  const int wg = __shfl_sync(sm90::kFull, static_cast<int>(threadIdx.x / 128),
+                             0);
+  if (wg == 0) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      sm90::mbar_expect_tx(bar_q, 2 * L::kTile);
+      load_tile<128, D>(base + L::kQ, &qmap, bar_q, qt * 128, bh);
+      load_tile<128, D>(base + L::kO, &omap, bar_q, qt * 128, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        sm90::mbar_wait(empty(j), parity(j) ^ 1);
+        sm90::mbar_expect_tx(full(j), 2 * L::kTile);
+        load_tile<128, D>(k_tile(j), &kmap, full(j), j * 128, bh);
+        load_tile<128, D>(v_tile(j), &vmap, full(j), j * 128, bh);
+      }
+    }
+    return;
+  }
+  // ---- consumer warpgroups: 64 query rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int c = wg - 1;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int row0 = qt * 128 + 64 * c + 16 * (t / 32) + lane / 4;
+  const int row1 = row0 + 8;
+  const int col = 2 * (lane % 4);
+  float m0 = sm90::kNegInf, m1 = sm90::kNegInf;
+  float l0 = 0.f, l1 = 0.f, t0 = 0.f, t1 = 0.f;
+  sm90::mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    float s[64], dp[64];
+    sm90::mbar_wait(full(j), parity(j));
+    sm90::wgmma_fence();
+    issue_ss<128, D, 128, 128>(s, base + L::kQ, 64 * c, k_tile(j));
+    issue_ss<128, D, 128, 128>(dp, base + L::kO, 64 * c, v_tile(j));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::keep(s);
+    sm90::keep(dp);
+    if (t == 0) sm90::mbar_arrive(empty(j));
+    // the masks on the last tile only: the diagonal or the ragged one
+    // (TMA's zeros past Sk are scores of 0, not masked scores)
+    const bool edge = j + 1 == n_tiles;
+    float mx0 = sm90::kNegInf, mx1 = sm90::kNegInf;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * n + e] * scale_log2;
+        if (edge) {
+          const int key = j * 128 + 8 * n + col + (e & 1);
+          const int row = e < 2 ? row0 : row1;
+          if (key >= Sk || (causal && key > row)) x = sm90::kNegInf;
+        }
+        s[4 * n + e] = x;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float a0 = sm90::ex2(m0 - mn0), a1 = sm90::ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f, pt0 = 0.f, pt1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p0 = sm90::ex2(s[4 * n + e] - mn0);
+        const float p1 = sm90::ex2(s[4 * n + 2 + e] - mn1);
+        ps0 += p0;
+        ps1 += p1;
+        pt0 += p0 * dp[4 * n + e];
+        pt1 += p1 * dp[4 * n + 2 + e];
+      }
+    }
+    l0 = l0 * a0 + ps0;
+    l1 = l1 * a1 + ps1;
+    t0 = t0 * a0 + pt0;
+    t1 = t1 * a1 + pt1;
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  t0 = quad_sum(t0);
+  t1 = quad_sum(t1);
+  if (lane % 4 == 0) {
+    const int64_t at = static_cast<int64_t>(bh) * padded_rows(Sq);
+    lse[at + row0] = row0 < Sq ? m0 + log2f(l0) : 0.f;
+    delta[at + row0] = row0 < Sq ? t0 / l0 : 0.f;
+    lse[at + row1] = row1 < Sq ? m1 + log2f(l1) : 0.f;
+    delta[at + row1] = row1 < Sq ? t1 / l1 : 0.f;
+  }
+}
+
+// Pass 2 shared memory: K and V tiles of 128 rows, then a ring of
+// kRingStages (Q, dO) tiles of 64 rows, then each stage's 64 lse and 64
+// delta values (256 bytes each), then the mbarriers: K/V's, a "full" and
+// an "empty" one a stage.
+template <int D>
+struct DkdvSmem {
+  static constexpr int kTile = 64 * D * 2;             // 64 rows
+  static constexpr int kK = 0;
+  static constexpr int kV = 2 * kTile;
+  static constexpr int kQ = 4 * kTile;                  // + stage * 2 kTile
+  static constexpr int kL = kQ + kRingStages * 2 * kTile;  // + stage * 512
+  static constexpr int kBarKV = kL + kRingStages * 512;
+  static constexpr int kFull = kBarKV + 8;
+  static constexpr int kEmpty = kFull + 8 * kRingStages;
+  static constexpr int kBytes = kEmpty + 8 * kRingStages + 1024;
+};
+
+// Pass 2: dK and dV. A CTA per (head, 128-row key tile), key tile 0 (the
+// most query tiles when causal) first; each consumer warpgroup owns 64
+// key rows and keeps their dK and dV in registers. Query tiles of 64 rows
+// stream from the diagonal on (causal) with their lse and delta: S^T =
+// K.Q^T and dP^T = V.dO^T with the key rows as M, then P^T = 2^(x - lse2)
+// and dS^T = P^T * (dP^T - delta) in the accumulator layout, split into
+// kTermsDkdv bf16 terms in place as A fragments: dV += P^T.dO, dK +=
+// dS^T.Q, B MN-major from shared memory.
+template <int D>
+__global__ void __launch_bounds__(kDkdvThreads, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
+            const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap,
+            const __grid_constant__ CUtensorMap omap,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+            int BH, int Sq, int Sk, float scale, float scale_log2,
+            int causal) {
+  using L = DkdvSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = aligned_base(smem_raw);
+  const uint8_t* gbase =
+      smem_raw + (base - static_cast<uint32_t>(__cvta_generic_to_shared(
+                             smem_raw)));
+  const uint32_t bar_kv = base + L::kBarKV;
+  const int kt = static_cast<int>(blockIdx.x / BH);
+  const int bh = static_cast<int>(blockIdx.x % BH);
+  const int n_qt = (Sq + 63) / 64;
+  const int qt0 = causal ? 2 * kt : 0;
+  const int n_tiles = max(n_qt - qt0, 0);
+  auto stage = [](int i) { return i % kRingStages; };
+  auto parity = [](int i) {
+    return static_cast<uint32_t>(i / kRingStages) & 1u;
+  };
+  auto q_tile = [&](int i) { return base + L::kQ + stage(i) * 2 * L::kTile; };
+  auto o_tile = [&](int i) { return q_tile(i) + L::kTile; };
+  auto l_row = [&](int i) { return L::kL + stage(i) * 512; };  // + 256: delta
+  auto full = [&](int i) { return base + L::kFull + 8 * stage(i); };
+  auto empty = [&](int i) { return base + L::kEmpty + 8 * stage(i); };
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar_kv, 1);
+    for (int s = 0; s < kRingStages; ++s) {
+      sm90::mbar_init(full(s), 1);
+      sm90::mbar_init(empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // no producer warpgroup: thread 0 issues every load, each query tile
+  // kRingStages - 1 tiles ahead, once both warpgroups have released the
+  // stage it refills (so that the consumers get all of the 255 registers a
+  // thread of a 256-thread CTA may use)
+  const int64_t rows = static_cast<int64_t>(bh) * padded_rows(Sq);
+  auto produce = [&](int i) {
+    const int q0 = (qt0 + i) * 64;
+    sm90::mbar_wait(empty(i), parity(i) ^ 1);
+    sm90::mbar_expect_tx(full(i), 2 * L::kTile + 512);
+    load_tile<64, D>(q_tile(i), &qmap, full(i), q0, bh);
+    load_tile<64, D>(o_tile(i), &omap, full(i), q0, bh);
+    bulk_load(base + l_row(i), lse + rows + q0, 256, full(i));
+    bulk_load(base + l_row(i) + 256, delta + rows + q0, 256, full(i));
+  };
+  if (threadIdx.x == 0 && n_tiles > 0) {
+    sm90::mbar_expect_tx(bar_kv, 4 * L::kTile);
+    load_tile<128, D>(base + L::kK, &kmap, bar_kv, kt * 128, bh);
+    load_tile<128, D>(base + L::kV, &vmap, bar_kv, kt * 128, bh);
+    for (int i = 0; i < min(kRingStages - 1, n_tiles); ++i) produce(i);
+  }
+  // the warpgroup's index from a value ptxas can prove warp-uniform (a
+  // shuffle from lane 0)
+  const int c = __shfl_sync(sm90::kFull, static_cast<int>(threadIdx.x / 128),
+                            0);
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int k_wg = kt * 128 + 64 * c;                 // this warpgroup's keys
+  const int key0 = k_wg + 16 * (t / 32) + lane / 4;
+  const int key1 = key0 + 8;
+  const int col = 2 * (lane % 4);
+  float gk[D / 2], gv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.f;
+  if (n_tiles > 0) sm90::mbar_wait(bar_kv, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int q0 = (qt0 + i) * 64;
+    if (threadIdx.x == 0 && i + kRingStages - 1 < n_tiles) {
+      produce(i + kRingStages - 1);       // its stage held tile i - 1
+    }
+    sm90::mbar_wait(full(i), parity(i));
+    if (causal && q0 + 64 <= k_wg) {      // every query before every key
+      if (t == 0) sm90::mbar_arrive(empty(i));
+      continue;
+    }
+    float s[32], dp[32];
+    sm90::wgmma_fence();
+    issue_ss<64, D, 128, 64>(s, base + L::kK, 64 * c, q_tile(i));
+    issue_ss<64, D, 128, 64>(dp, base + L::kV, 64 * c, o_tile(i));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::keep(s);
+    sm90::keep(dp);
+    const float* lr = reinterpret_cast<const float*>(gbase + l_row(i));
+    const float* dr = lr + 64;
+    // masks on the diagonal tile and the ragged one (queries past Sq)
+    const bool edge = (causal && q0 < k_wg + 64) || q0 + 64 > Sq;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lr + 8 * n + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(dr + 8 * n + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lq = (e & 1) ? l2.y : l2.x;
+        const float dq_ = (e & 1) ? d2.y : d2.x;
+        float p = sm90::ex2(fmaf(s[4 * n + e], scale_log2, -lq));
+        float ds = p * (dp[4 * n + e] - dq_);
+        if (edge) {
+          const int q = q0 + 8 * n + col + (e & 1);
+          const int key = e < 2 ? key0 : key1;
+          if (q >= Sq || (causal && q < key)) p = ds = 0.f;
+        }
+        s[4 * n + e] = p;
+        dp[4 * n + e] = ds;
+      }
+    }
+    // dV first, then dK: the P terms die before the dS terms are made
+    // (both at once would hold 96 fragment registers beside dK and dV)
+    Terms<kTermsDkdv> a;
+    split(s, a);
+    sm90::wgmma_fence();
+    issue_rs<D>(gv, a, o_tile(i));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::keep(gv);
+    keep(a);
+    split(dp, a);
+    sm90::wgmma_fence();
+    issue_rs<D>(gk, a, q_tile(i));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::keep(gk);
+    keep(a);
+    if (t == 0) sm90::mbar_arrive(empty(i));
+  }
+  const int64_t at = static_cast<int64_t>(bh) * Sk;
+  __nv_bfloat16* k0p = dk + (at + key0) * D + col;
+  __nv_bfloat16* v0p = dv + (at + key0) * D + col;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (key0 < Sk) {
+      *reinterpret_cast<__nv_bfloat162*>(k0p + 8 * n) =
+          __floats2bfloat162_rn(gk[4 * n] * scale, gk[4 * n + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(v0p + 8 * n) =
+          __floats2bfloat162_rn(gv[4 * n], gv[4 * n + 1]);
+    }
+    if (key1 < Sk) {
+      *reinterpret_cast<__nv_bfloat162*>(k0p + 8 * D + 8 * n) =
+          __floats2bfloat162_rn(gk[4 * n + 2] * scale, gk[4 * n + 3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(v0p + 8 * D + 8 * n) =
+          __floats2bfloat162_rn(gv[4 * n + 2], gv[4 * n + 3]);
+    }
+  }
+}
+
+// Pass 3 shared memory: Q and dO tiles of 128 rows, then a ring of
+// kRingStages (K, V) tiles of 64 rows, then the mbarriers.
+template <int D>
+struct DqSmem {
+  static constexpr int kTile = 64 * D * 2;             // 64 rows
+  static constexpr int kQ = 0;
+  static constexpr int kO = 2 * kTile;
+  static constexpr int kK = 4 * kTile;                  // + stage * 2 kTile
+  static constexpr int kBarQ = kK + kRingStages * 2 * kTile;
+  static constexpr int kFull = kBarQ + 8;
+  static constexpr int kEmpty = kFull + 8 * kRingStages;
+  static constexpr int kBytes = kEmpty + 8 * kRingStages + 1024;
+};
+
+// Pass 3: dQ. A CTA per (head, 128-row query tile), heaviest causal tiles
+// first; each consumer warpgroup owns 64 query rows, their lse and delta
+// in registers and dQ in the accumulator. Key tiles of 64 rows stream up
+// to the diagonal: S = Q.K^T and dP = dO.V^T, dS = P * (dP - delta) split
+// into kTermsDq bf16 terms in place, dQ += dS.K with K MN-major.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap qmap,
+          const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap,
+          const __grid_constant__ CUtensorMap omap,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          __nv_bfloat16* __restrict__ dq, int BH, int Sq, int Sk, float scale,
+          float scale_log2, int causal) {
+  using L = DqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = aligned_base(smem_raw);
+  const uint32_t bar_q = base + L::kBarQ;
+  const int n_qt = (Sq + 127) / 128;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / BH);
+  const int bh = static_cast<int>(blockIdx.x % BH);
+  const int n_kt = (Sk + 63) / 64;
+  const int n_tiles = causal ? min(n_kt, 2 * qt + 2) : n_kt;
+  auto stage = [](int j) { return j % kRingStages; };
+  auto parity = [](int j) {
+    return static_cast<uint32_t>(j / kRingStages) & 1u;
+  };
+  auto k_tile = [&](int j) { return base + L::kK + stage(j) * 2 * L::kTile; };
+  auto v_tile = [&](int j) { return k_tile(j) + L::kTile; };
+  auto full = [&](int j) { return base + L::kFull + 8 * stage(j); };
+  auto empty = [&](int j) { return base + L::kEmpty + 8 * stage(j); };
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar_q, 1);
+    for (int s = 0; s < kRingStages; ++s) {
+      sm90::mbar_init(full(s), 1);
+      sm90::mbar_init(empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup's role from a value ptxas can prove warp-uniform (a
+  // shuffle from lane 0), as CUTLASS derives it
+  const int wg = __shfl_sync(sm90::kFull, static_cast<int>(threadIdx.x / 128),
+                             0);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      sm90::mbar_expect_tx(bar_q, 4 * L::kTile);
+      load_tile<128, D>(base + L::kQ, &qmap, bar_q, qt * 128, bh);
+      load_tile<128, D>(base + L::kO, &omap, bar_q, qt * 128, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        sm90::mbar_wait(empty(j), parity(j) ^ 1);
+        sm90::mbar_expect_tx(full(j), 2 * L::kTile);
+        load_tile<64, D>(k_tile(j), &kmap, full(j), j * 64, bh);
+        load_tile<64, D>(v_tile(j), &vmap, full(j), j * 64, bh);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int c = wg - 1;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int q_wg = qt * 128 + 64 * c;                 // this warpgroup's rows
+  const int row0 = q_wg + 16 * (t / 32) + lane / 4;
+  const int row1 = row0 + 8;
+  const int col = 2 * (lane % 4);
+  // rows up to Sq_pad hold lse = delta = 0 past Sq, so every row reads
+  const int64_t rows = static_cast<int64_t>(bh) * padded_rows(Sq);
+  const float lse0 = lse[rows + row0];
+  const float lse1 = lse[rows + row1];
+  const float dl0 = delta[rows + row0], dl1 = delta[rows + row1];
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  sm90::mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * 64;
+    sm90::mbar_wait(full(j), parity(j));
+    if (causal && k0 >= q_wg + 64) {      // every key after every row
+      if (t == 0) sm90::mbar_arrive(empty(j));
+      continue;
+    }
+    float s[32], dp[32];
+    sm90::wgmma_fence();
+    issue_ss<64, D, 128, 64>(s, base + L::kQ, 64 * c, k_tile(j));
+    issue_ss<64, D, 128, 64>(dp, base + L::kO, 64 * c, v_tile(j));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::keep(s);
+    sm90::keep(dp);
+    // masks on the diagonal tile and the ragged one (keys past Sk)
+    const bool edge = (causal && k0 + 64 > q_wg) || k0 + 64 > Sk;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool r1 = e >= 2;
+        float p = sm90::ex2(fmaf(s[4 * n + e], scale_log2, -(r1 ? lse1 : lse0)));
+        float ds = p * (dp[4 * n + e] - (r1 ? dl1 : dl0));
+        if (edge) {
+          const int key = k0 + 8 * n + col + (e & 1);
+          if (key >= Sk || (causal && key > (r1 ? row1 : row0))) ds = 0.f;
+        }
+        dp[4 * n + e] = ds;
+      }
+    }
+    Terms<kTermsDq> a;
+    split(dp, a);
+    sm90::wgmma_fence();
+    issue_rs<D>(acc, a, k_tile(j));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::keep(acc);
+    keep(a);
+    if (t == 0) sm90::mbar_arrive(empty(j));
+  }
+  __nv_bfloat16* out0 = dq + (static_cast<int64_t>(bh) * Sq + row0) * D + col;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (row0 < Sq) {
+      *reinterpret_cast<__nv_bfloat162*>(out0 + 8 * n) =
+          __floats2bfloat162_rn(acc[4 * n] * scale, acc[4 * n + 1] * scale);
+    }
+    if (row1 < Sq) {
+      *reinterpret_cast<__nv_bfloat162*>(out0 + 8 * D + 8 * n) =
+          __floats2bfloat162_rn(acc[4 * n + 2] * scale,
+                                acc[4 * n + 3] * scale);
+    }
+  }
+}
+
+// The four tensor maps of q, k, v and dO (boxes of 64 rows), or false.
+bool encode_all(CUtensorMap (&maps)[4], const void* q, const void* k,
+                const void* v, const void* dO, long long BH, int Sq, int Sk,
+                int D, cudaError_t* err) {
+  sm90::EncodeTiled fn;
+  *err = sm90::encode_fn(&fn);
+  if (*err != cudaSuccess) return false;
+  if (!sm90::encode(fn, &maps[0], q, BH, Sq, D, 64) ||
+      !sm90::encode(fn, &maps[1], k, BH, Sk, D, 64) ||
+      !sm90::encode(fn, &maps[2], v, BH, Sk, D, 64) ||
+      !sm90::encode(fn, &maps[3], dO, BH, Sq, D, 64)) {
+    *err = cudaErrorInvalidValue;
+    return false;
+  }
+  return true;
+}
+
+// A 1-D grid of `tiles` x BH CTAs, refused where CUDA cannot launch it.
+bool grid(long long BH, int Sq, int Sk, int tiles, unsigned* g) {
+  const long long n = static_cast<long long>(tiles) * BH;
+  if (BH <= 0 || Sq <= 0 || Sk <= 0 || BH > 0x7fffffffLL || n > 0x7fffffffLL)
+    return false;
+  *g = static_cast<unsigned>(n);
+  return true;
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Calls f(Width<D>) for D = 64 or 128 and bfloat16 (dtype code 1).
+template <typename F>
+cudaError_t dispatch(int dtype, int D, F&& f) {
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if (D == 64) return f(bwd::Width<64>{});
+  if (D == 128) return f(bwd::Width<128>{});
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace bwd90
 
 extern "C" {
 
@@ -1204,6 +1981,99 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
         static_cast<const T*>(v), static_cast<const T*>(dO),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<T*>(dq), Sq, Sk, D, scale, causal);
+    return cudaGetLastError();
+  }));
+}
+
+
+// The tensor-core backward: bfloat16 q, k, v and dO (dtype code 1; any
+// other is refused), D = 64 or 128, every pointer 16-byte aligned. lse
+// (in the log2 domain: lse2 = lse * log2(e)) and delta are (BH, Sq_pad)
+// float32 scratch, Sq_pad = Sq rounded up to 128: pass 1 writes every row
+// of it, passes 2 and 3 read it.
+int flash_attention_bwd_rows_sm90(const void* q, const void* k, const void* v,
+                                  const void* dO, void* lse, void* delta,
+                                  long long BH, int Sq, int Sk, int D,
+                                  float scale, int causal, int dtype,
+                                  void* stream) {
+  unsigned g;
+  if (!bwd90::grid(BH, Sq, Sk, (Sq + 127) / 128, &g)) {
+    return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(bwd90::dispatch(dtype, D, [&](auto width) {
+    constexpr int W = decltype(width)::value;
+    CUtensorMap maps[4];
+    cudaError_t err;
+    if (!bwd90::encode_all(maps, q, k, v, dO, BH, Sq, Sk, W, &err)) {
+      return err;
+    }
+    auto kernel = bwd90::rows_kernel<W>;
+    constexpr int smem = bwd90::RowsSmem<W>::kBytes;
+    err = bwd90::set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<g, bwd90::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<float*>(lse),
+        static_cast<float*>(delta), static_cast<int>(BH), Sq, Sk,
+        scale * sm90::kLog2e, causal);
+    return cudaGetLastError();
+  }));
+}
+
+int flash_attention_bwd_dkdv_sm90(const void* q, const void* k, const void* v,
+                                  const void* dO, const void* lse,
+                                  const void* delta, void* dk, void* dv,
+                                  long long BH, int Sq, int Sk, int D,
+                                  float scale, int causal, int dtype,
+                                  void* stream) {
+  unsigned g;
+  if (!bwd90::grid(BH, Sq, Sk, (Sk + 127) / 128, &g)) {
+    return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(bwd90::dispatch(dtype, D, [&](auto width) {
+    constexpr int W = decltype(width)::value;
+    CUtensorMap maps[4];
+    cudaError_t err;
+    if (!bwd90::encode_all(maps, q, k, v, dO, BH, Sq, Sk, W, &err)) {
+      return err;
+    }
+    auto kernel = bwd90::dkdv_kernel<W>;
+    constexpr int smem = bwd90::DkdvSmem<W>::kBytes;
+    err = bwd90::set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<g, bwd90::kDkdvThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), static_cast<int>(BH), Sq, Sk, scale,
+        scale * sm90::kLog2e, causal);
+    return cudaGetLastError();
+  }));
+}
+
+int flash_attention_bwd_dq_sm90(const void* q, const void* k, const void* v,
+                                const void* dO, const void* lse,
+                                const void* delta, void* dq, long long BH,
+                                int Sq, int Sk, int D, float scale,
+                                int causal, int dtype, void* stream) {
+  unsigned g;
+  if (!bwd90::grid(BH, Sq, Sk, (Sq + 127) / 128, &g)) {
+    return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(bwd90::dispatch(dtype, D, [&](auto width) {
+    constexpr int W = decltype(width)::value;
+    CUtensorMap maps[4];
+    cudaError_t err;
+    if (!bwd90::encode_all(maps, q, k, v, dO, BH, Sq, Sk, W, &err)) {
+      return err;
+    }
+    auto kernel = bwd90::dq_kernel<W>;
+    constexpr int smem = bwd90::DqSmem<W>::kBytes;
+    err = bwd90::set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<g, bwd90::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq),
+        static_cast<int>(BH), Sq, Sk, scale, scale * sm90::kLog2e, causal);
     return cudaGetLastError();
   }));
 }

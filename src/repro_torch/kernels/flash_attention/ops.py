@@ -12,11 +12,15 @@ the other. `LAUNCHES["flash_attention"]` counts every forward launch,
 
 `flash_attention` and `mha` are differentiable: an autograd Function
 saves q, k and v and its backward calls `flash_attention_bwd`, three
-CUDA-core launches on the card (each counted in
-`LAUNCHES["flash_attention_bwd"]`: the rows' log-sum-exp and
-rowsum(dO * O) of the recomputed float32 output, then dK and dV a key
-tile a block, then dQ a query tile a block), the plain
-`ref.flash_attention_bwd` on the CPU.
+launches on the card, each counted in `LAUNCHES["flash_attention_bwd"]`:
+the rows' log-sum-exp and delta = rowsum(P * dP) of the unrounded
+softmax, then dK and dV a key tile a block, then dQ a query tile a block.
+`takes_tensor_cores` routes it as it routes the forward: bfloat16 at
+D = 64 or 128 takes the bf16 `wgmma` kernels fed by TMA (also counted in
+`LAUNCHES["flash_attention_bwd_wgmma"]`), everything else the CUDA-core
+float32 kernels; on the CPU it is the plain `ref.flash_attention_bwd`.
+`_backward(..., cuda_cores=True)` forces the CUDA-core kernels on bf16
+inputs too (for the card tests and timing them in turns).
 
 `mha` adapts the (B, S, H, D) layout of the models to the kernel's
 flattened (B*H, S, D) layout; GQA expansion happens before the call (the
@@ -45,9 +49,13 @@ LIBRARY = CudaLibrary(SOURCE, {
     # backward: pointers, then (BH, Sq, Sk, D, scale, causal, dtype, stream)
     "flash_attention_bwd_rows": [_p] * 6 + _BWD_TAIL,
     "flash_attention_bwd_dkdv": [_p] * 8 + _BWD_TAIL,
-    "flash_attention_bwd_dq": [_p] * 7 + _BWD_TAIL})
+    "flash_attention_bwd_dq": [_p] * 7 + _BWD_TAIL,
+    "flash_attention_bwd_rows_sm90": [_p] * 6 + _BWD_TAIL,
+    "flash_attention_bwd_dkdv_sm90": [_p] * 8 + _BWD_TAIL,
+    "flash_attention_bwd_dq_sm90": [_p] * 7 + _BWD_TAIL})
 LAUNCHES = Launches({"flash_attention": 0, "flash_attention_wgmma": 0,
-                     "flash_attention_bwd": 0})
+                     "flash_attention_bwd": 0,
+                     "flash_attention_bwd_wgmma": 0})
 # Head widths the CUDA-core kernel takes: its accumulator is sized at
 # compile time (64, 128 or 256 columns); the repo's configurations use 128.
 MAX_HEAD_DIM = 256
@@ -123,8 +131,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True):
     """(dq, dk, dv) of `flash_attention` at the output's gradient `do`
     ((BH, Sq, D) in q's type), each in q's type. On the card: three
-    launches, float32 inside (each row's output and log-sum-exp are
-    recomputed, the forward saves neither); deterministic, no atomics."""
+    launches (each row's log-sum-exp and delta are recomputed, the forward
+    saves neither), on the tensor cores where `takes_tensor_cores`, else on
+    the CUDA cores in float32; deterministic, no atomics."""
+    return _backward(q, k, v, do, causal)
+
+
+def padded_rows(sq: int) -> int:
+    """Rows of the tensor-core backward's lse and delta scratch: Sq rounded
+    up to a whole 128-row query tile."""
+    return -(-sq // 128) * 128
+
+
+def _backward(q, k, v, do, causal, *, cuda_cores: bool = False):
+    """`flash_attention_bwd`; `cuda_cores=True` takes the CUDA-core kernels
+    whatever the dtype and D."""
     if on_cpu(q, k, v, do):
         return ref.flash_attention_bwd(q, k, v, do, causal=causal)
     _check(q, k, v)
@@ -140,22 +161,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     if not sq:
         return dq, dk.zero_(), dv.zero_()
-    lse = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
+    wgmma = takes_tensor_cores(q.dtype, d) and not cuda_cores
+    lse = torch.empty(bh, padded_rows(sq) if wgmma else sq,
+                      dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     lib = LIBRARY.load()
-    qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr())
     rows = (lse.data_ptr(), delta.data_ptr())
     tail = (bh, sq, sk, d, 1.0 / math.sqrt(d), int(causal), _DTYPES[q.dtype],
             stream())
-    for name, fn, ptrs in (
-            ("rows", lib.flash_attention_bwd_rows,
-             (*qkv, do.data_ptr(), *rows)),
-            ("dkdv", lib.flash_attention_bwd_dkdv,
-             (*qkv, do.data_ptr(), *rows, dk.data_ptr(), dv.data_ptr())),
-            ("dq", lib.flash_attention_bwd_dq,
-             (*qkv, do.data_ptr(), *rows, dq.data_ptr()))):
-        raise_on(f"flash_attention_bwd_{name}", fn(*ptrs, *tail))
+    suffix = "_sm90" if wgmma else ""
+    for name, out in (("rows", ()), ("dkdv", (dk.data_ptr(), dv.data_ptr())),
+                      ("dq", (dq.data_ptr(),))):
+        fn = getattr(lib, f"flash_attention_bwd_{name}{suffix}")
+        raise_on(f"flash_attention_bwd_{name}{suffix}",
+                 fn(*qkv, *rows, *out, *tail))
         LAUNCHES["flash_attention_bwd"] += 1
+        if wgmma:
+            LAUNCHES["flash_attention_bwd_wgmma"] += 1
     return dq, dk, dv
 
 

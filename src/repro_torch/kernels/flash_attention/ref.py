@@ -49,6 +49,38 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_bwd_rows(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True, block: int = 128
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward's first pass as its kernels compute it, online over key
+    tiles of `block`: each query row's log-sum-exp of the scaled, masked
+    scores (natural log) and delta = rowsum(P * dP) with dP = dO V^T, from
+    running (m, l, t = sum 2^(x - m) dP) in float32 in the log2 domain
+    (x = s * log2(e) / sqrt(D)). Both (BH, Sq) float32."""
+    log2e = 1.0 / math.log(2.0)
+    bh, sq, d = q.shape
+    qf, dof = q.float(), do.float()
+    m = torch.full((bh, sq), -1e30, device=q.device)
+    l = torch.zeros(bh, sq, device=q.device)
+    t = torch.zeros_like(l)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    for k0 in range(0, k.shape[1], block):
+        kt, vt = k[:, k0:k0 + block].float(), v[:, k0:k0 + block].float()
+        x = torch.einsum("bqd,bkd->bqk", qf, kt) * (log2e / math.sqrt(d))
+        if causal:
+            kpos = torch.arange(k0, k0 + kt.shape[1], device=q.device)
+            x = torch.where(qpos >= kpos[None, :], x, -1e30)
+        dp = torch.einsum("bqd,bkd->bqk", dof, vt)
+        m_new = torch.maximum(m, x.amax(dim=-1))
+        p = torch.exp2(x - m_new[..., None])
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        t = t * alpha + (p * dp).sum(dim=-1)
+        m = m_new
+    return (m + torch.log2(l)) / log2e, t / l
+
+
 def _softmax(s: torch.Tensor) -> torch.Tensor:
     m = torch.amax(s, dim=-1, keepdim=True)
     e = torch.exp(s - m)

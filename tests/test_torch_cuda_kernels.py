@@ -22,7 +22,10 @@ flash_attention once per layer (and decode none) and a two-tower bulk
 step launches embedding_bag_sum twice, each against the same model on
 the CPU. The two backward kernels (flash attention's three passes and
 the bag's atomic scatter) are held against their plain versions over
-the dtypes, D = 64, 128 and 256, causal on and off, Sq != Sk, and bags
+the dtypes, D = 64, 128 and 256, causal on and off, Sq != Sk, several
+tiles with ragged tails (the attention backward on the tensor cores for
+bfloat16 at D = 64 and 128, its first pass alone, two calls bit for bit,
+and the CUDA-core backward forced on the same inputs), and bags
 with padding and ids past the vocabulary; a loss through `mha` and
 through `embedding_bag` on CUDA tensors gives q, k, v and the table
 gradients equal to autograd through the plain versions.
@@ -34,6 +37,7 @@ reference package, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 """
 import itertools
+import math
 
 import numpy as np
 import pytest
@@ -1191,8 +1195,10 @@ def test_cuda_two_tower_bulk_launches_two_bags(cuda_device, full_fp32_matmul):
 
 
 # the backward kernels: (Sq, Sk) with Sq == Sk across several tiles, and
-# Sq != Sk both ways (top-left causal masking)
-FA_BWD_SEQS = [(130, 130), (150, 70), (70, 150)]
+# Sq != Sk both ways (top-left causal masking); then several whole 128-row
+# tiles, and ragged tails both ways across several tiles
+FA_BWD_SEQS = [(130, 130), (150, 70), (70, 150), (384, 384), (517, 261),
+               (261, 517)]
 FA_BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
               torch.bfloat16: dict(rtol=1e-2, atol=1e-3),
               torch.float16: dict(rtol=1e-2, atol=1e-3)}
@@ -1203,12 +1209,22 @@ def _close_bwd(got, want, dtype):
     another order, and the kernel's P is exp(S - lse) where the plain
     version's is exp(S - m) / l, its delta rowsum(dO * O) where the plain
     version's is rowsum(P * dP)); bfloat16 and float16: the forward's
-    checks, rtol 1e-2, atol 1e-3 and a relative norm under 1e-2 (both
-    compute in float32 and round once)."""
+    checks, rtol 1e-2, atol 1e-3 and a relative norm under 1e-2 (the
+    CUDA-core passes compute in float32 and round once; the tensor-core
+    passes multiply P and dS as bf16 pairs hi + lo, whose error is far
+    below the output's own rounding)."""
     assert got.dtype == want.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), **FA_BWD_TOL[dtype])
     if dtype != torch.float32:
         assert _rel(got, want) < 1e-2
+
+
+def _bwd_inputs(dtype, d, causal, sq, sk, dev):
+    rng = np.random.default_rng(sq + 3 * sk + d + causal)
+    q, k, v = (torch.from_numpy(rng.normal(size=(3, s, d))).to(dev, dtype)
+               for s in (sq, sk, sk))
+    do = torch.from_numpy(rng.normal(size=(3, sq, d))).to(dev, dtype)
+    return q, k, v, do
 
 
 @pytest.mark.parametrize("sq,sk", FA_BWD_SEQS)
@@ -1219,18 +1235,84 @@ def _close_bwd(got, want, dtype):
 def test_cuda_flash_attention_bwd_matches_plain_version(
         cuda_device, full_fp32_matmul, dtype, d, causal, sq, sk):
     """The three backward launches against `ref.flash_attention_bwd` on the
-    same q, k, v and dO."""
-    rng = np.random.default_rng(sq + 3 * sk + d + causal)
-    q, k, v = (torch.from_numpy(rng.normal(size=(3, s, d))).to(
-        cuda_device, dtype) for s in (sq, sk, sk))
-    do = torch.from_numpy(rng.normal(size=(3, sq, d))).to(cuda_device, dtype)
-    before = fa_ops.LAUNCHES["flash_attention_bwd"]
+    same q, k, v and dO; bfloat16 at D = 64 and 128 takes the tensor-core
+    passes, every other case the CUDA-core ones."""
+    q, k, v, do = _bwd_inputs(dtype, d, causal, sq, sk, cuda_device)
+    before = dict(fa_ops.LAUNCHES)
     got = fa_ops.flash_attention_bwd(q, k, v, do, causal=causal)
     torch.cuda.synchronize()
-    assert fa_ops.LAUNCHES["flash_attention_bwd"] == before + 3
+    assert fa_ops.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 3
+    assert fa_ops.LAUNCHES["flash_attention_bwd_wgmma"] == \
+        before["flash_attention_bwd_wgmma"] \
+        + 3 * fa_ops.takes_tensor_cores(dtype, d)
     want = fa_ref.flash_attention_bwd(q, k, v, do, causal=causal)
     for g, w in zip(got, want):
         _close_bwd(g, w, dtype)
+
+
+@pytest.mark.parametrize("sq,sk", FA_BWD_SEQS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_flash_attention_bwd_cuda_cores_forced(
+        cuda_device, full_fp32_matmul, d, causal, sq, sk):
+    """The CUDA-core backward, forced on the bfloat16 inputs the
+    tensor-core passes take, meets the same checks."""
+    q, k, v, do = _bwd_inputs(torch.bfloat16, d, causal, sq, sk,
+                              cuda_device)
+    before = dict(fa_ops.LAUNCHES)
+    got = fa_ops._backward(q, k, v, do, causal, cuda_cores=True)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 3
+    assert fa_ops.LAUNCHES["flash_attention_bwd_wgmma"] == \
+        before["flash_attention_bwd_wgmma"]
+    want = fa_ref.flash_attention_bwd(q, k, v, do, causal=causal)
+    for g, w in zip(got, want):
+        _close_bwd(g, w, torch.bfloat16)
+
+
+@pytest.mark.parametrize("sq,sk", [(517, 261), (261, 517)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_flash_attention_bwd_rows_pass(cuda_device, full_fp32_matmul, d,
+                                            causal, sq, sk):
+    """The tensor-core first pass alone (through the library) against
+    `ref.flash_attention_bwd_rows`: lse (which the kernel writes in the
+    log2 domain) to 1e-5 relative (1e-4 absolute), delta to 1e-4 relative
+    (1e-3 absolute: a float32 sum of p * dP with |dP| about sqrt(D)); the
+    scratch rows past Sq hold zeros."""
+    from repro_torch.kernels._build import stream
+    q, k, v, do = _bwd_inputs(torch.bfloat16, d, causal, sq, sk,
+                              cuda_device)
+    rows = fa_ops.padded_rows(sq)
+    lse = torch.full((3, rows), float("nan"), device=cuda_device)
+    delta = torch.full_like(lse, float("nan"))
+    err = fa_ops.LIBRARY.load().flash_attention_bwd_rows_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), 3, sq, sk, d, d ** -0.5,
+        int(causal), 1, stream())
+    assert err == 0
+    torch.cuda.synchronize()
+    want_lse, want_delta = fa_ref.flash_attention_bwd_rows(q, k, v, do,
+                                                           causal=causal)
+    torch.testing.assert_close(lse[:, :sq] * math.log(2), want_lse,
+                               rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(delta[:, :sq], want_delta, rtol=1e-4,
+                               atol=1e-3)
+    assert bool((lse[:, sq:] == 0).all() and (delta[:, sq:] == 0).all())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_flash_attention_bwd_is_deterministic(cuda_device, d):
+    """Two calls of the tensor-core backward on the same inputs give
+    bit-identical gradients (no atomics)."""
+    q, k, v, do = _bwd_inputs(torch.bfloat16, d, True, 517, 517, cuda_device)
+    first = fa_ops.flash_attention_bwd(q, k, v, do, causal=True)
+    second = fa_ops.flash_attention_bwd(q, k, v, do, causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
@@ -1240,7 +1322,8 @@ def test_cuda_mha_backward_reaches_q_k_v(cuda_device, full_fp32_matmul, dtype,
     """The fault the backward kernels close: a backward through `mha` on
     CUDA tensors gives q, k and v gradients (the forward kernel's output
     has a grad_fn), equal to autograd through the plain forward on the
-    same tensors, GQA's repeated heads summed."""
+    same tensors, GQA's repeated heads summed; bfloat16 at D = 128 through
+    the tensor-core backward."""
     from repro_torch.models.layers import repeat_kv
     rng = np.random.default_rng(d)
     b, s, h, kv = 2, 96, 4, 2
@@ -1256,6 +1339,8 @@ def test_cuda_mha_backward_reaches_q_k_v(cuda_device, full_fp32_matmul, dtype,
     assert fa_ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
     assert fa_ops.LAUNCHES["flash_attention_bwd"] == \
         before["flash_attention_bwd"] + 3
+    assert fa_ops.LAUNCHES["flash_attention_bwd_wgmma"] == \
+        before["flash_attention_bwd_wgmma"] + 3 * (dtype == torch.bfloat16)
     assert all(t.grad is not None for t in leaves)
     got = [t.grad for t in leaves]
     for t in leaves:

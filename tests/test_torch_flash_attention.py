@@ -11,9 +11,18 @@ is held against `jax.vjp` of the reference's jnp `ref`: float32 at rtol =
 atol = 1e-5 (causal and not, Sq != Sk), bfloat16 at the card's bf16
 checks (rtol 1e-2, atol 1e-3, relative norm 1e-2); on CPU tensors the
 autograd Function behind `flash_attention` and `mha` routes its backward
-to it. The CUDA kernels themselves run in tests/test_torch_cuda_kernels.py
-(skipped without a card) and in chip_smoke.py.
+to it. `ref.flash_attention_bwd_rows`, the plain version of the backward's
+first pass (online over key tiles), is held against JAX: lse against
+`jax.nn.logsumexp` of the reference's masked, scaled scores, delta against
+rowsum(dO * O) with O from the reference's jnp version, at rtol = atol =
+1e-5. The backward's routing (tensor cores for bfloat16 at D = 64 or 128,
+else the CUDA cores, or the CUDA cores when forced) is checked with the
+library stubbed. The CUDA kernels themselves run in
+tests/test_torch_cuda_kernels.py (skipped without a card) and in
+chip_smoke.py.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -130,7 +139,8 @@ def test_cpu_dispatch_takes_the_plain_version_without_counting():
         assert torch.equal(ops.flash_attention(q, k, v, causal=causal),
                            ref.flash_attention(q, k, v, causal=causal))
     assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_wgmma": 0,
-                            "flash_attention_bwd": 0}
+                            "flash_attention_bwd": 0,
+                            "flash_attention_bwd_wgmma": 0}
 
 
 @pytest.mark.parametrize("dtype,d,tensor_cores", [
@@ -217,7 +227,8 @@ def test_autograd_takes_the_plain_backward_on_cpu(monkeypatch):
     ops.mha(*leaves, causal=True).backward(torch.from_numpy(do))
     assert calls == [True]
     assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_wgmma": 0,
-                            "flash_attention_bwd": 0}
+                            "flash_attention_bwd": 0,
+                            "flash_attention_bwd_wgmma": 0}
     flat = [a.transpose(0, 2, 1, 3).reshape(6, 20, 8) for a in (q, k, v, do)]
     want = _jax_vjp(*flat, True)
     for t, w in zip(leaves, want):
@@ -225,3 +236,92 @@ def test_autograd_takes_the_plain_backward_on_cpu(monkeypatch):
             t.grad.numpy(),
             np.asarray(w).reshape(2, 3, 20, 8).transpose(0, 2, 1, 3),
             rtol=1e-5, atol=1e-5)
+
+
+@functools.partial(jax.jit, static_argnames="causal")
+def _jax_rows(q, k, v, do, causal):
+    """(logsumexp of the reference's scaled scores masked to -1e30,
+    rowsum(dO * O) of its float32 output)."""
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[2]
+    s = jnp.einsum("bqd,bkd->bqk", q, k) / np.sqrt(d)
+    if causal:
+        s = jnp.where((jnp.arange(sq)[:, None] >= jnp.arange(sk)[None, :])
+                      [None], s, -1e30)
+    return (jax.nn.logsumexp(s, axis=-1),
+            jnp.sum(do * jref.flash_attention(q, k, v, causal=causal),
+                    axis=-1))
+
+
+@pytest.mark.parametrize("block", [32, 128])
+@pytest.mark.parametrize("bh,sq,sk,d,causal", SHAPES)
+def test_flash_attention_bwd_rows_matches_jax(bh, sq, sk, d, causal, block):
+    """The rows pass's plain version, online over key tiles of `block` (32:
+    several tiles and a ragged one at these shapes; 128: the kernel's):
+    lse against jax.nn.logsumexp of the reference's scaled scores masked
+    to -1e30, delta against rowsum(dO * O) of the reference's float32
+    output."""
+    q, k, v = _qkv(bh, sq, sk, d, 7 * sq + sk + d)
+    do = np.random.default_rng(d + 1).normal(size=(bh, sq, d)).astype(
+        np.float32)
+    want_lse, want_delta = map(np.asarray, _jax_rows(q, k, v, do, causal))
+    lse, delta = ref.flash_attention_bwd_rows(
+        *map(torch.from_numpy, (q, k, v, do)), causal=causal, block=block)
+    assert lse.dtype == delta.dtype == torch.float32
+    assert lse.shape == delta.shape == (bh, sq)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(delta.numpy(), want_delta, rtol=1e-5,
+                               atol=1e-5)
+
+
+class _StubLibrary:
+    """Records each C entry point called (name, arguments); every launch
+    reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def launch(*args):
+            self.calls.append(name)
+            return 0
+        return launch
+
+
+@pytest.mark.parametrize("dtype,d,cuda_cores,tensor_cores", [
+    (torch.bfloat16, 64, False, True), (torch.bfloat16, 128, False, True),
+    (torch.bfloat16, 128, True, False), (torch.bfloat16, 64, True, False),
+    (torch.bfloat16, 96, False, False), (torch.bfloat16, 256, False, False),
+    (torch.float32, 128, False, False), (torch.float16, 64, False, False)])
+def test_backward_routing(monkeypatch, dtype, d, cuda_cores, tensor_cores):
+    """A backward call that reaches the card (the device check and the
+    library stubbed) launches the tensor-core passes for bfloat16 at D = 64
+    or 128 unless the CUDA cores are forced, else the CUDA-core passes:
+    three launches either way, counted in flash_attention_bwd, and in
+    flash_attention_bwd_wgmma on the tensor cores."""
+    lib = _StubLibrary()
+    monkeypatch.setattr(ops, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(ops.LIBRARY, "load", lambda: lib)
+    monkeypatch.setattr(ops, "stream", lambda: 0)
+    q = torch.zeros(2, 130, d, dtype=dtype)
+    ops.LAUNCHES.reset()
+    got = ops._backward(q, q, q, q, True, cuda_cores=cuda_cores)
+    suffix = "_sm90" if tensor_cores else ""
+    assert lib.calls == [f"flash_attention_bwd_{n}{suffix}"
+                         for n in ("rows", "dkdv", "dq")]
+    assert ops.LAUNCHES["flash_attention_bwd"] == 3
+    assert ops.LAUNCHES["flash_attention_bwd_wgmma"] == 3 * tensor_cores
+    assert [g.shape for g in got] == [q.shape] * 3
+    assert ops.takes_tensor_cores(dtype, d) is (tensor_cores or cuda_cores)
+    if not cuda_cores:
+        lib.calls.clear()
+        ops.flash_attention_bwd(q, q, q, q, causal=False)
+        assert lib.calls == [f"flash_attention_bwd_{n}{suffix}"
+                             for n in ("rows", "dkdv", "dq")]
+
+
+@pytest.mark.parametrize("sq,rows", [(1, 128), (127, 128), (128, 128),
+                                     (129, 256), (4096, 4096)])
+def test_backward_scratch_rows(sq, rows):
+    """The tensor-core passes' lse and delta rows: Sq up to a whole
+    128-row query tile."""
+    assert ops.padded_rows(sq) == rows
