@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the MCE engine, the
-substrate kernels and the serving and training paths of the substrate
-models.
+substrate kernels, the serving and training paths of the substrate
+models and the training path of the GNN family.
 
     python3 chip_smoke.py
 
@@ -98,10 +98,28 @@ together) and then, printing one JSON line per phase:
    backward kernel then held against the plain version on a step's own
    history-bag operands; and `train()` at smoke for both archs, killed at
    step 6 and resumed from step 4 to the uninterrupted run's parameters
-   within 1e-5. Every line carries the card's name and power limit.
+   within 1e-5. Every line carries the card's name and power limit;
+12. gnn: the GNN family's training path (`models/gnn.py`,
+   `models/gnn_steps.py`, `launch/train.train`): `train(arch,
+   smoke=False, steps=3)` for MeshGraphNet, SchNet, DimeNet and MACE at
+   build() widths on the launcher's batches, one more backward reaching
+   every parameter; SchNet, DimeNet (203,668 triplets) and MACE at
+   build() widths on the reference's molecule cell (128 molecules of 30
+   atoms) and MeshGraphNet on the launcher's 4,096-node graph, 3 steps
+   each with s a step, peak bytes and launches a step, and a profiled
+   fourth step (busy ms, idle share, device ms by group: matrix
+   products, `index_add_` / scatter, gathers, elementwise, AdamW); each
+   arch's smoke config on the card against the CPU (forward, loss, every
+   gradient; no TF32); `train()` for MACE killed at step 6 and resumed
+   from step 4 to the uninterrupted run's parameters within 1e-5. This
+   path launches none of the kernel table's thirteen kernels (its
+   aggregations are PyTorch's `index_add_`, as the reference's are XLA's
+   scatter), and the phase fails if it launches one. Every line carries
+   the card's name and power limit.
 
 Each path runs with the kernels' launch counts set to 0 just before it
-and read just after, and fails if a kernel of that path was not launched.
+and read just after, and fails if a kernel of that path was not launched
+(the gnn phase: if any was).
 
 Every check raises on failure (exit code 1). The last two lines are the
 kernel table (the eleven kernels that replace the TPU's, launches summed
@@ -237,6 +255,10 @@ BRANCHING_EXPECT = {
     ("hybrid", "caveman_comm", True): (488, 538, 111, 2004),
     ("hybrid", "caveman_comm", False): (488, 718, 291, 2790),
 }
+
+
+KERNEL_PACKAGES = ("bitset_ops", "common_neighbor", "embedding_bag",
+                   "segment_spmm", "flash_attention")
 
 
 def emit(obj) -> None:
@@ -2701,19 +2723,21 @@ def train_recsys_full_width(dev, name_power):
         name_power=name_power), table_line
 
 
-def train_launcher_on_card(dev, name_power):
-    """`launch/train.train` at smoke on the card for both archs: 8 steps
-    with checkpoints every 4, a run that fails at step 6, and a resume
-    that must restore step 4 and end with the uninterrupted run's
-    parameters within 1e-5 (the bags' atomics make the last bits
-    run-dependent)."""
+def train_launcher_on_card(dev, name_power,
+                           archs=("qwen3-14b", "two-tower-retrieval"),
+                           phase="train"):
+    """`launch/train.train` at smoke on the card for each of `archs`: 8
+    steps with checkpoints every 4, a run that fails at step 6, and a
+    resume that must restore step 4 and end with the uninterrupted run's
+    parameters within 1e-5 (the bags' and the segment sums' atomics make
+    the last bits run-dependent)."""
     import tempfile
     import torch
     from repro_torch.launch.train import train
     out = {}
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        for arch in ("qwen3-14b", "two-tower-retrieval"):
+        for arch in archs:
             t0 = time.perf_counter()
             full = train(arch, steps=8, ckpt_dir=f"{tmp}/{arch}-a",
                          ckpt_every=4, log_every=4, device=dev)
@@ -2740,7 +2764,7 @@ def train_launcher_on_card(dev, name_power):
                              resume_max_abs_diff=worst,
                              seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
-    return dict(phase="train", check="launch/train.train smoke", **out,
+    return dict(phase=phase, check="launch/train.train smoke", **out,
                 name_power=name_power)
 
 
@@ -2770,6 +2794,281 @@ def train_phase(dev, name_power):
     bag_line["launches"] = launches["embedding_bag_sum_bwd"]
     return {"flash_attention_bwd": flash_line,
             "embedding_bag_sum_bwd": bag_line}, launches
+
+
+GNN_ARCHS = ("meshgraphnet", "schnet", "dimenet", "mace")
+# The reference's molecule shape cell (configs/gnn_shapes.py): 128
+# molecules of 30 atoms, d_feat 32; batch_molecules(128, 30, 32) gives
+# 25,234 edges and, with triplets at the cap of 16, 203,668 triplets
+MOLECULE_CELL = dict(n_graphs=128, atoms=30, d_feat=32, edges=25_234,
+                     triplets=203_668)
+
+
+def kernel_launches(reset=False):
+    """Every kernel package's launch counts by kernel name (the thirteen
+    rows of the kernel table and the counters beside them); `reset` sets
+    them to 0 first."""
+    import importlib
+    out = {}
+    for name in KERNEL_PACKAGES:
+        counts = importlib.import_module(
+            f"repro_torch.kernels.{name}.ops").LAUNCHES
+        if reset:
+            counts.reset()
+        out.update(counts)
+    return out
+
+
+def gnn_kernel_group(name):
+    """A GNN step's kernels by what they compute: cuBLAS's products,
+    `index_add_` (the segment sums, and the gathers' backward), the
+    gathers (`index_select`), and the rest (elementwise, reductions,
+    copies). AdamW's kernels are split off by time (`gnn_step_profile`)."""
+    low = name.lower()
+    if any(t in low for t in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
+        return "matrix products"
+    if any(t in low for t in ("indexfunc", "scatter", "index_put")):
+        return "index_add_ / scatter"
+    if any(t in low for t in ("indexselect", "gather", "index_elementwise")):
+        return "gathers"
+    return "elementwise"
+
+
+def gnn_step_profile(arch, cfg, model, state, batch, n_graphs):
+    """Where a GNN training step's device time goes: a warm-up step and a
+    step timed without the profiler (`make_gnn_train_step`), then the same
+    step under torch.profiler with a synchronise before AdamW, whose
+    update runs inside `record_function("adamw")`: every kernel that
+    starts after that range opens is AdamW's. The idle share is the part
+    of the unprofiled step in which no kernel runs. Returns (the profile,
+    the new AdamW state)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models.gnn_steps import gnn_loss, make_gnn_train_step
+    from repro_torch.optim import AdamWConfig, adamw_update
+    step = make_gnn_train_step(arch, cfg, n_graphs)
+    named = dict(model.named_parameters())
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, _ = step(model, state, batch)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gnn_loss(arch, cfg, model, batch, n_graphs).backward()
+        torch.cuda.synchronize()
+        with record_function("adamw"):
+            # make_gnn_train_step's update: lr 1e-3, no weight decay
+            _, state = adamw_update(
+                named, {n: p.grad for n, p in named.items()}, state, 1e-3,
+                AdamWConfig(weight_decay=0.0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for p in named.values():
+        p.grad = None
+    events = prof.events()
+    t_adamw = min(e.time_range.start for e in events if e.name == "adamw"
+                  and e.device_type == DeviceType.CPU)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name != "adamw"]
+    busy, groups, by_name = 0.0, {}, {}
+    for e in kernels:
+        ms = e.time_range.elapsed_us() * 1e-3
+        busy += ms
+        group = ("AdamW" if e.time_range.start >= t_adamw
+                 else gnn_kernel_group(e.name))
+        groups[group] = groups.get(group, 0.0) + ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    check(groups.get("AdamW", 0.0) > 0, f"{arch}: no AdamW kernel {groups}")
+
+    def top(d, k=None):
+        return {n[:90]: v for n, v in sorted(
+            d.items(), key=lambda kv: -kv[1])[:k]}
+    return dict(ms=1e3 * plain_wall, profiled_ms=1e3 * wall, busy_ms=busy,
+                kernels=len(kernels),
+                device_idle_share=1.0 - busy / (1e3 * plain_wall),
+                busy_ms_by_group=top(groups),
+                top_kernels_ms=top(by_name, 8)), state
+
+
+def gnn_cell(dev, name_power, arch, cfg, batch_np, n_graphs, d_feat, **line):
+    """3 steps of `make_gnn_train_step` on one batch at `cfg`'s widths,
+    weights from seed 0 made on the card: each step timed with its kernel
+    launches read (the GNN path launches none of the kernel table's
+    kernels), the peak of device memory over the 3 steps, then a profiled
+    fourth step (`gnn_step_profile`)."""
+    import torch
+    from repro_torch.models.gnn_steps import (FORWARD, make_gnn_train_step,
+                                              to_device)
+    from repro_torch.optim import adamw_init
+    batch = to_device(batch_np, dev)
+    model = FORWARD[arch][1](cfg, torch.Generator(device=dev).manual_seed(0),
+                             d_feat)
+    state = adamw_init(dict(model.named_parameters()))
+    step = make_gnn_train_step(arch, cfg, n_graphs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs, launches = [], [], []
+    for _ in range(3):
+        kernel_launches(reset=True)
+        t0 = time.perf_counter()
+        _, state, loss = step(model, state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        launches.append(sum(kernel_launches().values()))
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(map(math.isfinite, losses)), f"{arch}: losses {losses}")
+    check(not any(launches), f"{arch}: kernel launches {launches}")
+    profile, state = gnn_step_profile(arch, cfg, model, state, batch,
+                                      n_graphs)
+    params = sum(p.numel() for p in model.parameters())
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return dict(phase="gnn", arch=arch, **line, params=params,
+                nodes=len(batch_np["node_feat"]), edges=len(batch_np["src"]),
+                triplets=len(batch_np.get("trip_kj", ())), losses=losses,
+                step_s=secs, peak_bytes=peak, launches_per_step=launches,
+                profile=profile, name_power=name_power)
+
+
+def gnn_launcher_full_width(dev, name_power):
+    """`launch/train.train(arch, smoke=False, steps=3)` for each GNN arch at
+    build() widths on the launcher's batch: finite losses, no launch of a
+    kernel of the table, and one more backward on the trained weights
+    must give every parameter a finite, non-zero gradient."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import gnn_batch, train
+    from repro_torch.models.gnn_steps import gnn_loss, to_device
+    out = {}
+    for arch in GNN_ARCHS:
+        kernel_launches(reset=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        run = train(arch, steps=3, smoke=False, log_every=1, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = sum(kernel_launches().values())
+        check(launches == 0, f"train({arch}) launched {kernel_launches()}")
+        losses = [v for _, v in run["losses"]]
+        check(len(losses) == 3 and all(map(math.isfinite, losses)),
+              f"train({arch}) losses {losses}")
+        batch_np, n_graphs, _ = gnn_batch(arch, smoke=False)
+        norms = every_gradient(run["params"], gnn_loss(
+            arch, get_arch(arch).build(), run["params"],
+            to_device(batch_np, dev), n_graphs))
+        out[arch] = dict(losses=losses, seconds=seconds,
+                         peak_bytes=torch.cuda.max_memory_allocated(dev),
+                         launches=launches, gradients=len(norms),
+                         min_gradient_norm=min(norms.values()))
+        del run
+        torch.cuda.empty_cache()
+    return dict(phase="gnn", check="launch/train.train(smoke=False, "
+                "steps=3)", **out, name_power=name_power)
+
+
+def gnn_against_cpu(dev):
+    """Each GNN arch at build_smoke() on the launcher's smoke batch, one
+    set of weights made on the CPU from a seed and copied to the card:
+    the forward and the loss at rtol = atol = 1e-4, every gradient at
+    rtol 1e-4 with an atol of 1e-3 of each tensor's largest entry (float32
+    sums in another order: cuBLAS against the CPU's, the segment sums'
+    atomics), matrix products in full float32 (no TF32)."""
+    import copy
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import gnn_batch
+    from repro_torch.models.gnn_steps import FORWARD, gnn_loss, to_device
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for arch in GNN_ARCHS:
+            cfg = get_arch(arch).build_smoke()
+            batch_np, n_graphs, d_feat = gnn_batch(arch, smoke=True)
+            host = FORWARD[arch][1](cfg, torch.Generator().manual_seed(1),
+                                    d_feat)
+            card = copy.deepcopy(host).to(dev)
+            res = []
+            for model, device in ((host, "cpu"), (card, dev)):
+                batch = to_device(batch_np, device)
+                fwd = FORWARD[arch][2](cfg, model, batch)
+                loss = gnn_loss(arch, cfg, model, batch, n_graphs)
+                loss.backward()
+                res.append((fwd.detach().cpu(), float(loss.detach()),
+                            {n: p.grad.cpu()
+                             for n, p in model.named_parameters()}))
+            (f0, l0, g0), (f1, l1, g1) = res
+            fwd_err = float((f1 - f0).abs().max())
+            check(torch.allclose(f1, f0, rtol=1e-4, atol=1e-4),
+                  f"{arch} forward: card against CPU max {fwd_err}")
+            check(abs(l1 - l0) <= 1e-4 * (1 + abs(l0)),
+                  f"{arch} loss: card {l1} against CPU {l0}")
+            worst = 0.0
+            for name, want in g0.items():
+                scale = float(want.abs().max())
+                err = float((g1[name] - want).abs().max())
+                check(torch.allclose(g1[name], want, rtol=1e-4,
+                                     atol=1e-3 * scale),
+                      f"{arch} gradient {name}: max error {err}, scale "
+                      f"{scale}")
+                worst = max(worst, err / max(scale, 1e-30))
+            out[arch] = dict(forward_max_abs_err=fwd_err,
+                             loss=dict(cpu=l0, card=l1),
+                             worst_gradient_err_over_scale=worst)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return out
+
+
+def gnn_phase(dev, name_power):
+    """The GNN family's training path on the card: `train()` at full width
+    for the four archs; SchNet, DimeNet and MACE at build() widths on the
+    molecule cell and MeshGraphNet on the launcher's graph, each with s a
+    step, peak and a profiled step; the smoke configs against the CPU;
+    `train()` killed and resumed for MACE. No kernel of the table is
+    launched (the aggregations are PyTorch's `index_add_`): returns the
+    launch counts, all 0."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import gnn_batch
+    from repro_torch.models.gnn_steps import batch_molecules
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernel_launches(reset=True)
+    emit(gnn_launcher_full_width(dev, name_power))
+    batch_np, n_graphs, d_feat = gnn_batch("meshgraphnet", smoke=False)
+    emit(gnn_cell(dev, name_power, "meshgraphnet",
+                  get_arch("meshgraphnet").build(), batch_np, n_graphs,
+                  d_feat, cell="launcher: random_geometric(4096, seed=0)",
+                  config="build()"))
+    c = MOLECULE_CELL
+    for arch in ("schnet", "dimenet", "mace"):
+        batch_np = batch_molecules(c["n_graphs"], c["atoms"], c["d_feat"],
+                                   with_triplets=(arch == "dimenet"))
+        check(len(batch_np["src"]) == c["edges"] and (
+            arch != "dimenet" or len(batch_np["trip_kj"]) == c["triplets"]),
+            f"{arch}: molecule cell sizes")
+        emit(gnn_cell(dev, name_power, arch, get_arch(arch).build(),
+                      batch_np, c["n_graphs"], c["d_feat"],
+                      cell="molecule: batch_molecules(128, 30, 32)",
+                      config="build()"))
+    emit(dict(phase="gnn", check="build_smoke() on the card against the CPU",
+              **gnn_against_cpu(dev), name_power=name_power))
+    emit(train_launcher_on_card(dev, name_power, archs=("mace",),
+                                phase="gnn"))
+    launches = kernel_launches()
+    check(not any(launches.values()), f"the gnn phase launched {launches}")
+    emit(dict(phase="gnn_done", seconds=time.perf_counter() - t0,
+              launches=launches, name_power=name_power))
+    return launches
 
 
 def device_profile(run_once):
@@ -2870,8 +3169,7 @@ def build_libraries():
     from concurrent.futures import ThreadPoolExecutor
     libs = {name: importlib.import_module(
         f"repro_torch.kernels.{name}.ops").LIBRARY
-        for name in ("bitset_ops", "common_neighbor", "embedding_bag",
-                     "segment_spmm", "flash_attention")}
+        for name in KERNEL_PACKAGES}
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(lib.build) for lib in libs.values()]:
             fut.result()
@@ -2925,6 +3223,7 @@ def main() -> int:
     paths.update(service_paths(dev, g11))
     serve_launches = serve_phase(dev)
     backward, train_launches = train_phase(dev, name_power)
+    paths["gnn"] = gnn_phase(dev, name_power)
 
     # kernel table: each kernel at the bucket shape the main path launches
     # it most often (the U=64 bucket: most steps and trips), the row

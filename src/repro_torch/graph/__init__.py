@@ -1,7 +1,7 @@
 """Graph substrate of the port: CSR structures, generators, orderings,
-bitset packing. Host numpy code (the k-core peel on a torch device), a
-standalone copy of the reference package's graph layer (importing the
-reference would load JAX)."""
+bitset packing, the GNN triplets and neighbour sampler. Host numpy code
+(the k-core peel on a torch device), a standalone copy of the reference
+package's graph layer (importing the reference would load JAX)."""
 from repro_torch.graph.csr import CSRGraph, from_edge_list, induced_subgraph
 from repro_torch.graph.generators import (
     erdos_renyi,
@@ -15,6 +15,7 @@ from repro_torch.graph.generators import (
 )
 from repro_torch.graph.order import (degeneracy_order, core_numbers,
                                      kcore_peel_torch)
+from repro_torch.graph.sampler import NeighborSampler
 
 __all__ = [
     "CSRGraph",
@@ -31,4 +32,5 @@ __all__ = [
     "degeneracy_order",
     "core_numbers",
     "kcore_peel_torch",
+    "NeighborSampler",
 ]

@@ -6,13 +6,13 @@ over; nothing here imports the reference.
   `bucket_from_reference` moves one bucket's numpy arrays into the port's
   tensors and `bitset_rows_to_reference` maps the port's enumerated bitset
   rows back, bit for bit, so one bucket can be fed to both engines.
-* The substrate models do: `transformer_params_from_reference` and
-  `two_tower_params_from_reference` build the port's modules from the
-  reference's `init_params` pytrees (as numpy arrays), so both packages
-  serve and train the same weights. Neither package reproduces the
-  other's random draws.
-* Training state: `transformer_named` and `two_tower_named` key a
-  params-shaped pytree of the reference (its params, or its AdamW
+* The substrate models do: `transformer_params_from_reference`,
+  `two_tower_params_from_reference` and `gnn_params_from_reference`
+  build the port's modules from the reference's `init_params` /
+  `*_init` pytrees (as numpy arrays), so both packages serve and train
+  the same weights. Neither package reproduces the other's random draws.
+* Training state: `transformer_named`, `two_tower_named` and `gnn_named`
+  key a params-shaped pytree of the reference (its params, or its AdamW
   moments) by the port's parameter names, and
   `adamw_state_from_reference` builds the port's AdamW state from the
   reference's (`mu`, `nu`, `step`), so one step from one state can be
@@ -20,6 +20,7 @@ over; nothing here imports the reference.
 """
 from __future__ import annotations
 
+import re
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch.core.engine.loop import bucket_tensors
 from repro_torch.models import recsys as R
+from repro_torch.models.gnn_steps import FORWARD as GNN_FORWARD
 from repro_torch.models import transformer as T
 
 BUCKET_KEYS = ("a", "p0", "x_rows", "x_alive0", "rsz0")
@@ -124,12 +126,55 @@ def two_tower_named(tree: dict) -> Dict[str, np.ndarray]:
     return out
 
 
+def gnn_named(tree) -> Dict[str, np.ndarray]:
+    """A params-shaped pytree of a reference GNN (its `*_init` params, or
+    AdamW's mu / nu) keyed by the port's parameter names: dict keys and
+    list indices joined by dots (`blocks.<i>.…`, MACE's
+    `blocks.<i>.w_prod.<j>`), each MLP's w{i} / b{i} as `w.<i>` /
+    `b.<i>`."""
+    out = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                mlp = re.fullmatch(r"([wb])(\d+)", k)
+                walk(v, prefix + (f"{mlp[1]}.{mlp[2]}" if mlp else k) + ".")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}.")
+        else:
+            out[prefix[:-1]] = node
+    walk(tree, "")
+    return out
+
+
+# each GNN's first MLP, whose first weight's rows are d_feat
+_GNN_INPUT = {"meshgraphnet": "enc_node", "schnet": "embed",
+              "dimenet": "embed_node", "mace": "embed"}
+
+
+def gnn_params_from_reference(arch: str, params_np: dict, cfg, device
+                              ) -> torch.nn.Module:
+    """The port's module for `arch` (a GNN) holding the reference's
+    `*_init(cfg, key, d_feat)` pytree as numpy float32 arrays, float32 on
+    `device`. The module's parameter names must be exactly `gnn_named`'s
+    keys: `load_state_dict(strict=True)` raises otherwise."""
+    _, init, _, _ = GNN_FORWARD[arch]
+    d_feat = np.shape(params_np[_GNN_INPUT[arch]]["w0"])[0]
+    model = init(cfg, torch.Generator(device=device), d_feat)
+    model.load_state_dict({n: _tensor(a, torch.float32, device)
+                           for n, a in gnn_named(params_np).items()},
+                          strict=True)
+    return model
+
+
 def adamw_state_from_reference(opt_np: dict, named: Callable[[dict], Dict],
                                device) -> dict:
     """The port's AdamW state (`optim.adamw_init`'s layout) for the
     reference's `adamw_init` / `adamw_update` state as numpy: `mu` and
-    `nu` keyed by `named` (`transformer_named` with its config, or
-    `two_tower_named`), float32 on `device`, and the int32 step."""
+    `nu` keyed by `named` (`transformer_named` with its config,
+    `two_tower_named` or `gnn_named`), float32 on `device`, and the int32
+    step."""
     def moments(tree):
         return {n: _tensor(a, torch.float32, device)
                 for n, a in named(tree).items()}

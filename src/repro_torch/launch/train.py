@@ -1,15 +1,17 @@
-"""End-to-end training driver for the LM and recsys families (the port of
-the reference's `repro.launch.train`).
+"""End-to-end training driver for the LM, GNN and recsys families (the
+port of the reference's `repro.launch.train`).
 
 Random float32 master weights from seed 0, AdamW, a deterministic data
 stream keyed by step, async keep-k checkpoints and restart from the last
 commit. It runs on the CUDA card unless asked for the CPU
 (`device="cpu"`, `--device cpu`); without a card it raises. On the card
 the LM's attention and the two-tower bags run on the hand-written
-kernels, forward and backward.
+kernels, forward and backward; the GNNs run on PyTorch's own operations
+(their aggregation is a segment sum, as the reference leaves it to XLA).
 
 Usage:
   python -m repro_torch.launch.train --arch qwen3-14b --steps 20
+  python -m repro_torch.launch.train --arch schnet --device cpu
   python -m repro_torch.launch.train --arch two-tower-retrieval --steps 8 \\
       --ckpt /tmp/tt_ckpt --resume --device cpu
 """
@@ -27,9 +29,6 @@ from repro_torch.configs import get_arch
 from repro_torch.core.engine.loop import resolve_device
 from repro_torch.optim import adamw_init
 
-# the reference's GNN archs: their models are not ported yet
-GNN_ARCHS = ("meshgraphnet", "schnet", "dimenet", "mace")
-
 
 def _lm_setup(cfg, smoke: bool, dev: torch.device):
     from repro_torch.data import TokenStream
@@ -45,6 +44,41 @@ def _lm_setup(cfg, smoke: bool, dev: torch.device):
     def apply(params, opt, step):
         toks, tgts = (torch.from_numpy(a).to(dev) for a in stream.batch(step))
         return step_fn(params, opt, toks, tgts)
+
+    return params, apply
+
+
+def gnn_batch(arch: str, smoke: bool):
+    """The launcher's one fixed batch for a GNN arch, numpy, as the
+    reference's: MeshGraphNet on a random geometric graph (256 nodes at
+    smoke, 4,096: 100,118 directed edges), the others on batched 12-atom
+    molecules (8 at smoke, 128), DimeNet with triplets; d_feat 16.
+    Returns (batch, n_graphs, d_feat)."""
+    from repro_torch.graph.generators import random_geometric
+    from repro_torch.models.gnn_steps import batch_from_graph, batch_molecules
+
+    d_feat = 16
+    if arch in ("schnet", "dimenet", "mace"):
+        n_graphs = 8 if smoke else 128
+        return batch_molecules(n_graphs, 12, d_feat,
+                               with_triplets=(arch == "dimenet")), \
+            n_graphs, d_feat
+    g = random_geometric(256 if smoke else 4096, seed=0)
+    return batch_from_graph(g, d_feat), 1, d_feat
+
+
+def _gnn_setup(arch, cfg, smoke: bool, dev: torch.device):
+    from repro_torch.models.gnn_steps import (FORWARD, make_gnn_train_step,
+                                              to_device)
+
+    _, init, _, _ = FORWARD[arch]
+    b0, n_graphs, d_feat = gnn_batch(arch, smoke)
+    params = init(cfg, torch.Generator(device=dev).manual_seed(0), d_feat)
+    step_fn = make_gnn_train_step(arch, cfg, n_graphs)
+    batch = to_device(b0, dev)
+
+    def apply(params, opt, step):
+        return step_fn(params, opt, batch)
 
     return params, apply
 
@@ -78,18 +112,18 @@ def train(arch: str, steps: int = 50, smoke: bool = True,
     `fail_at_step` simulates a node failure mid-run (tests exercise
     restart): the async writer is flushed before the failure propagates,
     so a resume finds the last commit."""
-    if arch in GNN_ARCHS:
-        raise NotImplementedError(
-            f"{arch}: the GNN family is not ported yet (ROADMAP.md Queue 1 "
-            "item 6b: models/gnn*, the GNN configs, dense_spmm's caller)")
     spec = get_arch(arch)
-    if spec.family not in ("lm", "recsys"):
-        raise ValueError(f"train.py drives lm/recsys archs, not "
+    if spec.family not in ("lm", "gnn", "recsys"):
+        raise ValueError(f"train.py drives lm/gnn/recsys archs, not "
                          f"{spec.family}; use repro_torch.launch.mce_run")
     dev = resolve_device(device)
     cfg = spec.build_smoke() if smoke else spec.build()
-    setup = _lm_setup if spec.family == "lm" else _recsys_setup
-    params, apply = setup(cfg, smoke, dev)
+    if spec.family == "lm":
+        params, apply = _lm_setup(cfg, smoke, dev)
+    elif spec.family == "gnn":
+        params, apply = _gnn_setup(arch, cfg, smoke, dev)
+    else:
+        params, apply = _recsys_setup(cfg, smoke, dev)
 
     opt = adamw_init(dict(params.named_parameters()))
     start = 0

@@ -1,2 +1,2 @@
-"""Model stacks of the port: the LM transformers and the two-tower recsys
-towers, with their serving steps."""
+"""Model stacks of the port: the LM transformers, the two-tower recsys
+towers and the four GNNs, with their training and serving steps."""

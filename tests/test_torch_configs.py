@@ -1,10 +1,10 @@
 """PyTorch port, configs: the arch registry against the reference's.
 
-Every arch the port registers (the five LMs, two-tower-retrieval, rmce)
-has the reference's family and source, and its `build()` and
-`build_smoke()` equal the reference's field by field; its `shapes()`
-cells equal the reference's. The four GNN archs wait for the GNN slice:
-`get_arch` raises the registry's KeyError for them.
+The port registers the reference's eleven archs (the five LMs, the four
+GNNs, two-tower-retrieval, rmce). Each has the reference's family and
+source, and its `build()` and `build_smoke()` equal the reference's field
+by field; its `shapes()` cells equal the reference's. An unknown name
+raises the registry's KeyError.
 """
 import dataclasses
 
@@ -13,17 +13,18 @@ import pytest
 from repro import configs as ref_configs
 from repro_torch import configs
 
-PORTED = ["chatglm3-6b", "command-r-plus-104b", "mixtral-8x7b",
-          "phi3.5-moe-42b-a6.6b", "qwen3-14b", "rmce", "two-tower-retrieval"]
-GNN = ["dimenet", "mace", "meshgraphnet", "schnet"]
+PORTED = ["chatglm3-6b", "command-r-plus-104b", "dimenet", "mace",
+          "meshgraphnet", "mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "qwen3-14b",
+          "rmce", "schnet", "two-tower-retrieval"]
 
 
 def test_registry_is_the_reference_less_the_gnn_archs():
+    """The GNN archs are ported now: the registry is the reference's."""
     assert configs.list_archs() == PORTED
-    assert sorted(ref_configs.list_archs()) == sorted(PORTED + GNN)
+    assert ref_configs.list_archs() == PORTED
 
 
-@pytest.mark.parametrize("name", GNN + ["no-such-arch"])
+@pytest.mark.parametrize("name", ["no-such-arch"])
 def test_unported_arch_raises_the_reference_error(name):
     with pytest.raises(KeyError) as got:
         configs.get_arch(name)

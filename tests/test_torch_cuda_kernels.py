@@ -28,7 +28,9 @@ bfloat16 at D = 64 and 128, its first pass alone, two calls bit for bit,
 and the CUDA-core backward forced on the same inputs), and bags
 with padding and ids past the vocabulary; a loss through `mha` and
 through `embedding_bag` on CUDA tensors gives q, k, v and the table
-gradients equal to autograd through the plain versions.
+gradients equal to autograd through the plain versions. The four GNNs
+at smoke give the CPU's forward, loss and gradients on the card, and
+launch none of those kernels.
 
 Every test here needs a CUDA device and nvcc (the kernels have no CPU
 mode); without a card they skip. The file imports neither JAX nor the
@@ -1404,3 +1406,42 @@ def test_cuda_embedding_bag_backward_reaches_the_table(cuda_device, dtype,
     tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
         dict(rtol=1e-2, atol=1e-3)
     torch.testing.assert_close(got.float(), table.grad.float(), **tol)
+
+
+@pytest.mark.parametrize("arch", ["meshgraphnet", "schnet", "dimenet",
+                                  "mace"])
+def test_cuda_gnn_matches_the_cpu(cuda_device, full_fp32_matmul, arch):
+    """A smoke GNN (`build_smoke()`, `batch_molecules(4, 10, 8)`) on the
+    card against the same weights on the CPU: the forward and the loss at
+    rtol = atol = 1e-4, every gradient at rtol 1e-4 with an atol of 1e-3
+    of each tensor's largest entry (float32 sums in another order: cuBLAS
+    against the CPU's, the segment sums' atomics). The GNN path launches
+    none of the substrate kernels."""
+    import copy
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gnn_steps as G
+    cfg = get_arch(arch).build_smoke()
+    batch_np = G.batch_molecules(4, 10, 8, seed=0,
+                                 with_triplets=(arch == "dimenet"))
+    host = G.FORWARD[arch][1](cfg, torch.Generator().manual_seed(0), 8)
+    card = copy.deepcopy(host).to(cuda_device)
+    before = [dict(m.LAUNCHES) for m in (eb_ops, fa_ops, sp_ops, cn_ops,
+                                         ops)]
+    got = []
+    for model, dev in ((host, "cpu"), (card, cuda_device)):
+        batch = G.to_device(batch_np, dev)
+        out = G.FORWARD[arch][2](cfg, model, batch)
+        loss = G.gnn_loss(arch, cfg, model, batch, 4)
+        loss.backward()
+        got.append((out.detach().cpu(), loss.detach().cpu(),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    torch.cuda.synchronize()
+    assert [dict(m.LAUNCHES) for m in (eb_ops, fa_ops, sp_ops, cn_ops,
+                                       ops)] == before
+    (out0, loss0, grads0), (out1, loss1, grads1) = got
+    torch.testing.assert_close(out1, out0, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(loss1, loss0, rtol=1e-4, atol=1e-4)
+    for name, want in grads0.items():
+        torch.testing.assert_close(grads1[name], want, rtol=1e-4,
+                                   atol=1e-3 * float(want.abs().max()),
+                                   msg=name)

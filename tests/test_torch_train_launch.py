@@ -4,12 +4,14 @@ tests/test_system.py) held on the port.
 
 * Killed at step 6 of 8 and resumed from the step-4 checkpoint, a run
   ends with the uninterrupted run's parameters and AdamW state bit for
-  bit (the CPU's sums run in one order; on the card the bags' atomics
-  make the last bits run-dependent, and chip_smoke.py holds the resume
-  within 1e-5), for the two-tower model and an LM;
-* the loss decreases over 10 steps, finite;
-* the CLI trains on the CPU; a GNN arch is refused with its queue item,
-  `rmce` with the MCE launcher's name.
+  bit (the CPU's sums run in one order; on the card the bags' and the
+  segment sums' atomics make the last bits run-dependent, and
+  chip_smoke.py holds the resume within 1e-5), for the two-tower model,
+  an LM and a GNN;
+* the loss decreases over 10 steps, finite; for each GNN arch over 5
+  steps (the reference's `test_smoke_train_step`);
+* the CLI trains on the CPU; without a card a run that names no device
+  raises; `rmce` is refused with the MCE launcher's name.
 """
 import numpy as np
 import pytest
@@ -19,7 +21,8 @@ from repro_torch.launch import train as train_mod
 from repro_torch.launch.train import train
 
 
-@pytest.mark.parametrize("arch", ["two-tower-retrieval", "qwen3-14b"])
+@pytest.mark.parametrize("arch", ["two-tower-retrieval", "qwen3-14b",
+                                  "mace"])
 def test_train_restart_bitexact(tmp_path, arch):
     full = train(arch, steps=8, ckpt_dir=str(tmp_path / "a"), ckpt_every=4,
                  device="cpu")
@@ -45,6 +48,22 @@ def test_train_loss_decreases(arch):
     assert out["final_loss"] < out["losses"][0][1]
 
 
+@pytest.mark.parametrize("arch", ["meshgraphnet", "schnet", "dimenet",
+                                  "mace"])
+def test_train_gnn_loss_decreases(arch):
+    out = train(arch, steps=5, log_every=1, device="cpu")
+    losses = [v for _, v in out["losses"]]
+    assert len(losses) == 5 and np.isfinite(losses).all()
+    assert losses[-1] < losses[0]
+
+
+def test_train_without_a_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: train() would run on it")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train("schnet", steps=1)
+
+
 def test_train_cli_on_the_cpu(capsys):
     train_mod.main(["--arch", "two-tower-retrieval", "--steps", "2",
                     "--device", "cpu"])
@@ -52,7 +71,5 @@ def test_train_cli_on_the_cpu(capsys):
 
 
 def test_train_refuses_other_families():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-        train("schnet", device="cpu")
     with pytest.raises(ValueError, match="mce_run"):
         train("rmce", device="cpu")
