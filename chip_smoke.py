@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the MCE engine, the
 substrate kernels, the serving and training paths of the substrate
-models and the training path of the GNN family.
+models, the training path of the GNN family, and the sharding rules,
+the pipeline and the dry-run cells on a world of one.
 
     python3 chip_smoke.py
 
@@ -115,7 +116,25 @@ together) and then, printing one JSON line per phase:
    path launches none of the kernel table's thirteen kernels (its
    aggregations are PyTorch's `index_add_`, as the reference's are XLA's
    scatter), and the phase fails if it launches one. Every line carries
-   the card's name and power limit.
+   the card's name and power limit;
+13. sharding: the sharding rules and launch tools on a world of one
+   (`launch/mesh.make_host_mesh`: this process, NCCL, a FileStore;
+   a (1, 1) ("data", "model") mesh on it): (a) qwen3-14b at build()
+   widths cut to 2 layers, 3 steps of `lm_steps.make_train_step` on one
+   4,096-token sequence a step, unsharded and then with the parameters,
+   the AdamW state and the tokens laid out by `sharding.lm_sharding`
+   under each `shard_hints` variant (heads over "model", then context
+   parallelism): losses and every gradient bit for bit and the same flash
+   launches a step as the unsharded steps, with s a step, the model FLOPs
+   (6·N·D) and the MFU share of 989 TFLOP/s; (b)
+   `models.pipeline.make_pipeline_train_step` with one stage and 4
+   microbatches of 1,024 tokens: the pipelined logits against the plain
+   forward's under the bf16 check, the flash launches (4 a layer a
+   forward, 12 a layer a backward); (c) `launch/cells.build_cell` for all
+   40 runnable cells of `all_cells()` on meta: the card's allocated bytes
+   must not move; (d) the rmce `web_sparse` cell's function on scale 11's
+   U = 64 bucket (padded to the cell's 1,024 roots) against
+   `run_bucket`'s counters, launching the row kernels.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after, and fails if a kernel of that path was not launched
@@ -125,8 +144,9 @@ Every check raises on failure (exit code 1). The last two lines are the
 kernel table (the eleven kernels that replace the TPU's, launches summed
 over every path; `serve_launches` and `train_launches` on rows 9 and 11,
 the launches of the serve phase's measured requests and of the train
-phase's measured steps; then the two backward kernels, launches in the
-train phase's measured steps) as JSON and `{"ok": true, "device":
+phase's measured steps, `sharding_launches` on rows 11 and 12 those of
+the sharding phase's sharded and pipelined steps; then the two backward
+kernels, launches in the train phase's measured steps) as JSON and `{"ok": true, "device":
 {...}}`. It imports nothing of JAX or
 of the reference package `repro`.
 """
@@ -1652,7 +1672,7 @@ def flash_attention_cases(dev):
     def cuda_cores():
         err = lib.flash_attention_fwd(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), core_out.data_ptr(),
-            b * h, s, s, d, 1.0 / math.sqrt(d), 1, 1, stream())
+            b * h, s, s, d, 1.0 / math.sqrt(d), 1, 0, 1, stream())
         check(err == 0, f"the CUDA-core kernel's launch failed ({err})")
 
     def sdpa():
@@ -3071,6 +3091,464 @@ def gnn_phase(dev, name_power):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 13: sharding and the launch tools on a world of one
+# --------------------------------------------------------------------------
+
+SHARDING = dict(n_layers=2, seq=4096, steps=3, lr=3e-4, pp_microbatches=4,
+                pp_seq=1024)
+# the hint variants of the sharded step: heads over "model" (40 % 1 == 0),
+# then the query rows over "model" (context parallelism)
+SHARD_HINTS = {"heads_tp": (("data",), "model", True),
+               "ctx": (("data",), "model", False, True)}
+H100_BF16_FLOPS = 989e12      # dense bf16 peak (data sheet, SXM, 700 W)
+FLASH = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd",
+         "flash_attention_bwd_wgmma")
+
+
+class GradientTap:
+    """While in a `with`: every `optim.adamw.adamw_update` call hands its
+    gradients to `on_grads(step, grads)` before the update (the gradients
+    as AdamW sees them: laid out as their parameters), and the seconds it
+    took are kept in `seconds` to be taken off the step's time."""
+
+    def __init__(self, on_grads):
+        from repro_torch.optim import adamw
+        self.module, self.on_grads = adamw, on_grads
+        self.real, self.step, self.seconds = adamw.adamw_update, 0, 0.0
+
+    def __enter__(self):
+        def tapped(params, grads, *args, **kw):
+            import torch
+            torch.cuda.synchronize()        # the backward counts as step
+            t0 = time.perf_counter()
+            self.on_grads(self.step, {
+                n: self.module.laid_out_as(grads[n], p)
+                for n, p in params.items()})
+            self.seconds += time.perf_counter() - t0
+            self.step += 1
+            return self.real(params, grads, *args, **kw)
+        self.module.adamw_update = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module.adamw_update = self.real
+
+
+def sharded_lm_steps(dev, cfg, mesh, on_grads, hints=None):
+    """SHARDING's steps of `lm_steps.make_train_step` on qwen3-14b at 2
+    layers (float32 master weights from seed 0, bf16 compute, remat), one
+    `train_4k` sequence a step from `data.TokenStream`. With `hints`, the
+    parameters and the AdamW state laid out by `lm_sharding` on `mesh`
+    and the tokens by its token spec, `shard_hints` on. `on_grads(step,
+    grads)` sees each step's gradients. Returns (losses, seconds a step
+    without the tap's, flash launches a step)."""
+    import dataclasses
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.models.lm_steps import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.lm import (lm_sharding, shard_opt_state,
+                                         shard_transformer)
+    from repro_torch.sharding.spec import distribute
+    p = SHARDING
+    cfg = dataclasses.replace(cfg, shard_hints=hints)
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          dtype=torch.float32)
+    opt = adamw_init(dict(model.named_parameters()))
+    stream = TokenStream(cfg.vocab, p["seq"], 1, seed=0)
+
+    def batch(i):
+        return [torch.from_numpy(a).to(dev) for a in stream.batch(i)]
+    if hints is not None:
+        sh = lm_sharding(cfg, mesh)
+        shard_transformer(model, sh)
+        opt = shard_opt_state(opt, sh, cfg.n_layers)
+        plain = batch
+
+        def batch(i):
+            return [distribute(t, mesh, sh.token_spec(1)) for t in plain(i)]
+    step = make_train_step(cfg, lr=p["lr"])
+    losses, secs, launches = [], [], []
+    with GradientTap(on_grads) as tap:
+        for i in range(p["steps"]):
+            tokens, targets = batch(i)
+            kernel_launches(reset=True)
+            tapped = tap.seconds
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, opt, loss = step(model, opt, tokens, targets)
+            if isinstance(loss, DTensor):
+                loss = loss.full_tensor()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0 - (tap.seconds - tapped))
+            losses.append(float(loss))
+            launches.append({k: kernel_launches()[k] for k in FLASH})
+    del model, opt
+    torch.cuda.empty_cache()
+    return losses, secs, launches
+
+
+def sharding_train(dev, mesh, name_power):
+    """(a): the unsharded steps, their gradients kept on the host, then the
+    same steps with the rules' layout and each hint variant: losses and
+    every gradient bit for bit, the same flash launches a step."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch("qwen3-14b").build(),
+                              n_layers=SHARDING["n_layers"])
+    kept = []
+
+    def keep(i, grads):
+        kept.append({n: g.detach().cpu() for n, g in grads.items()})
+    base = sharded_lm_steps(dev, cfg, mesh, keep)
+    tokens = SHARDING["seq"]
+    # model FLOPs of a step: launch/cells.py's LM rule, 6·N·D
+    model_flops = 6.0 * cfg.active_param_count() * tokens
+    out = dict(phase="sharding", check="(a) sharded train step",
+               model="qwen3-14b", config="build()",
+               reduced=dict(n_layers="40 -> 2", global_batch="256 -> 1"),
+               mesh="(1, 1) (data, model), a world of one (NCCL, FileStore)",
+               tokens=tokens, model_flops=model_flops,
+               unsharded=dict(losses=base[0], step_s=base[1],
+                              mfu=[model_flops / t / H100_BF16_FLOPS
+                                   for t in base[1]],
+                              flash_launches=base[2]))
+    for name, hints in SHARD_HINTS.items():
+        unequal = []
+
+        def compare(i, grads):
+            for n, g in grads.items():
+                g = g.full_tensor().detach()
+                if not torch.equal(g, kept[i][n].to(g.device)):
+                    unequal.append((i, n))
+        losses, secs, launches = sharded_lm_steps(dev, cfg, mesh, compare,
+                                                  hints)
+        out[name] = dict(
+            shard_hints=repr(hints), losses=losses, step_s=secs,
+            mfu=[model_flops / t / H100_BF16_FLOPS for t in secs],
+            flash_launches=launches, gradients=len(kept[0]),
+            unequal_gradients=unequal[:8])
+        check(losses == base[0],
+              f"sharded ({name}) losses {losses} != unsharded {base[0]}")
+        check(not unequal, f"sharded ({name}) gradients differ: {unequal[:8]}")
+        check(launches == base[2],
+              f"sharded ({name}) flash launches {launches} != {base[2]}")
+    for got in base[2]:
+        check(got["flash_attention_wgmma"] == 2 * cfg.n_layers
+              and got["flash_attention_bwd_wgmma"] == 3 * cfg.n_layers,
+              f"train step launched {got}")
+    del kept
+    out["name_power"] = name_power
+    return out
+
+
+def sharding_pipeline(dev, name_power):
+    """(b): `make_pipeline_train_step` with S = 1 (a "pp" mesh of the world
+    of one) and M microbatches: the pipelined logits against the plain
+    forward's under the bf16 check, the step's loss against the plain
+    forward's to 1e-5 relative, the flash launches (M a layer a forward;
+    3·M a layer a backward)."""
+    import dataclasses
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.models.pipeline import (_nll_mean,
+                                             make_pipeline_train_step,
+                                             pipeline_forward, stack_stages,
+                                             stage_parameters)
+    from repro_torch.optim import adamw_init
+    p = SHARDING
+    m = p["pp_microbatches"]
+    cfg = dataclasses.replace(get_arch("qwen3-14b").build(),
+                              n_layers=p["n_layers"])
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pp",))
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          dtype=torch.float32)
+    tokens, targets = (torch.from_numpy(a).to(dev) for a in TokenStream(
+        cfg.vocab, p["pp_seq"], m, seed=0).batch(0))
+    with torch.no_grad():
+        plain, _ = T.forward(cfg, model, tokens)
+        want_loss = float(_nll_mean(plain, targets))
+        model.layers = stack_stages(model.layers, 1)
+        kernel_launches(reset=True)
+        piped = pipeline_forward(cfg, model, tokens, mesh=mesh,
+                                 n_microbatches=m)
+        fwd_launches = {k: kernel_launches()[k] for k in FLASH}
+    rel, rows = bf16_logits_check(piped, plain, "pipelined forward")
+    del plain, piped
+    opt = adamw_init(stage_parameters(model, mesh))
+    step = make_pipeline_train_step(cfg, mesh, m, lr=p["lr"])
+    kernel_launches(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, opt, loss = step(model, opt, tokens, targets)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: kernel_launches()[k] for k in FLASH}
+    n = cfg.n_layers
+    check(fwd_launches["flash_attention_wgmma"] == m * n,
+          f"pipelined forward launched {fwd_launches}")
+    check(launches["flash_attention_wgmma"] == m * n
+          and launches["flash_attention_bwd_wgmma"] == 3 * m * n,
+          f"pipelined step launched {launches}")
+    # the same kernels on the same rows (S = 1): the loss to float32's
+    # rounding of a mean in another order
+    check(abs(float(loss) - want_loss) <= 1e-5 * abs(want_loss),
+          f"pipelined loss {float(loss)} against the plain {want_loss}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(phase="sharding", check="(b) pipelined step", stages=1,
+                microbatches=m, tokens_per_microbatch=p["pp_seq"],
+                logits_rel_norm=rel, rows_compared=rows,
+                loss=float(loss), plain_loss=want_loss, step_s=secs,
+                forward_flash_launches=fwd_launches,
+                step_flash_launches=launches, name_power=name_power), launches
+
+
+def cell_tensors(args):
+    """Every tensor of a cell's arguments: a module's parameters, a dict's
+    values (one level of nesting), the tensors themselves."""
+    out = []
+    for a in args:
+        if hasattr(a, "parameters"):
+            out.extend(a.parameters())
+        elif isinstance(a, dict):
+            for v in a.values():
+                out.extend(v.values() if isinstance(v, dict) else [v])
+        else:
+            out.append(a)
+    return out
+
+
+def sharding_cells(dev, mesh, name_power):
+    """(c): `build_cell` for every runnable cell of `all_cells()` on the
+    (1, 1) mesh of the world of one: arguments on meta, so the card's
+    allocated bytes do not move."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.cells import all_cells, build_cell
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    built, meta = [], True
+    for arch, cell, skip in all_cells():
+        if skip:
+            continue
+        prog = build_cell(arch, cell, mesh)
+        built.append(dict(arch=arch, cell=cell, kind=prog.kind,
+                          model_flops=prog.model_flops))
+        meta &= all(isinstance(t, DTensor) and t.to_local().is_meta
+                    for t in cell_tensors(prog.args))
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated(dev)
+    check(len(built) == 40, f"{len(built)} runnable cells, not 40")
+    check(meta, "a cell argument is not a meta DTensor")
+    check(after == before, f"building the cells moved the card's allocated "
+          f"bytes {before} -> {after}")
+    return dict(phase="sharding", check="(c) cells on meta",
+                cells=len(built), seconds=secs, allocated_before=before,
+                allocated_after=after, model_flops={
+                    f"{c['arch']}/{c['cell']}": c["model_flops"]
+                    for c in built}, name_power=name_power)
+
+
+# The rmce web_sparse cell's counters on scale 11's U = 64 bucket (196
+# roots, 256 X rows) padded to the cell's 1,024 roots with the driver's
+# no-op roots (`core.driver._shard_batch`): the reference's cell function
+# on the CPU (`repro.launch.cells.build_cell("rmce", "web_sparse",
+# jax.make_mesh((1, 1), ("data", "model"))).fn` on those arrays with a
+# leading shard dim), which the port's `run_bucket` on the CPU gives too.
+# tests/test_torch_cells.py holds the two cell functions equal on a small
+# bucket; the phase holds the cell to `run_bucket` in the same run, then
+# `run_bucket` to these counts
+RMCE_CELL_EXPECT = dict(cliques=108_659, calls=102_629, branches=101_605,
+                        sum_px=608_592, truncated=0, live_iters=149_734,
+                        lane_iters=7_058_432, steals=0, entry_terms=0,
+                        window_spills=0, window_hits=0)
+
+
+def sharding_mce_cell(dev, mesh, name_power):
+    """(d): the `rmce` `web_sparse` cell's function (1,024 roots a shard,
+    U = 64) on scale 11's U = 64 bucket, its 196 roots padded to the
+    cell's 1,024 with the driver's no-op roots, at the bucket's 256 X rows
+    (the cell's 64 would drop alive rows), laid out over "data": its
+    counters against the port's `run_bucket` on the same roots in the
+    same run, and those against the reference's (RMCE_CELL_EXPECT).
+    Returns the line and the bitset kernels' launches of the cell's
+    run."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core.driver import _shard_batch
+    from repro_torch.core.engine.loop import bucket_tensors, run_bucket
+    from repro_torch.core.engine.prepare import prepare
+    from repro_torch.graph.generators import kronecker
+    from repro_torch.kernels.bitset_ops import ops
+    from repro_torch.launch.cells import build_cell, mce_engine_config
+    from repro_torch.sharding.spec import P, distribute
+    prog = build_cell("rmce", "web_sparse", mesh)
+    r = prog.args[0].shape[1]
+    bucket = next(b for b in prepare(kronecker(11, 16, seed=0),
+                                     device=dev).buckets if b.u_pad == 64)
+    n_real = len(bucket.rsz0)
+    check((r, n_real, bucket.x_rows.shape[1]) == (1024, 196, 256),
+          f"rmce cell on {n_real} roots of {bucket.x_rows.shape} padded to {r}")
+    args = bucket_tensors(*_shard_batch(bucket, np.arange(n_real), r), dev)
+    ops.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    got = prog.fn(*(distribute(t[None], mesh, P(("data",))) for t in args))
+    got = {k: int(v) for k, v in got.items()}
+    secs = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for name in ROW_KERNELS:
+        check(launches[name] > 0, f"the rmce cell launched no {name}")
+    t0 = time.perf_counter()
+    out = run_bucket(*args, mce_engine_config(get_arch("rmce").build()))
+    it = out["iters"]
+    plain = {k: int(out[k].sum()) for k in
+             ("cliques", "calls", "branches", "sum_px", "truncated")}
+    plain.update(live_iters=int(it.sum()), lane_iters=int(it.max()) * r,
+                 steals=0, entry_terms=0, window_spills=0, window_hits=0)
+    plain_secs = time.perf_counter() - t0
+    check(got == plain,
+          f"rmce cell counters {got} != run_bucket's {plain} on its roots")
+    check(plain == RMCE_CELL_EXPECT,
+          f"run_bucket's counters {plain} != the reference's "
+          f"{RMCE_CELL_EXPECT}")
+    return dict(phase="sharding", check="(d) rmce web_sparse cell",
+                graph="kron:scale=11,ef=16,seed=0", bucket_u=64,
+                real_roots=n_real, roots=r, x_rows=int(args[2].shape[1]),
+                counters=got, run_bucket_counters=plain, seconds=secs,
+                run_bucket_seconds=plain_secs, launches=launches,
+                name_power=name_power), launches
+
+
+# the query rows of a rank past the first under context parallelism at
+# train_4k (DTensor's split: ceil(S / n) rows a rank): rank 1 of 2 (an
+# offset of whole 128-row tiles) and rank 1 of 3 (an offset inside a tile)
+CTX_RANKS = ((2, 1), (3, 1))
+
+
+def sharding_ctx_offsets(dev, name_power):
+    """(e): the flash kernels at the query offsets of context parallelism's
+    ranks past the first (the (1, 1) mesh of (a) has none), at qwen3-14b's
+    train_4k attention (40 heads after GQA expansion, D = 128, bf16, one
+    sequence of 4,096): `mha` forward and backward at the rank's rows and
+    offset against autograd through the plain version at that offset
+    (`ref.flash_attention`, float32 inside) under the bf16 checks, then
+    timed (forward + backward) against the blockwise attention such a rank
+    ran before the kernels took an offset."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.models import layers as L
+    b, s, h, d = 1, SHARDING["seq"], 40, 128
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def draw(rows):
+        return torch.randn(b, rows, h, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+    k, v = draw(s), draw(s)
+    ranks = []
+    for n, rank in CTX_RANKS:
+        rows = -(-s // n)
+        off = rank * rows
+        rows = min(rows, s - off)
+        q, do = draw(rows), draw(rows)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ops.LAUNCHES.reset()
+        out = ops.mha(*leaves, causal=True, q_offset=off)
+        out.backward(do)
+        torch.cuda.synchronize()
+        launches = {key: ops.LAUNCHES[key] for key in FLASH}
+        check(launches == dict(flash_attention=1, flash_attention_wgmma=1,
+                               flash_attention_bwd=3,
+                               flash_attention_bwd_wgmma=3),
+              f"mha at offset {off} launched {launches}")
+        got = [out.detach()] + [t.grad for t in leaves]
+        for t in leaves:
+            t.grad = None
+        flat = [t.transpose(1, 2).reshape(b * h, -1, d) for t in leaves]
+        want = ref.flash_attention(*flat, causal=True, q_offset=off)
+        want = want.reshape(b, h, rows, d).transpose(1, 2)
+        want.backward(do)
+        errs = {}
+        for name, g, w in zip(("out", "dq", "dk", "dv"), got,
+                              [want.detach()] + [t.grad for t in leaves]):
+            err, rel, ok = close(g, w, BF16_RTOL, BF16_ATOL)
+            check(ok, f"mha at offset {off}: {name} differs from the plain "
+                  f"version by {err} (relative norm {rel})")
+            errs[name] = dict(max_abs_err=err, rel_norm_err=rel)
+        del got, want, flat
+        for t in leaves:
+            t.grad = None
+        torch.cuda.empty_cache()
+
+        def kernel():
+            ops.mha(*leaves, causal=True, q_offset=off).backward(do)
+
+        def blockwise():
+            L.blockwise_attention(*leaves, causal=True,
+                                  q_offset=off).backward(do)
+        ms = cuda_ms(kernel, 7, 3)[0]
+        plain_ms = cuda_ms(blockwise, 5, 2)[0]
+        # forward 4 and backward 10 FLOP a visible (query, key) pair a
+        # head dim; every byte of q, k, v, dO, out, dq, dk, dv once
+        pairs = sum(min(off + i + 1, s) for i in range(rows))
+        bound_ms, bound_by = bound(2 * b * h * d * (4 * rows + 4 * s),
+                                   14 * h * pairs * d, BF16_OPS_PER_S)
+        ranks.append(dict(ranks=n, rank=rank, q_offset=off, rows=rows,
+                          keys=s, launches=launches, errors=errs,
+                          rtol=BF16_RTOL, atol=BF16_ATOL,
+                          fwd_bwd_ms=ms, blockwise_fwd_bwd_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by))
+        del leaves, q, do
+        torch.cuda.empty_cache()
+    return dict(phase="sharding", check="(e) ctx ranks past offset 0",
+                shape=[b, s, h, d, "torch.bfloat16"], ranks=ranks,
+                name_power=name_power)
+
+
+def sharding_phase(dev, name_power):
+    """Sharding and the launch tools on a world of one (`make_host_mesh`:
+    this process, NCCL, a FileStore): (a) the sharded qwen3-14b train step
+    under both hint variants against the unsharded one, (b) the pipelined
+    step, (c) every runnable cell built on meta, (d) the rmce cell's
+    function, (e) the flash kernels at context parallelism's query
+    offsets. Returns (the bitset kernels' launches, the flash launches of
+    the measured sharded and pipelined steps)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host = make_host_mesh()
+    check(host.size() == 1, f"host mesh of {host.size()} ranks")
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    train = sharding_train(dev, mesh, name_power)
+    emit(train)
+    pipe, pipe_launches = sharding_pipeline(dev, name_power)
+    emit(pipe)
+    emit(sharding_cells(dev, mesh, name_power))
+    mce, bitset = sharding_mce_cell(dev, mesh, name_power)
+    emit(mce)
+    emit(sharding_ctx_offsets(dev, name_power))
+    flash = dict(pipe_launches)
+    for name in SHARD_HINTS:
+        for got in train[name]["flash_launches"]:
+            for k, v in got.items():
+                flash[k] += v
+    emit(dict(phase="sharding_done", seconds=time.perf_counter() - t0,
+              flash_launches=flash, bitset_launches=bitset,
+              name_power=name_power))
+    return bitset, flash
+
+
 def device_profile(run_once):
     """Where the time of `run_once()` goes: its wall time with the
     profiler off (after a warm-up) against the device's kernel time
@@ -3224,6 +3702,7 @@ def main() -> int:
     serve_launches = serve_phase(dev)
     backward, train_launches = train_phase(dev, name_power)
     paths["gnn"] = gnn_phase(dev, name_power)
+    paths["sharding"], sharding_launches = sharding_phase(dev, name_power)
 
     # kernel table: each kernel at the bucket shape the main path launches
     # it most often (the U=64 bucket: most steps and trips), the row
@@ -3306,7 +3785,9 @@ def main() -> int:
             **({"serve_launches": serve_launches[name]}
                if name in serve_launches else {}),
             **({"train_launches": train_launches[name]}
-               if name in train_launches else {})))
+               if name in train_launches else {}),
+            **({"sharding_launches": sharding_launches[name]}
+               if name in sharding_launches else {})))
     # the backward kernels at the training path's full-width shapes, with
     # their launches in the train phase's measured steps
     for name, (_, source, replaces) in BACKWARD.items():
@@ -3319,7 +3800,9 @@ def main() -> int:
             library_ms=line["library_ms"], shape=line["shape"],
             **({k: line[k] for k in ("bound_ms_atomic_design", "earlier_ms",
                                      "in_turns_ms", "wgmma_launches")
-                if k in line})))
+                if k in line}),
+            **({"sharding_launches": sharding_launches[name]}
+               if name in sharding_launches else {})))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start,
               path_launches=paths,
               note="library_ms is null for the bitset kernels and "

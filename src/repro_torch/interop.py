@@ -11,6 +11,13 @@ over; nothing here imports the reference.
   build the port's modules from the reference's `init_params` /
   `*_init` pytrees (as numpy arrays), so both packages serve and train
   the same weights. Neither package reproduces the other's random draws.
+* Parallel layouts: `pipeline_params_from_reference` takes the
+  reference's stage-stacked tree (`pipeline.stack_stages`: layers
+  (S, L/S, ...)) to the port's stage-split `ModuleList`, and
+  `sharded_transformer_from_reference` its params to a `Transformer` of
+  DTensors laid out by an `LMSharding` (the reference's `NamedSharding`s
+  of the same specs); `pipeline_named` keys a stage-stacked tree by the
+  port's names.
 * Training state: `transformer_named`, `two_tower_named` and `gnn_named`
   key a params-shaped pytree of the reference (its params, or its AdamW
   moments) by the port's parameter names, and
@@ -30,6 +37,7 @@ from repro_torch.core.engine.loop import bucket_tensors
 from repro_torch.models import recsys as R
 from repro_torch.models.gnn_steps import FORWARD as GNN_FORWARD
 from repro_torch.models import transformer as T
+from repro_torch.models.pipeline import stack_stages
 
 BUCKET_KEYS = ("a", "p0", "x_rows", "x_alive0", "rsz0")
 
@@ -77,6 +85,48 @@ def transformer_params_from_reference(params_np: dict,
         cfg, leaf("embed", params_np["embed"]), layers,
         leaf("ln_final", params_np["ln_final"]),
         None if head is None else leaf("lm_head", head))
+
+
+def pipeline_params_from_reference(params_np: dict, cfg: T.TransformerConfig,
+                                   device, dtype: Optional[torch.dtype] = None
+                                   ) -> T.Transformer:
+    """The port's `Transformer` with stage-split layers (`stack_stages`)
+    for the reference's stage-stacked tree (`layers` leaves (S, L/S, ...),
+    its `pipeline.stack_stages`) as numpy: stage s's layers are
+    `model.layers[s]`, in order."""
+    stacked = params_np["layers"]
+    n_stages = next(iter(stacked.values())).shape[0]
+    flat = {k: np.reshape(a, (-1,) + np.shape(a)[2:])
+            for k, a in stacked.items()}
+    model = transformer_params_from_reference(dict(params_np, layers=flat),
+                                              cfg, device, dtype)
+    model.layers = stack_stages(model.layers, n_stages)
+    return model
+
+
+def sharded_transformer_from_reference(params_np: dict,
+                                       cfg: T.TransformerConfig, sharding,
+                                       dtype: Optional[torch.dtype] = None
+                                       ) -> T.Transformer:
+    """The port's `Transformer` for the reference's params (as numpy, the
+    same on every rank), each parameter a DTensor laid out by `sharding`
+    (`sharding.lm.lm_sharding` on a `DeviceMesh`), on the mesh's device."""
+    from repro_torch.sharding.lm import shard_transformer
+    model = transformer_params_from_reference(
+        params_np, cfg, sharding.mesh.device_type, dtype)
+    return shard_transformer(model, sharding)
+
+
+def pipeline_named(tree: dict) -> Dict[str, np.ndarray]:
+    """A stage-stacked params-shaped tree of the reference (params, or
+    AdamW's mu / nu) keyed by the port's names: `embed`,
+    `layers.<s>.<j>.<leaf>`, `ln_final`, `lm_head` unless tied."""
+    out = {k: tree[k] for k in ("embed", "ln_final", "lm_head") if k in tree}
+    for leaf, a in tree["layers"].items():
+        for s in range(a.shape[0]):
+            for j in range(a.shape[1]):
+                out[f"layers.{s}.{j}.{leaf}"] = a[s, j]
+    return out
 
 
 def two_tower_params_from_reference(params_np: dict, cfg: R.TwoTowerConfig,

@@ -9,8 +9,10 @@
 // Replaces repro/kernels/flash_attention/kernel.py::flash_attention
 // (src/repro/kernels/flash_attention/kernel.py:82, body _flash_kernel :31).
 // Both kernels compute the same function: scores q.k * 1/sqrt(D) in
-// float32, masked scores -1e30 (not -inf), causal masking top-left (q_pos
-// >= k_pos, also when Sq != Sk), an online softmax with running (m, l, acc)
+// float32, masked scores -1e30 (not -inf), causal masking k_pos <= q_pos +
+// q_offset (top-left aligned at q_offset 0, also when Sq != Sk; a q_offset
+// >= 0 is where the query rows start in the key sequence, as on a rank of
+// a sequence split), an online softmax with running (m, l, acc)
 // starting at (-1e30, 0, 0), key tiles wholly above the diagonal skipped,
 // and the output acc / max(l, 1e-30) written in q's type.
 //
@@ -59,10 +61,11 @@
 //   max and row sum across the four threads of a quad by shuffles, exp2
 //   (ex2.approx.ftz, the instruction exp2f compiles to, without its
 //   denormal scaling) with scale * log2(e) folded into the scores, the
-//   causal and k_pos < Sk masks applied only on the last key tile (the
-//   diagonal or ragged one; TMA's zeros past Sk are scores of 0, not
-//   masked scores, so they are masked there too). l sums the unrounded
-//   float32 p.
+//   causal and k_pos < Sk masks applied only on the tiles the diagonal
+//   crosses (the last, and the one before where q_offset is not a
+//   multiple of 128) and the ragged one (TMA's zeros past Sk are scores
+//   of 0, not masked scores, so they are masked there too). l sums the
+//   unrounded float32 p.
 // - O += P_hi.V + P_lo.V: wgmma m64n{D}k16 with A from registers (the S
 //   fragment converts to bf16 pairs in place: the accumulator layout of
 //   two n8 blocks is the A fragment of one k16 step) and B = V from shared
@@ -97,8 +100,8 @@
 // Given q, k, v and dO, it returns dQ, dK, dV in q's type: P = exp(S -
 // lse), dV = P^T dO, dP = dO V^T, dS = P * (dP - delta) with delta =
 // rowsum(dO * O) = rowsum(P * dP), dQ = dS K / sqrt(D), dK = dS^T Q /
-// sqrt(D), every sum in float32; causal or not, top-left aligned as the
-// forward, Sq != Sk. O is the unrounded output (the forward saves neither
+// sqrt(D), every sum in float32; causal or not, masked as the forward
+// (at its q_offset), Sq != Sk. O is the unrounded output (the forward saves neither
 // it nor lse, so the first pass recomputes them): delta from the forward's
 // bf16-rounded output moves 0.1-0.2 % of the gradient's elements past the
 // bf16 checks (atol 1e-3) against the reference's autodiff, which
@@ -220,7 +223,7 @@ template <typename T, int DMAX, bool STATS = false>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq,
-                       int Sk, int D, float scale, int causal,
+                       int Sk, int D, float scale, int causal, int q_offset,
                        const T* __restrict__ dO, float* __restrict__ lse,
                        float* __restrict__ delta) {
   extern __shared__ float smem[];
@@ -253,7 +256,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   int n_tiles = (Sk + kBK - 1) / kBK;
   if (causal) {                           // tiles wholly above the diagonal
-    const int last = (q0 + kBQ - 1) / kBK + 1;
+    const int last = (q0 + q_offset + kBQ - 1) / kBK + 1;
     n_tiles = n_tiles < last ? n_tiles : last;
   }
   for (int kt = 0; kt < n_tiles; ++kt) {
@@ -281,7 +284,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kBK / 4; ++j) {
       const int kp = k0 + t + 4 * j;
-      const bool ok = kp < Sk && (!causal || qpos >= kp);
+      const bool ok = kp < Sk && (!causal || qpos + q_offset >= kp);
       s[j] = ok ? s[j] * scale : kNegInf;
       mx = fmaxf(mx, s[j]);
     }
@@ -346,7 +349,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    long long BH, int Sq, int Sk, int D, float scale,
-                   int causal, cudaStream_t stream) {
+                   int causal, int q_offset, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, DMAX>;
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
@@ -358,20 +361,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, D, scale, causal,
-      nullptr, nullptr, nullptr);
+      q_offset, nullptr, nullptr, nullptr);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      long long BH, int Sq, int Sk, int D, float scale,
-                     int causal, cudaStream_t stream) {
+                     int causal, int q_offset, cudaStream_t stream) {
   if (D <= 64) return launch<T, 64>(q, k, v, o, BH, Sq, Sk, D, scale, causal,
-                                    stream);
+                                    q_offset, stream);
   if (D <= 128) return launch<T, 128>(q, k, v, o, BH, Sq, Sk, D, scale,
-                                      causal, stream);
+                                      causal, q_offset, stream);
   if (D <= 256) return launch<T, 256>(q, k, v, o, BH, Sq, Sk, D, scale,
-                                      causal, stream);
+                                      causal, q_offset, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -403,12 +406,13 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
 
 // Whether query qpos sees key kpos.
 __device__ __forceinline__ bool visible(int qpos, int kpos, int Sq, int Sk,
-                                        int causal) {
-  return qpos < Sq && kpos < Sk && (!causal || qpos >= kpos);
+                                        int causal, int q_offset) {
+  return qpos < Sq && kpos < Sk && (!causal || qpos + q_offset >= kpos);
 }
 
-// Key tiles a query tile [q0, q0 + kRows) reads: those below its last
-// row's diagonal when causal.
+// Key tiles a query tile reads whose rows' causal positions (row +
+// q_offset) are [q0, q0 + kRows): those below its last row's diagonal when
+// causal.
 __device__ __forceinline__ int key_tiles(int q0, int Sk, int causal) {
   const int n = (Sk + kTile - 1) / kTile;
   const int last = (q0 + kRows - 1) / kTile + 1;
@@ -428,7 +432,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dO,
             const float* __restrict__ lse, const float* __restrict__ delta,
             T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int D,
-            float scale, int causal) {
+            float scale, int causal, int q_offset) {
   extern __shared__ float smem[];
   const int DP = D + 1;
   float* sK = smem;                       // kRows x DP
@@ -452,7 +456,9 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < NJ; ++j) gk[j] = gv[j] = 0.f;
   const int n_tiles = (Sq + kTile - 1) / kTile;
-  for (int qt = causal ? k0 / kTile : 0; qt < n_tiles; ++qt) {
+  // the first query tile with a row that sees key k0 (row + q_offset >= k0)
+  const int qt0 = causal ? max(k0 - q_offset, 0) / kTile : 0;
+  for (int qt = qt0; qt < n_tiles; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();                      // the last tile's readers are done
     load_rows(sQ, q + qo, q0, kTile, Sq, D);
@@ -477,7 +483,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kTile / 4; ++j) {
       const int jq = t + 4 * j;
-      const float p = visible(q0 + jq, kpos, Sq, Sk, causal)
+      const float p = visible(q0 + jq, kpos, Sq, Sk, causal, q_offset)
                           ? expf(s[j] * scale - sL[jq]) : 0.f;
       sP[r * kPS + jq] = p;
       sS[r * kPS + jq] = p * (dp[j] - sD[jq]);
@@ -519,7 +525,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dO,
           const float* __restrict__ lse, const float* __restrict__ delta,
           T* __restrict__ dq, int Sq, int Sk, int D, float scale,
-          int causal) {
+          int causal, int q_offset) {
   extern __shared__ float smem[];
   const int DP = D + 1;
   float* sQ = smem;                       // kRows x DP
@@ -541,7 +547,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc[NJ];
 #pragma unroll
   for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
-  const int n_tiles = key_tiles(q0, Sk, causal);
+  const int n_tiles = key_tiles(q0 + q_offset, Sk, causal);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();                      // the last tile's readers are done
@@ -562,7 +568,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kTile / 4; ++j) {
       const int kj = t + 4 * j;
-      const float p = visible(qpos, k0 + kj, Sq, Sk, causal)
+      const float p = visible(qpos, k0 + kj, Sq, Sk, causal, q_offset)
                           ? expf(s[j] * scale - L) : 0.f;
       sS[r * kPS + kj] = p * (dp[j] - Dl);
     }
@@ -884,11 +890,12 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
 }
 
 // The online softmax of one key tile on the S fragment, in place: scores
-// into the log2 domain, the masks on the edge tile only (the last one: the
-// diagonal or the ragged tile; every earlier tile is whole and below the
+// into the log2 domain, the masks on an edge tile only (the ragged tile or
+// one the diagonal crosses; every other tile is whole and below the
 // diagonal), the new row max across the quad, p = exp2(x - m), and l over
-// this thread's columns (summed across the quad at the end). Returns the
-// factors that rescale the rows' earlier sums.
+// this thread's columns (summed across the quad at the end). row0 and row1
+// are the causal positions of this thread's rows. Returns the factors that
+// rescale the rows' earlier sums.
 __device__ __forceinline__ float2 softmax_tile(float (&sc)[64], float& m0,
                                                float& m1, float& l0,
                                                float& l1, bool edge, int k0,
@@ -954,7 +961,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
                             __nv_bfloat16* __restrict__ o, int BH, int Sq,
-                            int Sk, float scale_log2, int causal) {
+                            int Sk, float scale_log2, int causal,
+                            int q_offset) {
   using L = Smem<D>;
   constexpr int kBoxes = D / 64;
   extern __shared__ uint8_t smem_raw[];
@@ -966,7 +974,11 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / BH);
   const int bh = static_cast<int>(blockIdx.x % BH);
   const int n_kt = (Sk + kRows - 1) / kRows;
-  const int n_tiles = causal ? min(n_kt, qt + 1) : n_kt;
+  // up to the tile of the last row's last key, qt * kRows + kRows - 1 +
+  // q_offset, when causal
+  const int n_tiles =
+      causal ? min(n_kt, (qt * kRows + kRows - 1 + q_offset) / kRows + 1)
+             : n_kt;
   // key tile j lives in stage j % kStages; its barriers' phase parity
   auto stage = [](int j) { return j % kStages; };
   auto parity = [](int j) { return static_cast<uint32_t>(j / kStages) & 1u; };
@@ -1041,9 +1053,16 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_wait<0>();
       keep(sc);
       if (t == 0) mbar_arrive(empty_k(j));
+      // masks on the last tile and, when causal, on any tile past the
+      // first row's diagonal (two tiles where q_offset is not a multiple
+      // of kRows); the rows' causal positions are row + q_offset
+      const bool edge =
+          j + 1 == n_tiles ||
+          (causal && (j + 1) * kRows - 1 > qt * kRows + q_offset);
       const float2 alpha =
-          softmax_tile(sc, m0, m1, l0, l1, j + 1 == n_tiles, j * kRows + col,
-                       row0, row1, Sk, causal, scale_log2);
+          softmax_tile(sc, m0, m1, l0, l1, edge, j * kRows + col,
+                       row0 + q_offset, row1 + q_offset, Sk, causal,
+                       scale_log2);
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         acc[4 * n] *= alpha.x;
@@ -1134,7 +1153,7 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, long long BH,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    long long BH, int Sq, int Sk, float scale, int causal,
-                   cudaStream_t stream) {
+                   int q_offset, cudaStream_t stream) {
   const long long n_cta = (Sq + kRows - 1) / kRows * BH;
   if (BH <= 0 || Sq <= 0 || Sk <= 0 || n_cta > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
@@ -1154,7 +1173,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(n_cta), kThreads, Smem<D>::kBytes, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<int>(BH), Sq,
-      Sk, scale * kLog2e, causal);
+      Sk, scale * kLog2e, causal, q_offset);
   return cudaGetLastError();
 }
 
@@ -1386,7 +1405,7 @@ rows_kernel(const __grid_constant__ CUtensorMap qmap,
             const __grid_constant__ CUtensorMap vmap,
             const __grid_constant__ CUtensorMap omap,
             float* __restrict__ lse, float* __restrict__ delta, int BH,
-            int Sq, int Sk, float scale_log2, int causal) {
+            int Sq, int Sk, float scale_log2, int causal, int q_offset) {
   using L = RowsSmem<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = aligned_base(smem_raw);
@@ -1395,7 +1414,8 @@ rows_kernel(const __grid_constant__ CUtensorMap qmap,
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / BH);
   const int bh = static_cast<int>(blockIdx.x % BH);
   const int n_kt = (Sk + 127) / 128;
-  const int n_tiles = causal ? min(n_kt, qt + 1) : n_kt;
+  const int n_tiles =
+      causal ? min(n_kt, (qt * 128 + 127 + q_offset) / 128 + 1) : n_kt;
   auto stage = [](int j) { return j % kStages; };
   auto parity = [](int j) { return static_cast<uint32_t>(j / kStages) & 1u; };
   auto k_tile = [&](int j) { return base + L::kK + stage(j) * 2 * L::kTile; };
@@ -1455,9 +1475,10 @@ rows_kernel(const __grid_constant__ CUtensorMap qmap,
     sm90::keep(s);
     sm90::keep(dp);
     if (t == 0) sm90::mbar_arrive(empty(j));
-    // the masks on the last tile only: the diagonal or the ragged one
-    // (TMA's zeros past Sk are scores of 0, not masked scores)
-    const bool edge = j + 1 == n_tiles;
+    // the masks on the last tile (the ragged one: TMA's zeros past Sk are
+    // scores of 0, not masked scores) and on those the diagonal crosses
+    const bool edge =
+        j + 1 == n_tiles || (causal && j * 128 + 127 > qt * 128 + q_offset);
     float mx0 = sm90::kNegInf, mx1 = sm90::kNegInf;
 #pragma unroll
     for (int n = 0; n < 16; ++n) {
@@ -1467,7 +1488,9 @@ rows_kernel(const __grid_constant__ CUtensorMap qmap,
         if (edge) {
           const int key = j * 128 + 8 * n + col + (e & 1);
           const int row = e < 2 ? row0 : row1;
-          if (key >= Sk || (causal && key > row)) x = sm90::kNegInf;
+          if (key >= Sk || (causal && key > row + q_offset)) {
+            x = sm90::kNegInf;
+          }
         }
         s[4 * n + e] = x;
       }
@@ -1544,7 +1567,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
             const float* __restrict__ lse, const float* __restrict__ delta,
             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
             int BH, int Sq, int Sk, float scale, float scale_log2,
-            int causal) {
+            int causal, int q_offset) {
   using L = DkdvSmem<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = aligned_base(smem_raw);
@@ -1555,7 +1578,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
   const int kt = static_cast<int>(blockIdx.x / BH);
   const int bh = static_cast<int>(blockIdx.x % BH);
   const int n_qt = (Sq + 63) / 64;
-  const int qt0 = causal ? 2 * kt : 0;
+  // the first query tile with a row that sees key kt * 128
+  const int qt0 = causal ? max(kt * 128 - q_offset, 0) / 64 : 0;
   const int n_tiles = max(n_qt - qt0, 0);
   auto stage = [](int i) { return i % kRingStages; };
   auto parity = [](int i) {
@@ -1617,7 +1641,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
       produce(i + kRingStages - 1);       // its stage held tile i - 1
     }
     sm90::mbar_wait(full(i), parity(i));
-    if (causal && q0 + 64 <= k_wg) {      // every query before every key
+    if (causal && q0 + q_offset + 64 <= k_wg) {  // every query before every key
       if (t == 0) sm90::mbar_arrive(empty(i));
       continue;
     }
@@ -1632,7 +1656,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
     const float* lr = reinterpret_cast<const float*>(gbase + l_row(i));
     const float* dr = lr + 64;
     // masks on the diagonal tile and the ragged one (queries past Sq)
-    const bool edge = (causal && q0 < k_wg + 64) || q0 + 64 > Sq;
+    const bool edge = (causal && q0 + q_offset < k_wg + 64) || q0 + 64 > Sq;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const float2 l2 = *reinterpret_cast<const float2*>(lr + 8 * n + col);
@@ -1646,7 +1670,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
         if (edge) {
           const int q = q0 + 8 * n + col + (e & 1);
           const int key = e < 2 ? key0 : key1;
-          if (q >= Sq || (causal && q < key)) p = ds = 0.f;
+          if (q >= Sq || (causal && q + q_offset < key)) p = ds = 0.f;
         }
         s[4 * n + e] = p;
         dp[4 * n + e] = ds;
@@ -1718,7 +1742,7 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap,
           const __grid_constant__ CUtensorMap omap,
           const float* __restrict__ lse, const float* __restrict__ delta,
           __nv_bfloat16* __restrict__ dq, int BH, int Sq, int Sk, float scale,
-          float scale_log2, int causal) {
+          float scale_log2, int causal, int q_offset) {
   using L = DqSmem<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = aligned_base(smem_raw);
@@ -1727,7 +1751,8 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap,
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / BH);
   const int bh = static_cast<int>(blockIdx.x % BH);
   const int n_kt = (Sk + 63) / 64;
-  const int n_tiles = causal ? min(n_kt, 2 * qt + 2) : n_kt;
+  const int n_tiles =
+      causal ? min(n_kt, (qt * 128 + 127 + q_offset) / 64 + 1) : n_kt;
   auto stage = [](int j) { return j % kRingStages; };
   auto parity = [](int j) {
     return static_cast<uint32_t>(j / kRingStages) & 1u;
@@ -1786,7 +1811,7 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * 64;
     sm90::mbar_wait(full(j), parity(j));
-    if (causal && k0 >= q_wg + 64) {      // every key after every row
+    if (causal && k0 >= q_wg + q_offset + 64) {  // every key after every row
       if (t == 0) sm90::mbar_arrive(empty(j));
       continue;
     }
@@ -1799,7 +1824,7 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap,
     sm90::keep(s);
     sm90::keep(dp);
     // masks on the diagonal tile and the ragged one (keys past Sk)
-    const bool edge = (causal && k0 + 64 > q_wg) || k0 + 64 > Sk;
+    const bool edge = (causal && k0 + 64 > q_wg + q_offset) || k0 + 64 > Sk;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
@@ -1809,7 +1834,9 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap,
         float ds = p * (dp[4 * n + e] - (r1 ? dl1 : dl0));
         if (edge) {
           const int key = k0 + 8 * n + col + (e & 1);
-          if (key >= Sk || (causal && key > (r1 ? row1 : row0))) ds = 0.f;
+          if (key >= Sk || (causal && key > (r1 ? row1 : row0) + q_offset)) {
+            ds = 0.f;
+          }
         }
         dp[4 * n + e] = ds;
       }
@@ -1887,16 +1914,18 @@ extern "C" {
 // dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and out alike).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long BH, int Sq, int Sk, int D, float scale,
-                        int causal, int dtype, void* stream) {
+                        int causal, int q_offset, int dtype, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    err = launch_d<float>(q, k, v, o, BH, Sq, Sk, D, scale, causal, s);
+    err = launch_d<float>(q, k, v, o, BH, Sq, Sk, D, scale, causal, q_offset,
+                          s);
   } else if (dtype == 1) {
     err = launch_d<__nv_bfloat16>(q, k, v, o, BH, Sq, Sk, D, scale, causal,
-                                  s);
+                                  q_offset, s);
   } else if (dtype == 2) {
-    err = launch_d<__half>(q, k, v, o, BH, Sq, Sk, D, scale, causal, s);
+    err = launch_d<__half>(q, k, v, o, BH, Sq, Sk, D, scale, causal, q_offset,
+                           s);
   }
   return static_cast<int>(err);
 }
@@ -1904,13 +1933,14 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 // bfloat16 q, k, v and out, D = 64 or 128; q, k and v 16-byte aligned.
 int flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
                              void* o, long long BH, int Sq, int Sk, int D,
-                             float scale, int causal, void* stream) {
+                             float scale, int causal, int q_offset,
+                             void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (D == 128) {
-    err = sm90::launch<128>(q, k, v, o, BH, Sq, Sk, scale, causal, s);
+    err = sm90::launch<128>(q, k, v, o, BH, Sq, Sk, scale, causal, q_offset, s);
   } else if (D == 64) {
-    err = sm90::launch<64>(q, k, v, o, BH, Sq, Sk, scale, causal, s);
+    err = sm90::launch<64>(q, k, v, o, BH, Sq, Sk, scale, causal, q_offset, s);
   }
   return static_cast<int>(err);
 }
@@ -1921,7 +1951,8 @@ int flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
 int flash_attention_bwd_rows(const void* q, const void* k, const void* v,
                              const void* dO, void* lse, void* delta,
                              long long BH, int Sq, int Sk, int D, float scale,
-                             int causal, int dtype, void* stream) {
+                             int causal, int q_offset, int dtype,
+                             void* stream) {
   static_assert(bwd::kRows == kBQ, "the forward kernel's query tile");
   dim3 g;
   if (!bwd::grid(BH, Sq, &g) || Sk <= 0) return cudaErrorInvalidValue;
@@ -1933,7 +1964,7 @@ int flash_attention_bwd_rows(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     kernel<<<g, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), nullptr, Sq, Sk, D, scale, causal,
+        static_cast<const T*>(v), nullptr, Sq, Sk, D, scale, causal, q_offset,
         static_cast<const T*>(dO), static_cast<float*>(lse),
         static_cast<float*>(delta));
     return cudaGetLastError();
@@ -1945,7 +1976,8 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
                              const void* dO, const void* lse,
                              const void* delta, void* dk, void* dv,
                              long long BH, int Sq, int Sk, int D, float scale,
-                             int causal, int dtype, void* stream) {
+                             int causal, int q_offset, int dtype,
+                             void* stream) {
   dim3 g;
   if (!bwd::grid(BH, Sk, &g) || Sq <= 0) return cudaErrorInvalidValue;
   return static_cast<int>(bwd::dispatch(dtype, D, [&](auto tag, auto width) {
@@ -1958,7 +1990,8 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dO),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, D, scale, causal);
+        static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, D, scale, causal,
+        q_offset);
     return cudaGetLastError();
   }));
 }
@@ -1967,7 +2000,8 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                            const void* dO, const void* lse, const void* delta,
                            void* dq, long long BH, int Sq, int Sk, int D,
-                           float scale, int causal, int dtype, void* stream) {
+                           float scale, int causal, int q_offset, int dtype,
+                           void* stream) {
   dim3 g;
   if (!bwd::grid(BH, Sq, &g) || Sk <= 0) return cudaErrorInvalidValue;
   return static_cast<int>(bwd::dispatch(dtype, D, [&](auto tag, auto width) {
@@ -1980,7 +2014,7 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dO),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dq), Sq, Sk, D, scale, causal);
+        static_cast<T*>(dq), Sq, Sk, D, scale, causal, q_offset);
     return cudaGetLastError();
   }));
 }
@@ -1994,8 +2028,8 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
 int flash_attention_bwd_rows_sm90(const void* q, const void* k, const void* v,
                                   const void* dO, void* lse, void* delta,
                                   long long BH, int Sq, int Sk, int D,
-                                  float scale, int causal, int dtype,
-                                  void* stream) {
+                                  float scale, int causal, int q_offset,
+                                  int dtype, void* stream) {
   unsigned g;
   if (!bwd90::grid(BH, Sq, Sk, (Sq + 127) / 128, &g)) {
     return cudaErrorInvalidValue;
@@ -2014,7 +2048,7 @@ int flash_attention_bwd_rows_sm90(const void* q, const void* k, const void* v,
     kernel<<<g, bwd90::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         maps[0], maps[1], maps[2], maps[3], static_cast<float*>(lse),
         static_cast<float*>(delta), static_cast<int>(BH), Sq, Sk,
-        scale * sm90::kLog2e, causal);
+        scale * sm90::kLog2e, causal, q_offset);
     return cudaGetLastError();
   }));
 }
@@ -2023,8 +2057,8 @@ int flash_attention_bwd_dkdv_sm90(const void* q, const void* k, const void* v,
                                   const void* dO, const void* lse,
                                   const void* delta, void* dk, void* dv,
                                   long long BH, int Sq, int Sk, int D,
-                                  float scale, int causal, int dtype,
-                                  void* stream) {
+                                  float scale, int causal, int q_offset,
+                                  int dtype, void* stream) {
   unsigned g;
   if (!bwd90::grid(BH, Sq, Sk, (Sk + 127) / 128, &g)) {
     return cudaErrorInvalidValue;
@@ -2045,7 +2079,7 @@ int flash_attention_bwd_dkdv_sm90(const void* q, const void* k, const void* v,
         maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
         static_cast<__nv_bfloat16*>(dv), static_cast<int>(BH), Sq, Sk, scale,
-        scale * sm90::kLog2e, causal);
+        scale * sm90::kLog2e, causal, q_offset);
     return cudaGetLastError();
   }));
 }
@@ -2054,7 +2088,8 @@ int flash_attention_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                 const void* dO, const void* lse,
                                 const void* delta, void* dq, long long BH,
                                 int Sq, int Sk, int D, float scale,
-                                int causal, int dtype, void* stream) {
+                                int causal, int q_offset, int dtype,
+                                void* stream) {
   unsigned g;
   if (!bwd90::grid(BH, Sq, Sk, (Sq + 127) / 128, &g)) {
     return cudaErrorInvalidValue;
@@ -2073,7 +2108,8 @@ int flash_attention_bwd_dq_sm90(const void* q, const void* k, const void* v,
     kernel<<<g, bwd90::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq),
-        static_cast<int>(BH), Sq, Sk, scale, scale * sm90::kLog2e, causal);
+        static_cast<int>(BH), Sq, Sk, scale, scale * sm90::kLog2e, causal,
+        q_offset);
     return cudaGetLastError();
   }));
 }

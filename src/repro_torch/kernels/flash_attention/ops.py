@@ -41,12 +41,14 @@ from repro_torch.kernels.flash_attention import ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-_BWD_TAIL = [_ll, _i, _i, _i, _f, _i, _i, _p]
+_BWD_TAIL = [_ll, _i, _i, _i, _f, _i, _i, _i, _p]
 LIBRARY = CudaLibrary(SOURCE, {
-    "flash_attention_fwd": [_p, _p, _p, _p, _ll, _i, _i, _i, _f, _i, _i, _p],
+    # pointers, then (BH, Sq, Sk, D, scale, causal, q_offset[, dtype],
+    # stream)
+    "flash_attention_fwd": [_p, _p, _p, _p, _ll, _i, _i, _i, _f, _i, _i, _i,
+                            _p],
     "flash_attention_fwd_sm90": [_p, _p, _p, _p, _ll, _i, _i, _i, _f, _i,
-                                 _p],
-    # backward: pointers, then (BH, Sq, Sk, D, scale, causal, dtype, stream)
+                                 _i, _p],
     "flash_attention_bwd_rows": [_p] * 6 + _BWD_TAIL,
     "flash_attention_bwd_dkdv": [_p] * 8 + _BWD_TAIL,
     "flash_attention_bwd_dq": [_p] * 7 + _BWD_TAIL,
@@ -73,17 +75,22 @@ def takes_tensor_cores(dtype: torch.dtype, d: int) -> bool:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Softmax attention forward. q: (BH, Sq, D); k, v: (BH, Sk, D), all
     float32, all bfloat16 or all float16 -> (BH, Sq, D) in q's type.
-    Scale 1/sqrt(D); causal masks k_pos > q_pos (top-left aligned, also
-    when Sq != Sk). On the card D is at most MAX_HEAD_DIM (256): a wider
-    head is refused. Differentiable in q, k and v (`_Attention`)."""
-    return _Attention.apply(q, k, v, causal)
+    Scale 1/sqrt(D); causal masks k_pos > q_pos + q_offset (top-left
+    aligned at q_offset 0, also when Sq != Sk; q_offset >= 0 is where the
+    query rows start among the keys, as on a rank of a sequence split). On
+    the card D is at most MAX_HEAD_DIM (256): a wider head is refused.
+    Differentiable in q, k and v (`_Attention`)."""
+    return _Attention.apply(q, k, v, causal, q_offset)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           q_offset: int) -> None:
     """What the kernels take, else ValueError."""
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"flash_attention: q must be (BH, Sq, D) and k, v "
@@ -105,17 +112,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool) -> torch.Tensor:
+             causal: bool, q_offset: int) -> torch.Tensor:
     if on_cpu(q, k, v):
-        return ref.flash_attention(q, k, v, causal=causal)
-    _check(q, k, v)
+        return ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    _check(q, k, v, q_offset)
     bh, sq, d = q.shape
     sk = k.shape[1]
     out = torch.empty_like(q)
     if not (bh and sq):
         return out
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-            sk, d, 1.0 / math.sqrt(d), int(causal))
+            sk, d, 1.0 / math.sqrt(d), int(causal), q_offset)
     if takes_tensor_cores(q.dtype, d):
         raise_on("flash_attention",
                  LIBRARY.load().flash_attention_fwd_sm90(*args, stream()))
@@ -128,13 +135,14 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        do: torch.Tensor, *, causal: bool = True):
+                        do: torch.Tensor, *, causal: bool = True,
+                        q_offset: int = 0):
     """(dq, dk, dv) of `flash_attention` at the output's gradient `do`
     ((BH, Sq, D) in q's type), each in q's type. On the card: three
     launches (each row's log-sum-exp and delta are recomputed, the forward
     saves neither), on the tensor cores where `takes_tensor_cores`, else on
     the CUDA cores in float32; deterministic, no atomics."""
-    return _backward(q, k, v, do, causal)
+    return _backward(q, k, v, do, causal, q_offset)
 
 
 def padded_rows(sq: int) -> int:
@@ -143,12 +151,13 @@ def padded_rows(sq: int) -> int:
     return -(-sq // 128) * 128
 
 
-def _backward(q, k, v, do, causal, *, cuda_cores: bool = False):
+def _backward(q, k, v, do, causal, q_offset=0, *, cuda_cores: bool = False):
     """`flash_attention_bwd`; `cuda_cores=True` takes the CUDA-core kernels
     whatever the dtype and D."""
     if on_cpu(q, k, v, do):
-        return ref.flash_attention_bwd(q, k, v, do, causal=causal)
-    _check(q, k, v)
+        return ref.flash_attention_bwd(q, k, v, do, causal=causal,
+                                       q_offset=q_offset)
+    _check(q, k, v, q_offset)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"flash_attention_bwd: do must be "
                          f"{q.dtype}{tuple(q.shape)}, got "
@@ -168,8 +177,8 @@ def _backward(q, k, v, do, causal, *, cuda_cores: bool = False):
     lib = LIBRARY.load()
     qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr())
     rows = (lse.data_ptr(), delta.data_ptr())
-    tail = (bh, sq, sk, d, 1.0 / math.sqrt(d), int(causal), _DTYPES[q.dtype],
-            stream())
+    tail = (bh, sq, sk, d, 1.0 / math.sqrt(d), int(causal), q_offset,
+            _DTYPES[q.dtype], stream())
     suffix = "_sm90" if wgmma else ""
     for name, out in (("rows", ()), ("dkdv", (dk.data_ptr(), dv.data_ptr())),
                       ("dq", (dq.data_ptr(),))):
@@ -187,27 +196,29 @@ class _Attention(torch.autograd.Function):
     plain versions on the CPU, chosen by the tensors' device."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        ctx.causal = causal
+    def forward(ctx, q, k, v, causal, q_offset):
+        ctx.causal, ctx.q_offset = causal, q_offset
         ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, causal)
+        return _forward(q, k, v, causal, q_offset)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, do.to(q.dtype),
-                                         causal=ctx.causal)
-        return dq, dk, dv, None
+                                         causal=ctx.causal,
+                                         q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-        causal: bool = True) -> torch.Tensor:
-    """(B, S, H, D) attention via the flash kernel."""
+        causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """(B, S, H, D) attention via the flash kernel; q's rows start at
+    q_offset among k's (`flash_attention`)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     # at B = 1 the reshape is a strided view: copy to the kernel's layout
     qf = q.transpose(1, 2).reshape(b * h, sq, d).contiguous()
     kf = k.transpose(1, 2).reshape(b * h, sk, d).contiguous()
     vf = v.transpose(1, 2).reshape(b * h, sk, d).contiguous()
-    out = flash_attention(qf, kf, vf, causal=causal)
+    out = flash_attention(qf, kf, vf, causal=causal, q_offset=q_offset)
     return out.reshape(b, h, sq, d).transpose(1, 2)

@@ -9,29 +9,32 @@ from typing import Tuple
 import torch
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
-    """Scaled float32 scores q.k / sqrt(D), masked to -1e30 above the
-    top-left diagonal when causal."""
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            q_offset: int = 0) -> torch.Tensor:
+    """Scaled float32 scores q.k / sqrt(D), masked to -1e30 where k_pos >
+    q_pos + q_offset when causal (the top-left diagonal at q_offset 0)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     if causal:
         sq, sk = q.shape[1], k.shape[1]
-        mask = (torch.arange(sq, device=q.device)[:, None]
+        mask = (q_offset + torch.arange(sq, device=q.device)[:, None]
                 >= torch.arange(sk, device=q.device)[None, :])
         s = torch.where(mask[None], s, -1e30)
     return s
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q: (BH, Sq, D); k, v: (BH, Sk, D). Full-softmax reference."""
-    out = torch.einsum("bqk,bkd->bqd", _softmax(_scores(q, k, causal)),
-                       v.float())
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """q: (BH, Sq, D); k, v: (BH, Sk, D). Full-softmax reference; q's rows
+    start at q_offset among the keys."""
+    out = torch.einsum("bqk,bkd->bqd",
+                       _softmax(_scores(q, k, causal, q_offset)), v.float())
     return out.to(q.dtype)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        do: torch.Tensor, *, causal: bool = True
+                        do: torch.Tensor, *, causal: bool = True,
+                        q_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of `flash_attention` at output gradient
     `do`, each in its input's type, computed in float32: P = softmax(S),
@@ -39,7 +42,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the unrounded output), dS = P * (dP - D_i), dQ = dS K / sqrt(D),
     dK = dS^T Q / sqrt(D)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    p = _softmax(_scores(q, k, causal))
+    p = _softmax(_scores(q, k, causal, q_offset))
     dof = do.float()
     dv = torch.einsum("bqk,bqd->bkd", p, dof)
     dp = torch.einsum("bqd,bkd->bqk", dof, v.float())
@@ -51,7 +54,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd_rows(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, do: torch.Tensor, *,
-                             causal: bool = True, block: int = 128
+                             causal: bool = True, block: int = 128,
+                             q_offset: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward's first pass as its kernels compute it, online over key
     tiles of `block`: each query row's log-sum-exp of the scaled, masked
@@ -64,7 +68,7 @@ def flash_attention_bwd_rows(q: torch.Tensor, k: torch.Tensor,
     m = torch.full((bh, sq), -1e30, device=q.device)
     l = torch.zeros(bh, sq, device=q.device)
     t = torch.zeros_like(l)
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
     for k0 in range(0, k.shape[1], block):
         kt, vt = k[:, k0:k0 + block].float(), v[:, k0:k0 + block].float()
         x = torch.einsum("bqd,bkd->bqk", qf, kt) * (log2e / math.sqrt(d))

@@ -50,6 +50,33 @@ class GraphShapes:
     n_graphs: int = 1
 
 
+def batch_spec(shapes: GraphShapes, dtype: torch.dtype = torch.float32
+               ) -> Dict[str, torch.Tensor]:
+    """Tensors on the meta device standing in for a batch of `shapes`: the
+    reference's names, shapes and types (its `ShapeDtypeStruct`s), nothing
+    allocated."""
+    n, e = shapes.n_nodes, shapes.n_edges
+
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+    s = dict(
+        node_feat=meta((n, shapes.d_feat), dtype),
+        positions=meta((n, 3), dtype),
+        node_mask=meta((n,), torch.bool),
+        src=meta((e,), torch.int32),
+        dst=meta((e,), torch.int32),
+        edge_mask=meta((e,), torch.bool),
+        graph_id=meta((n,), torch.int32),
+        targets=meta((n,), dtype),
+    )
+    if shapes.n_triplets:
+        t = shapes.n_triplets
+        s["trip_kj"] = meta((t,), torch.int32)
+        s["trip_ji"] = meta((t,), torch.int32)
+        s["trip_mask"] = meta((t,), torch.bool)
+    return s
+
+
 class MLP(nn.Module):
     """The reference's `mlp_params` dict (w{i} (dims[i], dims[i+1]) at
     `dense_init`'s scale, b{i} zeros) with the `mlp_apply` it is always

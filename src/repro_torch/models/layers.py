@@ -11,12 +11,80 @@ Conventions (as in the reference's `repro.models.layers`):
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
+
+
+def replicated_as(ref: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """`t`, a plain tensor that every rank holds alike (positions, RoPE
+    frequencies, token ids, an arange), as a replicated DTensor on `ref`'s
+    mesh when `ref` is a DTensor, so the two can meet in an op; otherwise
+    `t` itself."""
+    if isinstance(ref, DTensor) and not isinstance(t, DTensor):
+        mesh = ref.device_mesh
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    return t
+
+
+def _viewable(t: DTensor, shape) -> DTensor:
+    """`t` redistributed so that DTensor can view it as `shape`: in the
+    block of dims the view merges or splits (between the leading and the
+    trailing dims it keeps), a split survives only on the block's major
+    dim and only if the ranks splitting it divide that dim's size on both
+    sides; every other split in the block is gathered."""
+    shape = tuple(torch.empty(t.shape, device="meta").view(shape).shape)
+    n_keep = min(len(shape), t.ndim)
+    lo = 0
+    while lo < n_keep and shape[lo] == t.shape[lo]:
+        lo += 1
+    tail = 0
+    while tail < n_keep - lo and shape[-1 - tail] == t.shape[-1 - tail]:
+        tail += 1
+    mesh = t.device_mesh
+    keep = []
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and lo <= p.dim < t.ndim - tail:
+            n = math.prod(mesh.size(j) for j, q in enumerate(t.placements)
+                          if q == p)
+            ok = (p.dim == lo and lo < len(shape) and t.shape[lo] % n == 0
+                  and shape[lo] % n == 0)
+            keep.append(p if ok else Replicate())
+        else:
+            keep.append(p)
+    if tuple(keep) == tuple(t.placements):
+        return t
+    return t.redistribute(mesh, keep)
+
+
+class _ShardedView(torch.autograd.Function):
+    """A view of a DTensor whose forward and backward each gather first
+    what DTensor cannot view (`_viewable`)."""
+
+    @staticmethod
+    def forward(ctx, t, shape):
+        ctx.in_shape = t.shape
+        return _viewable(t, shape).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _viewable(g, ctx.in_shape).reshape(ctx.in_shape), None
+
+
+def sharded_view(t: torch.Tensor, shape) -> torch.Tensor:
+    """`t.reshape(shape)`, also for a DTensor whose split dims the reshape
+    may merge or split unevenly (e.g. (H·k) over more ranks than divide
+    H), which DTensor refuses or gets wrong: such splits are gathered
+    first, in the forward and in the backward."""
+    if isinstance(t, DTensor):
+        return _ShardedView.apply(t, tuple(shape))
+    return t.reshape(shape)
 
 
 def dense_init(generator: torch.Generator, shape, scale: Optional[float] = None,
@@ -200,7 +268,8 @@ def _act(x: torch.Tensor, act: str) -> torch.Tensor:
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     """float32 one-hot; an index outside [0, n) gives a zero row, as
     `jax.nn.one_hot`."""
-    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+    ar = replicated_as(idx, torch.arange(n, device=idx.device))
+    return (idx[..., None] == ar).float()
 
 
 # ---------------------------------------------------------------------------
@@ -208,10 +277,14 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def glu_ffn(x: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
-            w_out: torch.Tensor, act: str = "silu") -> torch.Tensor:
+            w_out: torch.Tensor, act: str = "silu", hint=None) -> torch.Tensor:
+    """(act(x @ w_gate) * (x @ w_in)) @ w_out; `hint` (Megatron-TP: the
+    (B, S, F) products sharded on F) applied to both products."""
     h = x @ w_in.to(x.dtype)
-    g = _act(x @ w_gate.to(x.dtype), act)
-    return (h * g) @ w_out.to(x.dtype)
+    g = x @ w_gate.to(x.dtype)
+    if hint is not None:
+        h, g = hint(h), hint(g)
+    return (h * _act(g, act)) @ w_out.to(x.dtype)
 
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
@@ -231,7 +304,7 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
     t = b * s
     g = max(t // group_size, 1)
     gs = t // g
-    xg = x.reshape(g, gs, d)
+    xg = sharded_view(x, (g, gs, d))
     logits = torch.einsum("gtd,de->gte", xg, router_w.to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     # aux load-balance loss (Switch): E * mean(fraction) . mean(prob)
@@ -257,4 +330,4 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
     gg = _act(torch.einsum("gecd,edf->gecf", xe, w_gate.to(x.dtype)), act)
     ye = torch.einsum("gecf,efd->gecd", hh * gg, w_out.to(x.dtype))
     y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye)
-    return y.reshape(b, s, d), aux
+    return sharded_view(y, (b, s, d)), aux

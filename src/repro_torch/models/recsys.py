@@ -30,11 +30,13 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.embedding_bag import ops as bag_ops
-from repro_torch.models.layers import dense_init, ordered_top_k
+from repro_torch.models.layers import dense_init, ordered_top_k, replicated_as
 from repro_torch.optim import AdamWConfig, apply_gradients
 
 
@@ -84,13 +86,76 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   mode: str = "mean") -> torch.Tensor:
     """table: (V, D); ids: (B, L) int, -1 = padding. Returns (B, D)
     float32: the bag's row sum ('sum') or the sum over max(bag size, 1)
-    ('mean'), through the EmbeddingBag kernel's entry point."""
+    ('mean'), through the EmbeddingBag kernel's entry point. A DTensor
+    table takes `row_sharded_bag`."""
+    if isinstance(table, DTensor):
+        return row_sharded_bag(table, ids, mode)
     return bag_ops.embedding_bag(table, ids, mode)
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Single-valued categorical lookup: (B,) -> (B, D)."""
+    """Single-valued categorical lookup: (B,) -> (B, D). A DTensor table
+    takes `row_sharded_bag` over bags of one id."""
+    if isinstance(table, DTensor):
+        return row_sharded_bag(table, ids[:, None], "sum")
     return table[ids.long()]
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum over the ranks of `group` of each rank's partial rows; the
+    gradient passes through as it is, since every rank of the group holds
+    the same downstream gradient (Megatron's reduce out of the
+    model-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def row_sharded_bag(table: DTensor, ids: torch.Tensor,
+                    mode: str = "mean") -> DTensor:
+    """`embedding_bag` of a table whose rows are split over one mesh axis
+    (replicated over the others), as Megatron's vocab-parallel embedding:
+    each rank bags the ids that fall in its rows (the others masked as
+    padding) with the kernel's entry point on its local rows, the partial
+    bags are summed over the table axis, and 'mean' divides by the whole
+    bag's size. ids: (B, L), a DTensor or a plain tensor that every rank
+    holds alike; the result (B, D) float32 is laid out as the ids' rows
+    (gathered over the table axis). The float32 sum adds the ranks'
+    partial bags in another order than one bag does; an id at or above V
+    reads row V - 1, as the kernel. The table's gradient on each rank is
+    its rows', summed over the ranks that split the batch."""
+    mesh = table.device_mesh
+    rows = [i for i, p in enumerate(table.placements)
+            if isinstance(p, Shard) and p.dim == 0]
+    if len(rows) != 1 or len(rows) + sum(
+            isinstance(p, Replicate) for p in table.placements) != mesh.ndim:
+        raise ValueError(f"row_sharded_bag: the table's rows must be split "
+                         f"over one mesh axis, got {table.placements}")
+    ax = rows[0]
+    ids = replicated_as(table, ids)
+    idp = tuple(p if i != ax and isinstance(p, Shard) else Replicate()
+                for i, p in enumerate(ids.placements))
+    ids = ids.redistribute(mesh, idp).to_local()
+    local = table.to_local(grad_placements=tuple(
+        Shard(0) if i == ax else Partial() if isinstance(p, Shard)
+        else Replicate() for i, p in enumerate(idp)))
+    v = table.shape[0]
+    lo = mesh.get_coordinate()[ax] * -(-v // mesh.size(ax))
+    real = ids >= 0
+    row = torch.where(real, ids, 0).clamp(max=v - 1) - lo
+    mine = real & (row >= 0) & (row < local.shape[0])
+    out = bag_ops.embedding_bag(local, torch.where(mine, row, -1), "sum")
+    out = _SumOverRanks.apply(out, mesh.get_group(ax))
+    if mode == "mean":
+        out = out / real.sum(dim=1, keepdim=True).clamp(min=1)
+    return DTensor.from_local(out, mesh, idp, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +342,31 @@ def synth_batch(cfg: TwoTowerConfig, batch: int, seed: int = 0,
             rng.integers(0, cfg.n_tags, (batch, cfg.tags_len)), -1
         ).astype(np.int32)
     return out
+
+
+def batch_spec(cfg: TwoTowerConfig, kind: str, batch: int,
+               n_candidates: int = 0) -> Dict[str, torch.Tensor]:
+    """Tensors on the meta device standing in for a `kind` batch ('train',
+    'bulk', 'serve' or 'retrieval'): the reference's names, shapes and
+    types, nothing allocated."""
+    def meta(shape, dt=torch.int32):
+        return torch.empty(shape, dtype=dt, device="meta")
+    user = dict(
+        user_id=meta((batch,)),
+        user_geo=meta((batch,)),
+        user_hist=meta((batch, cfg.hist_len)),
+        user_dense=meta((batch, cfg.d_dense), torch.float32),
+    )
+    if kind == "train" or kind == "bulk":
+        return user | dict(item_id=meta((batch,)),
+                           item_tags=meta((batch, cfg.tags_len)))
+    if kind == "serve":
+        return user | dict(cand_emb=meta((batch, 256, cfg.tower_mlp[-1]),
+                                         torch.float32))
+    if kind == "retrieval":
+        return user | dict(cand_id=meta((n_candidates,)),
+                           cand_tags=meta((n_candidates, cfg.tags_len)))
+    raise ValueError(kind)
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

@@ -29,9 +29,15 @@ Forward modes:
   * `decode_step(cfg, params, cache, token)` — single-token serve step.
 
 The full-sequence attention runs on the flash kernel, forward and
-backward (`kernels.flash_attention.ops.mha`). `shard_hints` (GSPMD
-sharding constraints) come with the sharding slice: a config that sets
-it is refused.
+backward (`kernels.flash_attention.ops.mha`).
+
+Sharded runs: lay the weights out as DTensors (`sharding.lm`'s rules,
+`sharding.lm.shard_transformer`) and every function here runs on them,
+plain tensors made inside (positions, RoPE frequencies, masks) taken as
+replicated. `cfg.shard_hints` pins the activations' layout where the
+reference pins it with `with_sharding_constraint` (`_hint`): each hint is
+a DTensor redistribution, and on plain tensors it changes nothing. The
+attention runs on each rank's local shards (`_attention`).
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -84,8 +91,8 @@ class TransformerConfig:
     moe_group_size: int = 1024
     unroll_scans: bool = False
     loss_chunk: int = 0
-    # GSPMD activation sharding constraints in the reference; the port
-    # refuses a config that sets them (see check_supported)
+    # activation layouts of a sharded run: (dp_axes, tp_axis, heads_tp,
+    # ctx, ffn_tp, seq_res), the last three optional (see `_hint`)
     shard_hints: Optional[Tuple] = None
     remat_blocks: bool = False
 
@@ -120,16 +127,6 @@ class TransformerConfig:
         per_layer = attn + ffn + 2 * d
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + emb + d
-
-
-def check_supported(cfg: TransformerConfig) -> None:
-    """Refuse what the port does not run yet."""
-    if cfg.shard_hints is not None:
-        raise ValueError(
-            f"{cfg.name}: shard_hints {cfg.shard_hints!r} are GSPMD sharding "
-            "constraints, which have no torch form; sharded serving comes "
-            "with the port's sharding slice (repro_torch.sharding). Use "
-            "dataclasses.replace(cfg, shard_hints=None)")
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -169,7 +166,6 @@ class Transformer(nn.Module):
                  ln_final: torch.Tensor,
                  lm_head: Optional[torch.Tensor] = None):
         super().__init__()
-        check_supported(cfg)
         if len(layers) != cfg.n_layers:
             raise ValueError(f"{cfg.name}: {len(layers)} layers for "
                              f"n_layers={cfg.n_layers}")
@@ -203,7 +199,6 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     with `dense_init`, whose fan-in is the first dim, so the leaves without
     an explicit scale (wq, wk, wv, and the dense w_in, w_gate) are
     N(0, 1/n_layers); the others are as written below."""
-    check_supported(cfg)
     dt = dtype or compute_dtype(cfg)
     dev = generator.device
     d, hd, nl = cfg.d_model, cfg.d_head, cfg.n_layers
@@ -246,13 +241,15 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """'bsd,dhk->bshk': x (B, S, D) by w (D, H, k) in x's type."""
     b, s, _ = x.shape
-    return (x @ w.to(x.dtype).flatten(1)).view(b, s, *w.shape[1:])
+    wf = L.sharded_view(w.to(x.dtype), (w.shape[0], -1))
+    return L.sharded_view(x @ wf, (b, s, *w.shape[1:]))
 
 
 def _out_proj(a: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """'bshk,hkd->bsd'."""
     b, s = a.shape[:2]
-    return a.reshape(b, s, -1) @ wo.to(a.dtype).flatten(0, 1)
+    wf = L.sharded_view(wo.to(a.dtype), (-1, wo.shape[-1]))
+    return L.sharded_view(a, (b, s, -1)) @ wf
 
 
 def rotary_dims(cfg: TransformerConfig) -> int:
@@ -268,12 +265,59 @@ def rope_inv_freq(cfg: TransformerConfig, device=None) -> torch.Tensor:
     return L.rope_freqs(cfg.d_head, cfg.rope_theta, rotary_dims(cfg), device)
 
 
+def _hint_spec(cfg: TransformerConfig, kind: str):
+    """The layout `cfg.shard_hints` = (dp_axes, tp_axis, heads_tp, ctx,
+    ffn_tp, seq_res) pins an activation of `kind` to, as a spec
+    (`sharding.spec`):
+      heads_tp — shard attention heads over tp (requires divisibility);
+      ctx      — shard the QUERY sequence dim over tp instead (context
+                 parallelism: every query row consumes the same KV stream);
+                 used when the head count does not divide tp (qwen3);
+      ffn_tp   — (default on) the GLU's (B, S, F) sharded on F over tp
+                 (Megatron-TP); off: ZeRO-style, weights gathered at use,
+                 activations batch-parallel;
+      seq_res  — Megatron sequence parallelism: the residual stream
+                 sequence-sharded over tp between blocks."""
+    h = cfg.shard_hints
+    dp, tp, heads_tp = h[:3]
+    ctx = h[3] if len(h) > 3 else False
+    ffn_tp = h[4] if len(h) > 4 else True
+    seq_res = h[5] if len(h) > 5 else False
+    q_spec = ((dp, None, tp, None) if heads_tp else
+              (dp, tp, None, None) if ctx else
+              (dp, None, None, None))
+    return {
+        "tokens3d": (dp, tp, None) if seq_res else (dp, None, None),
+        "heads": q_spec,                                     # (B, S, H, dh)
+        "kv": (dp, None, None, None),                        # (B, S, KV, dh)
+        "ffn": (dp, None, tp) if ffn_tp else (dp, None, None),
+        "logits": (dp, None, tp),                            # (B, S, V)
+    }[kind]
+
+
+def _hint(cfg: TransformerConfig, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """Pin activation `x` to `_hint_spec(cfg, kind)`'s layout: a DTensor
+    redistribution (collectives where the layout changes; none on a world
+    of one). Without hints, or on a plain tensor, `x` itself."""
+    if cfg.shard_hints is None or not isinstance(x, DTensor):
+        return x
+    from repro_torch.sharding.spec import placements  # sharding imports T
+    mesh = x.device_mesh
+    return x.redistribute(mesh, placements(_hint_spec(cfg, kind), mesh))
+
+
 def _qkv(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
-         positions: torch.Tensor, inv_freq: torch.Tensor):
+         positions: torch.Tensor, inv_freq: torch.Tensor,
+         hints: bool = True):
     """Normed, projected, qk-normed and rotated q (B, S, H, hd) and k, v
-    (B, S, KV, hd) of x (B, S, D) at `positions` (B, S)."""
+    (B, S, KV, hd) of x (B, S, D) at `positions` (B, S); with `hints`, q
+    pinned by the "heads" hint and k, v by "kv" after the projections, as
+    the reference's forward (its decode step pins none)."""
     h = L.rms_norm(x, lp.ln_attn, cfg.norm_eps)
     q, k, v = _proj(h, lp.wq), _proj(h, lp.wk), _proj(h, lp.wv)
+    if hints:
+        q = _hint(cfg, q, "heads")
+        k, v = _hint(cfg, k, "kv"), _hint(cfg, v, "kv")
     if cfg.qk_norm:
         q = L.rms_norm(q, lp.q_norm, cfg.norm_eps)
         k = L.rms_norm(k, lp.k_norm, cfg.norm_eps)
@@ -284,12 +328,14 @@ def _qkv(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
 
 def takes_flash(cfg: TransformerConfig, s: int, *, cache_kv=None,
                 q_offset: int = 0, valid_kv=None) -> bool:
-    """Whether `_attention` over s queries runs on the flash kernel: causal
-    self-attention of the whole sequence from position 0 (no cache, no
-    validity mask, q_offset 0: the kernel's causal mask is top-left
-    aligned with Sq == Sk) within the sliding window if there is one."""
-    return (cache_kv is None and valid_kv is None and q_offset == 0
-            and (cfg.sliding_window is None or s <= cfg.sliding_window))
+    """Whether `_attention` over s queries starting at position q_offset
+    runs on the flash kernel: causal attention over keys from position 0
+    (no cache, no validity mask; the kernel masks k_pos > q_pos + q_offset)
+    within the sliding window if there is one (the last query, at
+    q_offset + s - 1, sees every earlier key)."""
+    return (cache_kv is None and valid_kv is None
+            and (cfg.sliding_window is None
+                 or q_offset + s <= cfg.sliding_window))
 
 
 def _attention(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
@@ -309,28 +355,78 @@ def _attention(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
     k_all, v_all = (k, v) if cache_kv is None else cache_kv
     k_exp = L.repeat_kv(k_all, cfg.q_per_kv)
     v_exp = L.repeat_kv(v_all, cfg.q_per_kv)
-    if takes_flash(cfg, x.shape[1], cache_kv=cache_kv, q_offset=q_offset,
-                   valid_kv=valid_kv):
-        out = flash.mha(q, k_exp, v_exp, causal=True)
+    kw = dict(cache_kv=cache_kv, q_offset=q_offset, valid_kv=valid_kv,
+              kv_block=kv_block)
+    if isinstance(q, DTensor):
+        out = _local_attention(cfg, q, k_exp, v_exp, **kw)
     else:
-        out = L.blockwise_attention(
-            q, k_exp, v_exp, causal=cache_kv is None, q_offset=q_offset,
-            window=cfg.sliding_window, valid_kv=valid_kv, kv_block=kv_block,
-            remat_blocks=cfg.remat_blocks)
-    return _out_proj(out, lp.wo), (k, v)
+        out = _attend(cfg, q, k_exp, v_exp, **kw)
+    return _hint(cfg, _out_proj(out, lp.wo), "tokens3d"), (k, v)
+
+
+def _attend(cfg: TransformerConfig, q, k_exp, v_exp, *, cache_kv, q_offset,
+            valid_kv, kv_block):
+    """Attention of q (B, S, H, hd), its rows at positions q_offset on,
+    over the GQA-expanded k, v (plain tensors): the flash kernel where
+    `takes_flash`, else the plain `blockwise_attention`."""
+    if takes_flash(cfg, q.shape[1], cache_kv=cache_kv, q_offset=q_offset,
+                   valid_kv=valid_kv):
+        return flash.mha(q, k_exp, v_exp, causal=True, q_offset=q_offset)
+    return L.blockwise_attention(
+        q, k_exp, v_exp, causal=cache_kv is None, q_offset=q_offset,
+        window=cfg.sliding_window, valid_kv=valid_kv, kv_block=kv_block,
+        remat_blocks=cfg.remat_blocks)
+
+
+def _local_attention(cfg: TransformerConfig, q: DTensor, k_exp: DTensor,
+                     v_exp: DTensor, **kw) -> DTensor:
+    """`_attend` on each rank's shards of DTensor q (B, S, H, hd) and the
+    expanded k, v: q keeps its layout (a partial sum reduced first), k and
+    v take it too except along the sequence, which they hold whole, so a
+    rank's query heads keep their GQA KV heads and every query row sees
+    its keys. Under context parallelism (q's rows split over a mesh axis)
+    a rank's rows start at an offset, which the flash kernel's causal mask
+    takes (`flash.mha(..., q_offset=)`), so every rank runs the kernel.
+    The result is a DTensor laid out as q."""
+    mesh = q.device_mesh
+    qp = tuple(p if isinstance(p, Shard) and p.dim < 3 else Replicate()
+               for p in q.placements)
+    ctx = [isinstance(p, Shard) and p.dim == 1 for p in qp]
+    kvp = tuple(Replicate() if c else p for c, p in zip(ctx, qp))
+    # a rank's rows reach all keys: their gradient sums over the row split
+    kv_grad = tuple(Partial() if c else p for c, p in zip(ctx, qp))
+    q = q.redistribute(mesh, qp)
+    ql = q.to_local()
+    kl = k_exp.redistribute(mesh, kvp).to_local(grad_placements=kv_grad)
+    vl = v_exp.redistribute(mesh, kvp).to_local(grad_placements=kv_grad)
+    offset = kw.pop("q_offset")
+    coord = mesh.get_coordinate()
+    for i, c in enumerate(ctx):
+        if c:
+            # DTensor's split: ceil(S / n) rows a rank, the last short
+            offset += coord[i] * -(-q.shape[1] // mesh.size(i))
+    out = _attend(cfg, ql, kl, vl, q_offset=offset, **kw)
+    # contiguous: DTensor's views read the global (contiguous) strides
+    return DTensor.from_local(out.contiguous(), mesh, qp, run_check=False,
+                              shape=q.shape, stride=q.stride())
 
 
 def _ffn(cfg: TransformerConfig, lp: Layer, x: torch.Tensor):
     h = L.rms_norm(x, lp.ln_ffn, cfg.norm_eps)
     if cfg.is_moe:
-        return L.moe_ffn(h, lp.router, lp.w_in, lp.w_gate, lp.w_out,
-                         top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                         group_size=cfg.moe_group_size, act=cfg.act)
-    return L.glu_ffn(h, lp.w_in, lp.w_gate, lp.w_out, cfg.act), 0.0
+        y, aux = L.moe_ffn(h, lp.router, lp.w_in, lp.w_gate, lp.w_out,
+                           top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor,
+                           group_size=cfg.moe_group_size, act=cfg.act)
+        return _hint(cfg, y, "tokens3d"), aux
+    y = L.glu_ffn(h, lp.w_in, lp.w_gate, lp.w_out, cfg.act,
+                  hint=functools.partial(_hint, cfg, kind="ffn"))
+    return _hint(cfg, y, "tokens3d"), 0.0
 
 
 def _layer(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
            positions: torch.Tensor, **kw):
+    x = _hint(cfg, x, "tokens3d")
     a, kv = _attention(cfg, lp, x, positions, **kw)
     x = x + a
     f, aux = _ffn(cfg, lp, x)
@@ -339,6 +435,9 @@ def _layer(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
 
 def embed_tokens(cfg: TransformerConfig, params: Transformer,
                  tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' embedding rows in cfg.dtype (plain tokens beside DTensor
+    weights are taken as the same on every rank)."""
+    tokens = L.replicated_as(params.embed, tokens)
     return params.embed[tokens.long()].to(compute_dtype(cfg))
 
 
@@ -383,13 +482,13 @@ def _remat_wrap(cfg: TransformerConfig, fn):
 def _trunk(cfg: TransformerConfig, params: Transformer, tokens: torch.Tensor):
     """The embedded tokens through every layer, each under the remat
     policy: (x (B, S, D) in cfg.dtype, the layers' aux loss summed)."""
-    check_supported(cfg)
     b, s = tokens.shape
     x = embed_tokens(cfg, params, tokens)
-    positions = positions_of(b, s, x.device)
+    positions = L.replicated_as(x, positions_of(b, s, x.device))
+    inv_freq = L.replicated_as(x, params.inv_freq)
 
     def body(lp, x):
-        x2, aux2, _ = _layer(cfg, lp, x, positions, inv_freq=params.inv_freq)
+        x2, aux2, _ = _layer(cfg, lp, x, positions, inv_freq=inv_freq)
         return x2, aux2
 
     body = _remat_wrap(cfg, body)
@@ -404,20 +503,23 @@ def forward(cfg: TransformerConfig, params: Transformer, tokens: torch.Tensor):
     """tokens: (B, S) -> (logits (B, S, V) float32, aux_loss)."""
     x, aux = _trunk(cfg, params, tokens)
     x = L.rms_norm(x, params.ln_final, cfg.norm_eps)
-    logits = x @ params.head().to(x.dtype)
+    logits = _hint(cfg, x @ params.head().to(x.dtype), "logits")
     return logits.float(), aux / cfg.n_layers
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """-log_softmax(logits)[target] a position."""
     logp = torch.log_softmax(logits, dim=-1)
+    targets = L.replicated_as(logp, targets)
     return -logp.gather(-1, targets.long()[..., None])[..., 0]
 
 
 def lm_loss(cfg: TransformerConfig, params: Transformer, tokens: torch.Tensor,
             targets: torch.Tensor, aux_weight: float = 0.01) -> torch.Tensor:
     """Mean next-token NLL of `targets` (B, S) + aux_weight * the MoE aux
-    loss, a float32 scalar. With cfg.loss_chunk, `_lm_loss_chunked`."""
+    loss, a float32 scalar (a DTensor, partial over the batch's ranks, when
+    the weights are DTensors: `.full_tensor()` reduces it). With
+    cfg.loss_chunk, `_lm_loss_chunked`."""
     if not cfg.loss_chunk:
         logits, aux = forward(cfg, params, tokens)
         return _nll(logits, targets).mean() + aux_weight * aux
@@ -445,7 +547,8 @@ def _lm_loss_chunked(cfg: TransformerConfig, params: Transformer,
         targets = torch.nn.functional.pad(targets, (0, pad))
 
     def chunk_nll(xi, ti):
-        return _nll((xi @ head.to(xi.dtype)).float(), ti).sum()
+        return _nll(_hint(cfg, xi @ head.to(xi.dtype), "logits").float(),
+                    ti).sum()
 
     nll = chunk_nll if not torch.is_grad_enabled() else functools.partial(
         checkpoint, chunk_nll, use_reentrant=False)
@@ -486,7 +589,6 @@ def decode_step(cfg: TransformerConfig, params: Transformer, cache: dict,
     reference's clamped update does), then each layer attends over the
     filled slots with the plain `blockwise_attention`; the returned cache
     holds the same tensors and pos + 1."""
-    check_supported(cfg)
     b = token.shape[0]
     c = cache["k"].shape[2]
     pos = int(cache["pos"])
@@ -500,7 +602,7 @@ def decode_step(cfg: TransformerConfig, params: Transformer, cache: dict,
     # construction; position masking is handled by validity
     kv_block = 2048 if cfg.sliding_window is None else min(2048, c)
     for i, lp in enumerate(params.layers):
-        q, k, v = _qkv(cfg, lp, x, positions, params.inv_freq)
+        q, k, v = _qkv(cfg, lp, x, positions, params.inv_freq, hints=False)
         k_l, v_l = cache["k"][i], cache["v"][i]
         k_l[:, slot] = k[:, 0].to(k_l.dtype)
         v_l[:, slot] = v[:, 0].to(v_l.dtype)

@@ -14,6 +14,7 @@ import dataclasses
 from typing import Dict, Mapping, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 Named = Mapping[str, torch.Tensor]
 
@@ -38,6 +39,15 @@ def adamw_init(params: Named) -> Dict:
                 step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def laid_out_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Gradient `g` laid out as its parameter `p`: a DTensor gradient
+    (partial sums over the ranks that split the batch, say) redistributed
+    to `p`'s placements, which reduces it; a plain one as it is."""
+    if isinstance(g, DTensor):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of every element's square, in float32."""
     return torch.stack([torch.linalg.vector_norm(t, dtype=torch.float32)
@@ -50,7 +60,8 @@ def adamw_update(params: Named, grads: Named, state: Dict, lr,
     """One AdamW step at learning rate `lr` (a float or a float32 scalar
     tensor). Writes each parameter and its moments in place and returns
     (params, state) with the step counter advanced."""
-    gnorm = global_norm([grads[n] for n in params])
+    grads = {n: laid_out_as(grads[n], p) for n, p in params.items()}
+    gnorm = global_norm(grads.values())
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state["step"] + 1
     t = step.to(torch.float32)

@@ -1293,7 +1293,7 @@ def test_cuda_flash_attention_bwd_rows_pass(cuda_device, full_fp32_matmul, d,
     err = fa_ops.LIBRARY.load().flash_attention_bwd_rows_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), 3, sq, sk, d, d ** -0.5,
-        int(causal), 1, stream())
+        int(causal), 0, 1, stream())
     assert err == 0
     torch.cuda.synchronize()
     want_lse, want_delta = fa_ref.flash_attention_bwd_rows(q, k, v, do,
@@ -1352,6 +1352,56 @@ def test_cuda_mha_backward_reaches_q_k_v(cuda_device, full_fp32_matmul, dtype,
     want.reshape(b, h, s, d).transpose(1, 2).backward(do)
     for g, t in zip(got, leaves):
         _close_bwd(g, t.grad, dtype)
+
+
+# (Sq, Sk, q_offset) of a rank of a sequence split: an offset of whole
+# 128-row tiles, offsets inside a tile (the diagonal crosses two key
+# tiles), the last rows (offset plus Sq is Sk), and a small offset with
+# keys no row sees
+MHA_OFFSETS = [(256, 1024, 512), (150, 517, 300), (200, 333, 133),
+               (128, 700, 37)]
+
+
+@pytest.mark.parametrize("sq,sk,off", MHA_OFFSETS)
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 96),
+                                     (torch.float32, 64)])
+def test_cuda_mha_at_query_offset(cuda_device, full_fp32_matmul, dtype, d,
+                                  sq, sk, off):
+    """`mha` whose query rows start at q_offset among the keys (context
+    parallelism's ranks past the first), forward and backward on the
+    kernels (the tensor-core ones for bfloat16 at D = 64 and 128, else the
+    CUDA-core ones), against autograd through the plain attention at the
+    same offset on the same tensors: `_close_bwd`'s checks for the output
+    and the three gradients."""
+    rng = np.random.default_rng(sq + off + d)
+    b, h = 2, 4
+    leaves = [torch.from_numpy(rng.normal(size=(b, s, h, d))).to(
+        cuda_device, dtype).requires_grad_() for s in (sq, sk, sk)]
+    do = torch.from_numpy(rng.normal(size=(b, sq, h, d))).to(cuda_device,
+                                                             dtype)
+    before = dict(fa_ops.LAUNCHES)
+    out = fa_ops.mha(*leaves, causal=True, q_offset=off)
+    out.backward(do)
+    torch.cuda.synchronize()
+    wgmma = fa_ops.takes_tensor_cores(dtype, d)
+    assert fa_ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa_ops.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"] + wgmma
+    assert fa_ops.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 3
+    assert fa_ops.LAUNCHES["flash_attention_bwd_wgmma"] == \
+        before["flash_attention_bwd_wgmma"] + 3 * wgmma
+    got = [out.detach()] + [t.grad for t in leaves]
+    for t in leaves:
+        t.grad = None
+    flat = [t.transpose(1, 2).reshape(b * h, -1, d) for t in leaves]
+    want = fa_ref.flash_attention(*flat, causal=True, q_offset=off)
+    want = want.reshape(b, h, sq, d).transpose(1, 2)
+    want.backward(do)
+    for g, w in zip(got, [want.detach()] + [t.grad for t in leaves]):
+        _close_bwd(g, w, dtype)
 
 
 @pytest.mark.parametrize("v,d,b,l", EB_SHAPES)

@@ -66,14 +66,15 @@ def preempt_after(drv, chunks):
 """
 
 
-def run_ranks(tmp_path, n, body):
-    """Run `body` (after PRELUDE) in `n` rank processes of one gloo group;
-    returns each rank's RESULT line, parsed, in rank order."""
+def run_ranks(tmp_path, n, body, prelude=PRELUDE):
+    """Run `body` (after `prelude`, which joins the group) in `n` rank
+    processes of one gloo group; returns each rank's RESULT lines, parsed,
+    in rank order."""
     env = dict(os.environ, PYTHONPATH=SRC, WORLD_SIZE=str(n),
                OMP_NUM_THREADS="1",
                MCE_INIT=f"file://{tmp_path / ('store-' + uuid.uuid4().hex)}")
     env.pop("LOCAL_RANK", None)
-    code = PRELUDE + textwrap.dedent(body) + "\ndist.destroy_process_group()\n"
+    code = prelude + textwrap.dedent(body) + "\ndist.destroy_process_group()\n"
     procs = [subprocess.Popen([sys.executable, "-c", code],
                               env=dict(env, RANK=str(r)), text=True,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE)

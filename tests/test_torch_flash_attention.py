@@ -123,9 +123,9 @@ def test_mha_hands_the_kernel_contiguous_rows(monkeypatch, b):
     seen = []
     real = ops.flash_attention
 
-    def record(q, k, v, *, causal):
+    def record(q, k, v, **kw):
         seen.extend(t.is_contiguous() for t in (q, k, v))
-        return real(q, k, v, causal=causal)
+        return real(q, k, v, **kw)
     monkeypatch.setattr(ops, "flash_attention", record)
     q = torch.randn(b, 16, 3, 8)
     out = ops.mha(q, q, q, causal=True)
@@ -206,6 +206,50 @@ def test_flash_attention_bwd_bf16(causal):
                                    atol=1e-3)
         assert np.linalg.norm(g.float().numpy() - w) / np.linalg.norm(w) \
             < 1e-2
+
+
+# (Sq, Sk, q_offset): rows in the middle of the keys, the last rows (the
+# offset plus Sq is Sk), and a small offset with keys no row sees
+OFFSETS = [(40, 100, 60), (33, 70, 37), (64, 192, 5)]
+
+
+@pytest.mark.parametrize("sq,sk,off", OFFSETS)
+def test_mha_at_query_offset_matches_blockwise(sq, sk, off):
+    """`mha` whose query rows start at q_offset among the keys (a rank of
+    a sequence split) against the reference's `blockwise_attention` at the
+    same offset, forward and the gradients of q, k and v (autograd through
+    the plain backward against `jax.vjp`): float32, rtol = atol = 2e-5.
+    `ref.flash_attention_bwd_rows` at the offset gives the lse of the
+    reference's masked scores."""
+    from repro.models import layers as JL
+    rng = np.random.default_rng(sq + off)
+    b, h, d = 2, 3, 16
+    q, do = (rng.normal(size=(b, sq, h, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.normal(size=(b, sk, h, d)).astype(np.float32)
+            for _ in range(2))
+
+    def blockwise(a, b_, c):
+        return JL.blockwise_attention(a, b_, c, causal=True, q_offset=off,
+                                      kv_block=32)
+    want, vjp = jax.vjp(blockwise, *(jnp.asarray(a) for a in (q, k, v)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = ops.mha(*leaves, causal=True, q_offset=off)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    got.backward(torch.from_numpy(do))
+    for t, w, name in zip(leaves, vjp(jnp.asarray(do)), "qkv"):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   err_msg=f"d{name}", **TOL)
+    flat = [torch.from_numpy(a).transpose(1, 2).reshape(b * h, -1, d)
+            for a in (q, k, v, do)]
+    lse, _ = ref.flash_attention_bwd_rows(*flat, q_offset=off)
+    scores = np.einsum("bqd,bkd->bqk", *(t.numpy() for t in flat[:2])) \
+        / np.sqrt(d)
+    seen = off + np.arange(sq)[:, None] >= np.arange(sk)[None, :]
+    want_lse = jax.nn.logsumexp(np.where(seen, scores, -np.inf), axis=-1)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **TOL)
+    with pytest.raises(ValueError):
+        ops._check(*flat[:3], -1)
 
 
 def test_autograd_takes_the_plain_backward_on_cpu(monkeypatch):

@@ -66,15 +66,19 @@ def _port_sources():
 
 def test_port_imports_neither_jax_nor_the_reference():
     sources = _port_sources()
-    # the training path's and the GNN family's modules are among those
-    # checked
+    # the training path's, the GNN family's, the sharding and launch
+    # tools' modules are among those checked
     for mod in ("optim/adamw.py", "optim/schedule.py", "optim/compress.py",
                 "data/tokens.py", "data/prefetch.py", "checkpoint/store.py",
                 "launch/train.py", "models/gnn.py", "models/gnn_steps.py",
                 "models/equivariant.py", "graph/triplets.py",
                 "graph/sampler.py", "configs/gnn_shapes.py",
                 "configs/meshgraphnet.py", "configs/schnet.py",
-                "configs/dimenet.py", "configs/mace.py"):
+                "configs/dimenet.py", "configs/mace.py",
+                "launch/flops.py", "launch/mesh.py", "launch/cells.py",
+                "sharding/__init__.py", "sharding/spec.py",
+                "sharding/lm.py", "sharding/recsys.py", "sharding/gnn.py",
+                "models/pipeline.py"):
         assert PKG / mod in sources, mod
     bad = [(str(p.relative_to(ROOT)), ln, mod)
            for p in sources for ln, mod in _imports(p)

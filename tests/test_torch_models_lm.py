@@ -300,8 +300,9 @@ def test_forward_matches_reference(arch, dtype):
 @pytest.mark.parametrize("arch", ["qwen3-14b", "mixtral-8x7b"])
 def test_attention_routes_prefill_to_flash(arch, monkeypatch):
     """`_attention` takes `mha` (the flash kernel's entry point) for a
-    causal prompt within the window, `blockwise_attention` past it, and
-    both equal the reference's `_attention` (blockwise) at float32."""
+    causal prompt within the window, also where its rows start at a
+    q_offset, `blockwise_attention` past the window, and both equal the
+    reference's `_attention` (blockwise) at float32."""
     from repro_torch.kernels.flash_attention import ops as flash
     rcfg, params, cfg, model = _models(arch, "float32")
     calls = []
@@ -312,26 +313,26 @@ def test_attention_routes_prefill_to_flash(arch, monkeypatch):
         return real(*a, **k)
     monkeypatch.setattr(flash, "mha", counted)
     lengths = [12, 40] if cfg.sliding_window == 32 else [12, 64]
-    for s in lengths:
+    for s, off in [(n, off) for n in lengths for off in (0, 7)]:
         rng = np.random.default_rng(s)
         x = rng.normal(size=(2, s, cfg.d_model)).astype(np.float32)
         pos = np.broadcast_to(np.arange(s, dtype=np.int32), (2, s))
         lp = jax.tree.map(lambda a: a[0], params["layers"])
         want, (wk, wv) = JT._attention(rcfg, lp, jnp.asarray(x),
-                                       jnp.asarray(pos))
+                                       jnp.asarray(pos), q_offset=off)
         before = len(calls)
         got, (k, v) = T._attention(cfg, model.layers[0], _t(x), _t(pos),
-                                   inv_freq=model.inv_freq)
+                                   q_offset=off, inv_freq=model.inv_freq)
         flash_taken = len(calls) - before
-        assert flash_taken == int(T.takes_flash(cfg, s))
+        assert flash_taken == int(T.takes_flash(cfg, s, q_offset=off))
         assert flash_taken == int(cfg.sliding_window is None
-                                  or s <= cfg.sliding_window)
+                                  or off + s <= cfg.sliding_window)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **BLOCK_TOL)
         np.testing.assert_allclose(k.numpy(), np.asarray(wk), **BLOCK_TOL)
         np.testing.assert_allclose(v.numpy(), np.asarray(wv), **BLOCK_TOL)
     assert calls and all(c[2] == cfg.n_heads for c in calls)
     assert not T.takes_flash(cfg, 4, valid_kv=np.ones(1))
-    assert not T.takes_flash(cfg, 4, q_offset=3)
+    assert T.takes_flash(cfg, 4, q_offset=3)
 
 
 def _ref_prefill(rcfg, params, prompts, total):
@@ -412,16 +413,6 @@ def test_rolling_cache_layout_matches_reference():
     x = np.arange(2 * 45 * 3).reshape(2, 45, 3).astype(np.float32)
     np.testing.assert_array_equal(S._roll_pack(_t(x), 32).numpy(),
                                   np.asarray(JS._roll_pack(jnp.asarray(x), 32)))
-
-
-def test_shard_hints_are_refused():
-    cfg = dataclasses.replace(get_arch("qwen3-14b").build_smoke(),
-                              shard_hints=(("data",), "model", False))
-    with pytest.raises(ValueError, match="sharding slice"):
-        T.init_params(cfg, torch.Generator().manual_seed(0))
-    _, _, base_cfg, model = _models("qwen3-14b", "float32")
-    with pytest.raises(ValueError, match="sharding slice"):
-        T.forward(cfg, model, torch.zeros(1, 4, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)

@@ -311,7 +311,7 @@ def bwd_timing(dev) -> None:
     delta = torch.empty_like(lse)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
-    tail = (bh, s, s, d, 1.0 / math.sqrt(d), 1, 1)
+    tail = (bh, s, s, d, 1.0 / math.sqrt(d), 1, 0, 1)   # causal, offset 0
     passes = {
         "rows": lambda: lib.flash_attention_bwd_rows_sm90(*ptrs, *tail,
                                                           stream()),
