@@ -134,7 +134,16 @@ together) and then, printing one JSON line per phase:
    40 runnable cells of `all_cells()` on meta: the card's allocated bytes
    must not move; (d) the rmce `web_sparse` cell's function on scale 11's
    U = 64 bucket (padded to the cell's 1,024 roots) against
-   `run_bucket`'s counters, launching the row kernels.
+   `run_bucket`'s counters, launching the row kernels;
+14. lint: the port's analyzer (`python -m repro_torch.analysis
+   src/repro_torch --strict`, a process that imports neither torch nor
+   JAX) must find nothing;
+15. dryrun: one cell a family (`qwen3-14b` `decode_32k`, `schnet`
+   `full_graph_sm`, `two-tower-retrieval` `serve_p99`, `rmce`
+   `web_sparse`) through `launch/dryrun.run_cell` on a fake world of 512
+   ranks (2×16×16) in a process of its own, on meta, no card: each must
+   come out `ok`, with its per-rank terms and seconds. Neither phase
+   launches a kernel.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after, and fails if a kernel of that path was not launched
@@ -155,6 +164,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3313,7 +3323,8 @@ def sharding_pipeline(dev, name_power):
 
 def cell_tensors(args):
     """Every tensor of a cell's arguments: a module's parameters, a dict's
-    values (one level of nesting), the tensors themselves."""
+    values (one level of nesting), the tensors themselves (a decode
+    cache's position is the int `decode_step` takes, not a tensor)."""
     out = []
     for a in args:
         if hasattr(a, "parameters"):
@@ -3323,7 +3334,7 @@ def cell_tensors(args):
                 out.extend(v.values() if isinstance(v, dict) else [v])
         else:
             out.append(a)
-    return out
+    return [t for t in out if not isinstance(t, int)]
 
 
 def sharding_cells(dev, mesh, name_power):
@@ -3549,6 +3560,73 @@ def sharding_phase(dev, name_power):
     return bitset, flash
 
 
+def lint_phase(name_power):
+    """The port's analyzer on its own source, under --strict, in a process
+    that must import neither torch nor JAX."""
+    t0 = time.perf_counter()
+    code = ("import json, sys\n"
+            "from repro_torch.analysis.cli import analyze, main\n"
+            "rc = main(['src/repro_torch', '--strict', '--format', 'json'])\n"
+            "heavy = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('torch', 'jax'))\n"
+            "print(json.dumps(dict(rc=rc, heavy=heavy)))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"lint: {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    tail = json.loads(lines[-1])
+    report = json.loads("\n".join(lines[:-1]))
+    check(tail["rc"] == 0 and report["counts"]["active"] == 0,
+          f"lint: findings {report['findings'][:5]}")
+    check(tail["heavy"] == [], f"lint imported {tail['heavy']}")
+    emit(dict(phase="lint", modules=report["modules_checked"],
+              findings=report["counts"]["active"],
+              suppressed=report["counts"]["suppressed"],
+              seconds=time.perf_counter() - t0, name_power=name_power))
+
+
+DRYRUN_CELLS = (("qwen3-14b", "decode_32k"), ("schnet", "full_graph_sm"),
+                ("two-tower-retrieval", "serve_p99"), ("rmce", "web_sparse"))
+
+
+def dryrun_phase(name_power):
+    """One dry-run cell a family on a fake world of 512 ranks, in a process
+    of its own (this one holds a real group): each must come out `ok`."""
+    t0 = time.perf_counter()
+    code = ("import dataclasses, json, time\n"
+            "import torch\n"
+            "from repro_torch.launch import dryrun\n"
+            f"for arch, cell in {DRYRUN_CELLS!r}:\n"
+            "    t = time.perf_counter()\n"
+            "    rec = dryrun.run_cell(arch, cell, True)\n"
+            "    out = {k: v for k, v in dataclasses.asdict(rec).items()\n"
+            "           if k != 'error'}\n"
+            "    out.update(error=(rec.error or '')[-1500:],\n"
+            "               wall=time.perf_counter() - t,\n"
+            "               torch=torch.__version__)\n"
+            "    print(json.dumps(out), flush=True)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"dryrun: {proc.stderr[-2000:]}")
+    recs = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")]
+    check(len(recs) == len(DRYRUN_CELLS), f"dryrun: {len(recs)} records")
+    for rec in recs:
+        check(rec["ok"], f"dryrun {rec['arch']}/{rec['cell']}: "
+                         f"{rec['error']}")
+        emit(dict(phase="dryrun_cell", name_power=name_power, **{
+            k: rec[k] for k in (
+                "arch", "cell", "kind", "mesh", "n_devices", "compile_s",
+                "wall", "flops_per_device", "bytes_per_device",
+                "argument_bytes", "link_bytes_per_device", "model_flops",
+                "flops_ca", "t_compute", "t_memory", "t_collective",
+                "bottleneck", "torch")}))
+    emit(dict(phase="dryrun", cells=len(recs),
+              seconds=time.perf_counter() - t0, name_power=name_power))
+
+
 def device_profile(run_once):
     """Where the time of `run_once()` goes: its wall time with the
     profiler off (after a warm-up) against the device's kernel time
@@ -3703,6 +3781,8 @@ def main() -> int:
     backward, train_launches = train_phase(dev, name_power)
     paths["gnn"] = gnn_phase(dev, name_power)
     paths["sharding"], sharding_launches = sharding_phase(dev, name_power)
+    lint_phase(name_power)
+    dryrun_phase(name_power)
 
     # kernel table: each kernel at the bucket shape the main path launches
     # it most often (the U=64 bucket: most steps and trips), the row

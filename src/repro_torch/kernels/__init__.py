@@ -11,7 +11,11 @@ modules are what callers use:
   segment_spmm    — message-passing aggregation (GNN substrate);
   embedding_bag   — multi-hot gather + bag sum (recsys substrate);
   flash_attention — softmax attention forward (LM substrate).
+
+`shapes_only()` is the scope in which the wrappers also take meta tensors
+to their plain versions (the dry run, `launch/dryrun.py`).
 """
+from repro_torch.kernels._build import shapes_only  # noqa: F401
 from repro_torch.kernels.bitset_ops import ops as bitset_ops  # noqa: F401
 from repro_torch.kernels.common_neighbor import ops as common_neighbor  # noqa: F401,E501
 from repro_torch.kernels.segment_spmm import ops as segment_spmm  # noqa: F401

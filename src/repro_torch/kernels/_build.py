@@ -10,6 +10,7 @@ PyTorch versions.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,7 +19,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 import torch
 
@@ -103,14 +104,35 @@ class Launches(dict):
             self[name] = 0
 
 
+_SHAPES_ONLY = [0]          # depth of `shapes_only()` scopes now open
+
+
+@contextlib.contextmanager
+def shapes_only() -> Iterator[None]:
+    """A scope in which every kernel wrapper also takes meta tensors (on
+    their own or beside CPU tensors) to its plain version, which then
+    computes only shapes: the dry run's path (`launch/dryrun.py`). Outside
+    it, meta tensors raise as any other device does; CUDA tensors launch
+    the kernel inside it and out."""
+    _SHAPES_ONLY[0] += 1
+    try:
+        yield
+    finally:
+        _SHAPES_ONLY[0] -= 1
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """Dispatch rule of every kernel wrapper: True for CPU tensors (the
-    plain version), False for CUDA tensors (the kernel), else raise."""
+    plain version), False for CUDA tensors (the kernel), else raise;
+    inside `shapes_only()`, meta tensors (with or without CPU ones) take
+    the plain version too."""
     devs = {t.device.type for t in tensors}
     if devs == {"cpu"}:
         return True
     if devs == {"cuda"}:
         return False
+    if _SHAPES_ONLY[0] and "meta" in devs and devs <= {"cpu", "meta"}:
+        return True
     raise ValueError(f"kernel ops take CPU or CUDA tensors on one device, "
                      f"got {sorted(devs)}")
 

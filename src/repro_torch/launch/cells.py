@@ -124,9 +124,11 @@ def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh, cfg_map=None
     kv_spec = sh.cache_spec(cfg, batch, c)
     shape = (cfg.n_layers, batch, c, cfg.n_kv_heads, cfg.d_head)
     dt = T.compute_dtype(cfg)
+    # `decode_step` takes the position as an int: the reference's cell
+    # decodes at its `init_cache`'s position, 0 (the work does not depend
+    # on it: the cache length is fixed)
     cache = dict(k=_meta(shape, dt, mesh, kv_spec["k"]),
-                 v=_meta(shape, dt, mesh, kv_spec["v"]),
-                 pos=_meta((), torch.int32, mesh, kv_spec["pos"]))
+                 v=_meta(shape, dt, mesh, kv_spec["v"]), pos=0)
     token = _meta((batch, 1), torch.int32, mesh, tok_spec)
 
     def fn(p, c_, t):

@@ -16,6 +16,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from repro_torch.models.layers import sharded_view
+
 L_MAX = 2
 IRREP_DIMS = [2 * l + 1 for l in range(L_MAX + 1)]       # [1, 3, 5]
 IRREP_OFF = np.concatenate([[0], np.cumsum(IRREP_DIMS)])  # [0,1,4,9]
@@ -81,5 +83,7 @@ def tensor_product(a: torch.Tensor, b: torch.Tensor,
     output); autograd keeps only a and b for the backward (G is a
     constant)."""
     p = a.transpose(-1, -2).unsqueeze(-1) * b.transpose(-1, -2).unsqueeze(-2)
-    out = p.flatten(-2) @ g.reshape(SH_DIM * SH_DIM, SH_DIM).to(p.dtype)
+    # a DTensor's (i, j) may be split unevenly (9 over 2 ranks): gathered
+    p = sharded_view(p, tuple(p.shape[:-2]) + (SH_DIM * SH_DIM,))
+    out = p @ g.reshape(SH_DIM * SH_DIM, SH_DIM).to(p.dtype)
     return out.transpose(-1, -2)

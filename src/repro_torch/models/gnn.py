@@ -30,9 +30,10 @@ from typing import Callable, Dict, List
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models import equivariant as E3
-from repro_torch.models.layers import dense_init, layer_norm
+from repro_torch.models.layers import dense_init, layer_norm, replicated_as
 
 Batch = Dict[str, torch.Tensor]
 
@@ -111,16 +112,73 @@ def _weight(generator: torch.Generator, shape, scale: float = 1.0
 
 def seg_sum(msgs: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Tensor:
     """Σ of the rows of `msgs` into `n` segments by `dst` (int64, in
-    [0, n)): (n, *msgs.shape[1:])."""
+    [0, n)): (n, *msgs.shape[1:]).
+
+    On DTensors (edges split over the data axes) each rank adds its own
+    edges' rows into its own zeros, then an all-reduce over those axes
+    sums them (sharding/gnn.py: the all-reduce is the aggregation
+    boundary), written out here: DTensor's own rule for `index_add` lays
+    the zeros out as the edges (torch 2.11), which no rank can fill."""
+    if isinstance(msgs, DTensor):
+        return _sharded_seg_sum(msgs, replicated_as(msgs, dst), n)
     return msgs.new_zeros((n,) + msgs.shape[1:]).index_add(0, dst, msgs)
+
+
+def _sharded_seg_sum(msgs: DTensor, dst: DTensor, n: int) -> DTensor:
+    mesh = msgs.device_mesh
+    if any(isinstance(p, Partial) for p in msgs.placements):
+        msgs = msgs.redistribute(mesh, [Replicate() if isinstance(
+            p, Partial) else p for p in msgs.placements])
+    edges = [isinstance(p, Shard) and p.dim == 0 for p in msgs.placements]
+    dst_l = dst.redistribute(mesh, [Shard(0) if e else Replicate()
+                                    for e in edges]).to_local()
+    msgs_l = msgs.to_local()
+    out = msgs_l.new_zeros((n,) + msgs_l.shape[1:]).index_add(0, dst_l,
+                                                               msgs_l)
+    shape = (n,) + tuple(msgs.shape[1:])
+    out = DTensor.from_local(
+        out, mesh, [Partial() if e else p for e, p in zip(edges,
+                                                          msgs.placements)],
+        run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+    return out.redistribute(mesh, [Replicate() if e else p for e, p in
+                                   zip(edges, msgs.placements)])
 
 
 def rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x[idx] along dim 0 (idx int64), as `index_select`: its backward is
     `index_add_`, which sums in one order on the CPU, where the backward
     of `x[idx]` (`index_put_` with accumulation) adds with atomics across
-    threads and so differs from run to run in the last bits."""
+    threads and so differs from run to run in the last bits.
+
+    On DTensors each rank gathers its own edges' rows from the whole of x
+    (gathered along dim 0 first), and the rows come out split as the ids
+    are; x's gradient is a partial sum over the axes that split the ids.
+    Written out: torch 2.11's DTensor rule for the backward lays x's
+    gradient out as the ids."""
+    if isinstance(x, DTensor) or isinstance(idx, DTensor):
+        x, idx = replicated_as(idx, x), replicated_as(x, idx)
+        return _sharded_rows(x, idx)
     return x.index_select(0, idx)
+
+
+def _sharded_rows(x: DTensor, idx: DTensor) -> DTensor:
+    mesh = x.device_mesh
+    split = [isinstance(p, Shard) and p.dim == 0 for p in idx.placements]
+    whole = [Replicate() if s or isinstance(p, Partial) or (
+        isinstance(p, Shard) and p.dim == 0) else p
+             for s, p in zip(split, x.placements)]
+    x = x.redistribute(mesh, whole)
+    idx = idx.redistribute(mesh, [Shard(0) if s else Replicate()
+                                  for s in split])
+    out = x.to_local(grad_placements=[Partial() if s else p for s, p in
+                                      zip(split, whole)]).index_select(
+        0, idx.to_local())
+    shape = tuple(idx.shape) + tuple(x.shape[1:])
+    return DTensor.from_local(
+        out, mesh, [Shard(0) if s else p for s, p in zip(split, whole)],
+        run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
 
 
 def _edges(batch: Batch):
@@ -147,7 +205,7 @@ def _linspace(start: float, stop: float, num: int, like: torch.Tensor
 
 def rbf_expand(dist: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tensor:
     """Gaussian radial basis on [0, cutoff] (SchNet-style)."""
-    centers = _linspace(0.0, cutoff, n_rbf, dist)
+    centers = replicated_as(dist, _linspace(0.0, cutoff, n_rbf, dist))
     gamma = n_rbf / cutoff
     return torch.exp(-gamma * torch.square(dist[..., None] - centers))
 
@@ -155,7 +213,7 @@ def rbf_expand(dist: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tensor:
 def bessel_rbf(dist: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tensor:
     """DimeNet spherical Bessel radial basis."""
     d = torch.clamp(dist, 1e-6, cutoff)[..., None]
-    n = torch.arange(1, n_rbf + 1, device=dist.device)
+    n = replicated_as(dist, torch.arange(1, n_rbf + 1, device=dist.device))
     return math.sqrt(2.0 / cutoff) * torch.sin(n * math.pi * d / cutoff) / d
 
 
@@ -443,7 +501,8 @@ def mace_forward(cfg: MACEConfig, params: MACE, batch: Batch):
     Gaunt products of the aggregated A-features (MACE product basis,
     truncated to l ≤ 2)."""
     pos = batch["positions"]
-    g = torch.tensor(E3.gaunt_tensor(), dtype=pos.dtype, device=pos.device)
+    g = replicated_as(pos, torch.tensor(E3.gaunt_tensor(), dtype=pos.dtype,
+                                        device=pos.device))
     n = batch["node_feat"].shape[0]
     src, dst = _edges(batch)
     vec, dist = _edge_vectors(batch, src, dst)

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 
@@ -31,6 +31,56 @@ def replicated_as(ref: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                                   run_check=False)
     return t
+
+
+def sharded_lookup(table: DTensor, ids: DTensor) -> DTensor:
+    """`table[ids]` (rows of a (V, D) DTensor by a DTensor of ids) on each
+    rank's shards: a rank looks its ids up in its own rows, zero where
+    another rank holds the row, so the rows are a partial sum over the
+    axes that split V, reduced and split along D over them (as DTensor's
+    own rule lays them out); they come out split as the ids are. The
+    table's gradient is a partial sum over the axes that split the ids.
+    Written out because torch 2.11's DTensor refuses the index op on ids
+    split over two mesh axes, and its backward (`index_put_`) on ids split
+    over one."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = table.device_mesh
+    vocab = [isinstance(p, Shard) and p.dim == 0 for p in table.placements]
+    batch = [isinstance(p, Shard) and p.dim == 0 and not v
+             for p, v in zip(ids.placements, vocab)]
+    ids = ids.redistribute(mesh, [Shard(0) if b else Replicate()
+                                  for b in batch])
+    if any(isinstance(p, Partial) for p in table.placements):
+        table = table.redistribute(mesh, [Replicate() if isinstance(
+            p, Partial) else p for p in table.placements])
+    rows, off = compute_local_shape_and_global_offset(
+        table.shape, mesh, table.placements)
+    local = table.to_local(grad_placements=[
+        Partial() if b and isinstance(p, Replicate) else p
+        for b, p in zip(batch, table.placements)])
+    i = ids.to_local().long() - off[0]
+    hit = (i >= 0) & (i < rows[0])
+    out = local[i.clamp(0, max(rows[0] - 1, 0))]
+    if any(vocab):
+        out = out * hit[..., None].to(out.dtype)
+    place = []
+    for v, b, p in zip(vocab, batch, table.placements):
+        if v:
+            place.append(Partial())
+        elif b:
+            place.append(Shard(0))
+        elif isinstance(p, Shard):                  # D split: the last dim
+            place.append(Shard(ids.ndim))
+        else:
+            place.append(Replicate())
+    shape = tuple(ids.shape) + tuple(table.shape[1:])
+    out = DTensor.from_local(out, mesh, place, run_check=False, shape=shape,
+                             stride=torch.empty(shape, device="meta").stride())
+    if any(vocab):
+        out = out.redistribute(mesh, [Shard(ids.ndim) if v else p
+                                      for v, p in zip(vocab, place)])
+    return out
 
 
 def _viewable(t: DTensor, shape) -> DTensor:
@@ -255,9 +305,46 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 def ordered_top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values, indices) of the k largest along the last dim, largest
     first and ties to the lower index, as `jax.lax.top_k` (`torch.topk`
-    orders ties arbitrarily)."""
+    orders ties arbitrarily). A DTensor is sorted on each rank's rows
+    (its last dim whole): torch 2.11's backward of a DTensor sort mixes
+    in a plain tensor."""
+    if isinstance(x, DTensor):
+        x, local, place = _row_shards(x)
+        vals, idx = ordered_top_k(local, k)
+        shape = tuple(x.shape[:-1]) + (vals.shape[-1],)
+        stride = torch.empty(shape, device="meta").stride()
+        return tuple(DTensor.from_local(t, x.device_mesh, place,
+                                        run_check=False, shape=shape,
+                                        stride=stride) for t in (vals, idx))
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def _row_shards(x: DTensor):
+    """x laid out with its last dim whole and nothing partial, its local
+    shard (whose gradient is laid out as x), and those placements."""
+    last = x.ndim - 1
+    place = [Replicate() if isinstance(p, Partial) or (
+        isinstance(p, Shard) and p.dim in (last, -1)) else p
+        for p in x.placements]
+    x = x.redistribute(x.device_mesh, place)
+    return x, x.to_local(), place
+
+
+def row_diagonal(x: torch.Tensor) -> torch.Tensor:
+    """The diagonal of a square (B, B) matrix; a DTensor's taken on each
+    rank's rows (torch 2.11 has no DTensor rule for its backward), split
+    as the rows are."""
+    if not isinstance(x, DTensor):
+        return x.diagonal()
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    x, local, place = _row_shards(x)
+    _, off = compute_local_shape_and_global_offset(x.shape, x.device_mesh,
+                                                   place)
+    return DTensor.from_local(local.diagonal(offset=off[0]), x.device_mesh,
+                              place, run_check=False, shape=x.shape[:1],
+                              stride=(1,))
 
 
 def _act(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -285,6 +372,39 @@ def glu_ffn(x: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
     if hint is not None:
         h, g = hint(h), hint(g)
     return (h * _act(g, act)) @ w_out.to(x.dtype)
+
+
+class _Dense(torch.autograd.Function):
+    """A copy of a DTensor in the contiguous layout, its gradient too.
+    DTensor decides a view or a copy from the global strides, which an
+    einsum's permuted output (or its gradient) need not share with the
+    local shard; a fresh copy has the same layout on both."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.clone(memory_format=torch.contiguous_format)
+
+
+def _expert_operand(t: torch.Tensor, like: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """An operand or a product of `moe_ffn`'s expert einsums as DTensor
+    can take it: plain tensors pass as they are, a DTensor is copied
+    densely (`_Dense`). With `like`, it is first laid out as `like`'s
+    groups (split on dim 0 where `like` is, replicated on every other
+    mesh axis): DTensor's own layout for an expert product may split the
+    capacity or the expert dim unevenly (mixtral's 8 experts on a 16-wide
+    axis), which the next einsum's views refuse."""
+    if not isinstance(t, DTensor):
+        return t
+    if like is not None:
+        keep = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                for p in like.placements]
+        t = t.redistribute(t.device_mesh, keep)
+    return _Dense.apply(t)
 
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
@@ -325,9 +445,13 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
                           capacity)                           # (G,T,K,C)
     dispatch = torch.einsum("gtke,gtkc->gtec", keep, pos_onehot)
     combine = torch.einsum("gtke,gtk,gtkc->gtec", keep, gates, pos_onehot)
-    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)
-    hh = torch.einsum("gecd,edf->gecf", xe, w_in.to(x.dtype))
-    gg = _act(torch.einsum("gecd,edf->gecf", xe, w_gate.to(x.dtype)), act)
-    ye = torch.einsum("gecf,efd->gecd", hh * gg, w_out.to(x.dtype))
-    y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye)
+    dense = _expert_operand
+    xe = dense(torch.einsum("gtec,gtd->gecd", dense(dispatch.to(x.dtype)),
+                            dense(xg)))
+    hh = dense(torch.einsum("gecd,edf->gecf", xe, w_in.to(x.dtype)))
+    gg = _act(dense(torch.einsum("gecd,edf->gecf", xe,
+                                 w_gate.to(x.dtype))), act)
+    ye = torch.einsum("gecf,efd->gecd", dense(hh * gg), w_out.to(x.dtype))
+    y = dense(torch.einsum("gtec,gecd->gtd", dense(combine.to(x.dtype), xg),
+                           dense(ye, xg)))
     return sharded_view(y, (b, s, d)), aux

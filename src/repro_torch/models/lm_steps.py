@@ -37,12 +37,13 @@ def make_prefill_step(cfg: T.TransformerConfig):
     def prefill(params: T.Transformer, tokens: torch.Tensor):
         b, s = tokens.shape
         x = T.embed_tokens(cfg, params, tokens)
-        positions = T.positions_of(b, s, x.device)
+        # plain tensors beside a sharded x: replicated DTensors
+        positions = L.replicated_as(x, T.positions_of(b, s, x.device))
+        inv_freq = L.replicated_as(x, params.inv_freq)
         c = T.cache_len(cfg, s)
         ks, vs = [], []
         for lp in params.layers:
-            x, _, (k, v) = T._layer(cfg, lp, x, positions,
-                                    inv_freq=params.inv_freq)
+            x, _, (k, v) = T._layer(cfg, lp, x, positions, inv_freq=inv_freq)
             if c != s:
                 # rolling buffer layout: entry for absolute position p lives
                 # in slot p % c; the last c tokens occupy the buffer
@@ -61,7 +62,11 @@ def _roll_pack(k: torch.Tensor, c: int) -> torch.Tensor:
     """Keep the last c positions, placed at slot (abs_pos % c)."""
     s = k.shape[1]
     tail = k[:, s - c:]
-    return torch.roll(tail, shifts=(s - c) % c, dims=1)
+    # torch.roll as two slices (torch 2.11's DTensor has no rule for roll)
+    shift = (s - c) % c
+    if shift == 0:
+        return tail
+    return torch.cat([tail[:, c - shift:], tail[:, :c - shift]], dim=1)
 
 
 def make_decode_step(cfg: T.TransformerConfig):

@@ -36,7 +36,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.embedding_bag import ops as bag_ops
-from repro_torch.models.layers import dense_init, ordered_top_k, replicated_as
+from repro_torch.models.layers import (dense_init, ordered_top_k,
+                                       replicated_as, row_diagonal)
 from repro_torch.optim import AdamWConfig, apply_gradients
 
 
@@ -262,7 +263,7 @@ def retrieval_loss(cfg: TwoTowerConfig, params: TwoTower,
     u = user_tower(cfg, params, batch)                       # (B, D)
     v = item_tower(cfg, params, batch)                       # (B, D)
     logp = torch.log_softmax((u @ v.T) / cfg.temperature, dim=-1)
-    return -logp.diagonal().mean()
+    return -row_diagonal(logp).mean()
 
 
 def make_train_step(cfg: TwoTowerConfig, opt_cfg=None, lr: float = 1e-3):

@@ -438,6 +438,8 @@ def embed_tokens(cfg: TransformerConfig, params: Transformer,
     """The tokens' embedding rows in cfg.dtype (plain tokens beside DTensor
     weights are taken as the same on every rank)."""
     tokens = L.replicated_as(params.embed, tokens)
+    if isinstance(tokens, DTensor):
+        return L.sharded_lookup(params.embed, tokens).to(compute_dtype(cfg))
     return params.embed[tokens.long()].to(compute_dtype(cfg))
 
 
@@ -594,21 +596,32 @@ def decode_step(cfg: TransformerConfig, params: Transformer, cache: dict,
     pos = int(cache["pos"])
     x = embed_tokens(cfg, params, token)
     dev = x.device
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
+    positions = L.replicated_as(x, torch.full((b, 1), pos, dtype=torch.int32,
+                                              device=dev))
+    inv_freq = L.replicated_as(x, params.inv_freq)
     slot = pos % c if cfg.sliding_window is not None else min(pos, c - 1)
     n_filled = min(pos + 1, c)
-    valid = (torch.arange(c, device=dev) < n_filled)[None, :].expand(b, c)
+    valid = (torch.arange(c, device=dev) < n_filled)[None, :]   # every row
     # rolling buffer: every filled slot is within the window by
     # construction; position masking is handled by validity
     kv_block = 2048 if cfg.sliding_window is None else min(2048, c)
     for i, lp in enumerate(params.layers):
-        q, k, v = _qkv(cfg, lp, x, positions, params.inv_freq, hints=False)
+        q, k, v = _qkv(cfg, lp, x, positions, inv_freq, hints=False)
         k_l, v_l = cache["k"][i], cache["v"][i]
         k_l[:, slot] = k[:, 0].to(k_l.dtype)
         v_l[:, slot] = v[:, 0].to(v_l.dtype)
-        out = L.blockwise_attention(
-            q, L.repeat_kv(k_l, cfg.q_per_kv), L.repeat_kv(v_l, cfg.q_per_kv),
-            causal=False, valid_kv=valid, kv_block=kv_block)
+        k_exp = L.repeat_kv(k_l, cfg.q_per_kv)
+        v_exp = L.repeat_kv(v_l, cfg.q_per_kv)
+        if isinstance(q, DTensor):
+            # each rank's shards, as the forward's (`_local_attention`):
+            # its query rows against the whole cache
+            out = _local_attention(cfg, q, k_exp, v_exp, cache_kv=(k_l, v_l),
+                                   q_offset=0, valid_kv=valid,
+                                   kv_block=kv_block)
+        else:
+            out = L.blockwise_attention(q, k_exp, v_exp, causal=False,
+                                        valid_kv=valid.expand(b, c),
+                                        kv_block=kv_block)
         x = x + _out_proj(out, lp.wo)
         f, _ = _ffn(cfg, lp, x)
         x = x + f

@@ -1,0 +1,3 @@
+class CudaLibrary:
+    def __init__(self, source, signatures):
+        self.source, self.signatures = source, signatures
