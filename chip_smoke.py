@@ -140,10 +140,19 @@ together) and then, printing one JSON line per phase:
    JAX) must find nothing;
 15. dryrun: one cell a family (`qwen3-14b` `decode_32k`, `schnet`
    `full_graph_sm`, `two-tower-retrieval` `serve_p99`, `rmce`
-   `web_sparse`) through `launch/dryrun.run_cell` on a fake world of 512
-   ranks (2×16×16) in a process of its own, on meta, no card: each must
-   come out `ok`, with its per-rank terms and seconds. Neither phase
-   launches a kernel.
+   `web_sparse`) and DimeNet's and MACE's `molecule` through
+   `launch/dryrun.run_cell` on a fake world of 512 ranks (2×16×16), each
+   in a process of its own, all at once, on meta, no card: each must come
+   out `ok`, with its per-rank terms and seconds, and the qwen3-14b and
+   SchNet cells with the sandbox's terms under torch 2.13
+   (`DRYRUN_EXPECT`: matrix-product flops within 1 %, all flops within
+   5 %);
+16. gloo: on 4 gloo ranks on the CPUs, a (2, 2) ("data", "model") mesh,
+   DimeNet's and MACE's smoke steps with edges, triplets and atoms split
+   over "data" against the unsharded step (loss and every gradient at
+   relative norm 1e-5), and 20 qwen3-14b decode steps into a cache laid
+   out by `cache_spec` (slots split over "model") against the plain
+   decode. The last three phases launch no kernel.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after, and fails if a kernel of that path was not launched
@@ -3587,43 +3596,236 @@ def lint_phase(name_power):
 
 
 DRYRUN_CELLS = (("qwen3-14b", "decode_32k"), ("schnet", "full_graph_sm"),
-                ("two-tower-retrieval", "serve_p99"), ("rmce", "web_sparse"))
+                ("two-tower-retrieval", "serve_p99"), ("rmce", "web_sparse"),
+                ("dimenet", "molecule"), ("mace", "molecule"))
+# Per-rank terms on 2x16x16 under torch 2.13 (the CPU sandbox), of
+#   PYTHONPATH=src python -c "from repro_torch.launch import dryrun;
+#   r = dryrun.run_cell(ARCH, CELL, True); print(r.flops_ca,
+#   r.flops_per_device)"
+# (matrix-product flops a rank, all flops a rank): shape arithmetic of the
+# port's layout, which this machine's torch must give too, flops_ca within
+# 1 % and flops_per_device within 5 %.
+DRYRUN_EXPECT = {
+    ("qwen3-14b", "decode_32k"): (32_580_239_360, 39_385_848_836),
+    ("schnet", "full_graph_sm"): (382_787_584, 392_822_978),
+}
+# One dry-run cell in a process of its own: its record as one JSON line
+DRYRUN_CELL = """
+import dataclasses, json, sys, time
+import torch
+from repro_torch.launch import dryrun
+t = time.perf_counter()
+rec = dryrun.run_cell(sys.argv[1], sys.argv[2], True)
+out = {k: v for k, v in dataclasses.asdict(rec).items() if k != "error"}
+out.update(error=(rec.error or "")[-1500:], wall=time.perf_counter() - t,
+           torch=torch.__version__)
+print(json.dumps(out), flush=True)
+"""
 
 
 def dryrun_phase(name_power):
-    """One dry-run cell a family on a fake world of 512 ranks, in a process
-    of its own (this one holds a real group): each must come out `ok`."""
+    """One dry-run cell a family, DimeNet's and MACE's too, on a fake world
+    of 512 ranks, each in a process of its own (a fake world is one a
+    process; this one holds a real group), all at once: each must come out
+    `ok`, and the cells of DRYRUN_EXPECT with the sandbox's terms."""
     t0 = time.perf_counter()
-    code = ("import dataclasses, json, time\n"
-            "import torch\n"
-            "from repro_torch.launch import dryrun\n"
-            f"for arch, cell in {DRYRUN_CELLS!r}:\n"
-            "    t = time.perf_counter()\n"
-            "    rec = dryrun.run_cell(arch, cell, True)\n"
-            "    out = {k: v for k, v in dataclasses.asdict(rec).items()\n"
-            "           if k != 'error'}\n"
-            "    out.update(error=(rec.error or '')[-1500:],\n"
-            "               wall=time.perf_counter() - t,\n"
-            "               torch=torch.__version__)\n"
-            "    print(json.dumps(out), flush=True)\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-                          capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0, f"dryrun: {proc.stderr[-2000:]}")
-    recs = [json.loads(ln) for ln in proc.stdout.splitlines()
-            if ln.startswith("{")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", DRYRUN_CELL, arch, cell],
+                              cwd=ROOT, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for arch, cell in DRYRUN_CELLS]
+    recs = []
+    try:
+        for (arch, cell), p in zip(DRYRUN_CELLS, procs):
+            out, err = p.communicate(timeout=600)
+            check(p.returncode == 0, f"dryrun {arch}/{cell}: {err[-2000:]}")
+            recs += [json.loads(ln) for ln in out.splitlines()
+                     if ln.startswith("{")]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
     check(len(recs) == len(DRYRUN_CELLS), f"dryrun: {len(recs)} records")
     for rec in recs:
-        check(rec["ok"], f"dryrun {rec['arch']}/{rec['cell']}: "
-                         f"{rec['error']}")
+        key = (rec["arch"], rec["cell"])
+        check(rec["ok"], f"dryrun {key}: {rec['error']}")
+        if key in DRYRUN_EXPECT:
+            ca, flops = DRYRUN_EXPECT[key]
+            check(abs(rec["flops_ca"] - ca) <= 0.01 * ca
+                  and abs(rec["flops_per_device"] - flops) <= 0.05 * flops,
+                  f"dryrun {key} under torch {rec['torch']}: flops_ca "
+                  f"{rec['flops_ca']} against {ca}, flops_per_device "
+                  f"{rec['flops_per_device']} against {flops}")
         emit(dict(phase="dryrun_cell", name_power=name_power, **{
             k: rec[k] for k in (
                 "arch", "cell", "kind", "mesh", "n_devices", "compile_s",
                 "wall", "flops_per_device", "bytes_per_device",
                 "argument_bytes", "link_bytes_per_device", "model_flops",
                 "flops_ca", "t_compute", "t_memory", "t_collective",
-                "bottleneck", "torch")}))
+                "bottleneck", "torch")},
+            expect=DRYRUN_EXPECT.get(key)))
     emit(dict(phase="dryrun", cells=len(recs),
+              seconds=time.perf_counter() - t0, name_power=name_power))
+
+
+# One rank of `gloo_phase`: DimeNet and MACE at smoke widths on
+# `batch_molecules(4, 10, 8)` (edges, triplets and atoms split over "data"
+# of a (2, 2) ("data", "model") mesh), their loss and gradients against the
+# port's unsharded step; then qwen3-14b at smoke widths (float32, two
+# layers): a 16-token prefill (its logits and stacked cache), and 20
+# tokens decoded into a 32-slot cache laid out by `cache_spec` (batch over
+# "data", slots over "model": the new tokens cross from one model rank's
+# slots into the other's), against the plain steps.
+GLOO_RANK = """
+import dataclasses, json, os
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=os.environ["GLOO_INIT"],
+                        rank=int(os.environ["RANK"]), world_size=4)
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_arch
+from repro_torch.models import gnn_steps as S
+from repro_torch.models import transformer as T
+from repro_torch.models.lm_steps import make_prefill_step
+from repro_torch.sharding import gnn_sharding, lm_sharding
+from repro_torch.sharding.lm import shard_transformer
+from repro_torch.sharding.spec import P, distribute, shard_parameters
+mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+
+
+def full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def rel(got, want):
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+for arch in ("dimenet", "mace"):
+    cfg = get_arch(arch).build_smoke()
+    batch = S.batch_molecules(4, 10, 8, seed=0,
+                              with_triplets=arch == "dimenet")
+    build = lambda: S.FORWARD[arch][1](cfg, torch.Generator().manual_seed(0), 8)
+    plain = build()
+    want = S.gnn_loss(arch, cfg, plain, {k: torch.from_numpy(v)
+                                         for k, v in batch.items()}, 4)
+    want.backward()
+    model = build()
+    shard_parameters(model, mesh, {n: P() for n, _ in
+                                   model.named_parameters()})
+    meta = dict(n_nodes=batch["node_feat"].shape[0],
+                n_edges=batch["src"].shape[0],
+                n_triplets=batch["trip_kj"].shape[0] if "trip_kj" in batch
+                else 0)
+    sh = gnn_sharding(mesh, meta)
+    bd = {k: distribute(torch.from_numpy(v), mesh, sh.batch_specs[k])
+          for k, v in batch.items()}
+    loss = S.gnn_loss(arch, cfg, model, bd, 4)
+    loss.backward()
+    grads = dict(plain.named_parameters())
+    print(json.dumps(dict(
+        arch=arch, loss=float(full(loss).detach()), want=float(want.detach()),
+        loss_rel=abs(float(full(loss).detach()) - float(want.detach()))
+        / abs(float(want.detach())),
+        grad_rel=max(rel(full(p.grad), grads[n].grad)
+                     for n, p in model.named_parameters()),
+        placements={k: repr(bd[k].placements) for k in ("src", "trip_kj")
+                    if k in bd})), flush=True)
+
+cfg = dataclasses.replace(get_arch("qwen3-14b").build_smoke(),
+                          dtype="float32", n_layers=2)
+build = lambda: T.init_params(cfg, torch.Generator().manual_seed(0),
+                              dtype=torch.float32)
+plain = build()
+sh = lm_sharding(cfg, mesh)
+model = shard_transformer(build(), sh)
+prompt = torch.from_numpy(np.random.default_rng(2).integers(
+    0, cfg.vocab, (2, 16)).astype(np.int32))
+prefill = make_prefill_step(cfg)
+want, cache = prefill(plain, prompt)
+got, dcache = prefill(model, distribute(prompt, mesh, sh.token_spec(2)))
+print(json.dumps(dict(
+    arch="qwen3-14b prefill", prefill_rel=rel(full(got), want),
+    cache_rel=max(rel(full(dcache[n]), cache[n]) for n in ("k", "v")),
+    placements={"cache": repr(dcache["k"].placements)})), flush=True)
+cache = T.init_cache(cfg, 2, 32)
+spec = sh.cache_spec(cfg, 2, 32)
+dcache = {n: distribute(cache[n].clone(), mesh, spec[n]) for n in ("k", "v")}
+dcache["pos"] = 0
+toks = torch.from_numpy(np.random.default_rng(3).integers(
+    0, cfg.vocab, (20, 2, 1)).astype(np.int32))
+worst = 0.0
+with torch.no_grad():
+    for t in toks:
+        want, cache = T.decode_step(cfg, plain, cache, t)
+        got, dcache = T.decode_step(cfg, model, dcache,
+                                    distribute(t, mesh, sh.token_spec(2)))
+        worst = max(worst, rel(full(got), want))
+print(json.dumps(dict(
+    arch="qwen3-14b", decode_rel=worst, pos=dcache["pos"],
+    cache_rel=max(rel(full(dcache[n]), cache[n]) for n in ("k", "v")),
+    placements={"cache": repr(dcache["k"].placements)})), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def gloo_phase(name_power):
+    """The sharded GNN steps and the sharded decode under this machine's
+    torch, on 4 gloo ranks on its CPUs (no card): `GLOO_RANK` in 4
+    processes of one group on a FileStore. Each rank's DimeNet and MACE
+    loss and gradients must match the unsharded step at relative norm
+    1e-5 with the triplets or edges split (`Shard(dim=0)`), and the
+    decode's logits and cache the plain decode's."""
+    import tempfile
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS="1", GLOO_INIT=f"file://{tmp}/store")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", GLOO_RANK], cwd=ROOT, text=True,
+            env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE) for r in range(4)]
+        outs = []
+        try:
+            for r, p in enumerate(procs):
+                out, err = p.communicate(timeout=600)
+                check(p.returncode == 0, f"gloo rank {r}: {err[-3000:]}")
+                outs.append([json.loads(ln) for ln in out.splitlines()
+                             if ln.startswith("{")])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    for r, lines in enumerate(outs):
+        check(len(lines) == 4, f"gloo rank {r}: {len(lines)} results")
+        for ln in lines:
+            if ln["arch"] == "qwen3-14b prefill":
+                check(ln["prefill_rel"] <= 1e-5 and ln["cache_rel"] <= 1e-5,
+                      f"gloo rank {r}: {ln}")
+                continue
+            if ln["arch"] == "qwen3-14b":
+                check(ln["decode_rel"] <= 1e-5 and ln["cache_rel"] <= 1e-5
+                      and ln["pos"] == 20, f"gloo rank {r}: {ln}")
+                check("Shard(dim=1)" in ln["placements"]["cache"]
+                      and "Shard(dim=2)" in ln["placements"]["cache"],
+                      f"gloo rank {r}: cache {ln['placements']}")
+                continue
+            check(ln["loss_rel"] <= 1e-5 and ln["grad_rel"] <= 1e-5,
+                  f"gloo rank {r}: {ln}")
+            for k, p in ln["placements"].items():
+                check("Shard(dim=0)" in p, f"gloo rank {r}: {k} {p}")
+    import torch
+    emit(dict(phase="gloo", ranks=4, mesh="(2, 2) (data, model), gloo",
+              torch=torch.__version__, results=outs[0],
+              worst={k: max(ln[k] for lines in outs for ln in lines
+                            if k in ln)
+                     for k in ("loss_rel", "grad_rel", "prefill_rel",
+                               "decode_rel", "cache_rel")},
               seconds=time.perf_counter() - t0, name_power=name_power))
 
 
@@ -3783,6 +3985,7 @@ def main() -> int:
     paths["sharding"], sharding_launches = sharding_phase(dev, name_power)
     lint_phase(name_power)
     dryrun_phase(name_power)
+    gloo_phase(name_power)
 
     # kernel table: each kernel at the bucket shape the main path launches
     # it most often (the U=64 bucket: most steps and trips), the row

@@ -7,7 +7,8 @@ in the dry run), its arguments meta DTensors, under `StepCost`, a dispatch
 mode that sees each aten op on one rank's local shards. For an op on
 DTensors it steps aside, so DTensor's own dispatch runs first and the mode
 then sees the local ops DTensor issues, its redistributions' collectives
-included. Every term is therefore per rank, as the reference's are per
+included, and none of the ops its sharding propagation runs to find a
+layout. Every term is therefore per rank, as the reference's are per
 device. Costs:
 
   flops        — matrix products, convolutions and attention by torch's own
@@ -33,6 +34,7 @@ shards; that mix matches neither a rank's work nor the whole world's.
 """
 from __future__ import annotations
 
+import sys
 from typing import Any, Dict, Iterable, List
 
 import torch
@@ -90,6 +92,21 @@ def collective_link_bytes(opcode: str, out_bytes: float, g: int) -> float:
     if opcode == "collective-permute":
         return float(out_bytes)
     return 0.0
+
+
+def _in_sharding_propagation() -> bool:
+    """Whether the op being dispatched runs inside DTensor's sharding
+    propagation: for an op it has no rule for, DTensor propagates through
+    the op's decomposition, running the decomposed ops on the rank's
+    local shapes (torch 2.11 does so for `softplus`: exp, gt, log1p,
+    where), once a new (shape, placements). That is no work of the
+    rank's."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_name == "propagate_op_sharding_non_cached":
+            return True
+        f = f.f_back
+    return False
 
 
 def _tensors(tree) -> Iterable[torch.Tensor]:
@@ -169,8 +186,9 @@ class StepCost(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented          # DTensor first; then its local ops
         out = func(*args, **kwargs)
-        if any(issubclass(t, FakeTensor) for t in types):
-            return out                     # DTensor's shape propagation
+        if (any(issubclass(t, FakeTensor) for t in types)
+                or _in_sharding_propagation()):
+            return out                     # DTensor's sharding propagation
         self._count(func, args, kwargs, out)
         return out
 

@@ -16,7 +16,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from repro_torch.models.layers import sharded_view
+from repro_torch.models.layers import row_local
 
 L_MAX = 2
 IRREP_DIMS = [2 * l + 1 for l in range(L_MAX + 1)]       # [1, 3, 5]
@@ -81,9 +81,13 @@ def tensor_product(a: torch.Tensor, b: torch.Tensor,
     channel, (..., C, 81), then one matrix product with G as (81, 9). The
     intermediate holds 81 floats a row and channel (nine times the
     output); autograd keeps only a and b for the backward (G is a
-    constant)."""
+    constant). DTensors a, b (rows on dim 0) take it on each rank's rows
+    (`layers.row_local`)."""
+    return row_local(_tensor_product, (a, b), (g,))
+
+
+def _tensor_product(a, b, g):
     p = a.transpose(-1, -2).unsqueeze(-1) * b.transpose(-1, -2).unsqueeze(-2)
-    # a DTensor's (i, j) may be split unevenly (9 over 2 ranks): gathered
-    p = sharded_view(p, tuple(p.shape[:-2]) + (SH_DIM * SH_DIM,))
+    p = p.reshape(tuple(p.shape[:-2]) + (SH_DIM * SH_DIM,))
     out = p @ g.reshape(SH_DIM * SH_DIM, SH_DIM).to(p.dtype)
     return out.transpose(-1, -2)

@@ -33,7 +33,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models import equivariant as E3
-from repro_torch.models.layers import dense_init, layer_norm, replicated_as
+from repro_torch.models.layers import (dense_init, layer_norm, replicated_as,
+                                       row_local)
 
 Batch = Dict[str, torch.Tensor]
 
@@ -409,10 +410,29 @@ def _bilinear(a: torch.Tensor, w_bilin: torch.Tensor, mk: torch.Tensor
     "tb,bhg,th->tg", in a fixed order: mk @ w_bilin laid out (H, nb·G),
     then the sum over b weighted by a. No intermediate is larger than
     (T, nb, G); contracting a with w_bilin first, as a left-to-right
-    einsum does, would build (T, H, G)."""
+    einsum does, would build (T, H, G). On DTensors, on each rank's
+    triplets (`row_local`)."""
+    return row_local(_bilinear_rows, (a, mk), (w_bilin,))
+
+
+def _bilinear_rows(a, mk, w_bilin):
     nb, h, g = w_bilin.shape
     y = mk @ w_bilin.to(mk.dtype).permute(1, 0, 2).reshape(h, nb * g)
     return torch.bmm(a.unsqueeze(1), y.view(-1, nb, g)).squeeze(1)
+
+
+def _triplet_basis(n_spherical: int):
+    """The rows' function of the triplets' (vkj, vji, rbf_kj): the angle
+    between the two edges in the Chebyshev basis, times the radial basis
+    of kj, flattened (T, n_spherical · n_radial)."""
+    def basis(vkj, vji, rbf_kj):
+        cosang = (vkj * vji).sum(-1) / (
+            torch.linalg.vector_norm(vkj + 1e-12, dim=-1)
+            * torch.linalg.vector_norm(vji + 1e-12, dim=-1))
+        ang = _angular_basis(torch.clamp(cosang, -1, 1), n_spherical)
+        return (ang[:, :, None] * rbf_kj[:, None, :]).reshape(
+            ang.shape[0], -1)
+    return basis
 
 
 def dimenet_forward(cfg: DimeNetConfig, params: DimeNet, batch: Batch):
@@ -428,14 +448,8 @@ def dimenet_forward(cfg: DimeNetConfig, params: DimeNet, batch: Batch):
 
     # triplet angles: for triplet (kj, ji): angle between edge kj and ji
     kj, ji = batch["trip_kj"].long(), batch["trip_ji"].long()
-    vkj = rows(vec, kj)
-    vji = rows(vec, ji)
-    cosang = (vkj * vji).sum(-1) / (
-        torch.linalg.vector_norm(vkj + 1e-12, dim=-1)
-        * torch.linalg.vector_norm(vji + 1e-12, dim=-1))
-    ang = _angular_basis(torch.clamp(cosang, -1, 1), cfg.n_spherical)
-    sbf = (ang[:, :, None] * rows(rbf, kj)[:, None, :]).reshape(
-        ang.shape[0], -1)
+    sbf = row_local(_triplet_basis(cfg.n_spherical),
+                    (rows(vec, kj), rows(vec, ji), rows(rbf, kj)))
     tmask = batch["trip_mask"][:, None]
 
     for blk in params.blocks:
@@ -493,6 +507,38 @@ class MACE(nn.Module):
 mace_init = MACE
 
 
+def _edge_harmonics(vec, dist):
+    """Y(r̂) (E, 9) of the edges' unit vectors."""
+    return E3.real_sph_harm_l2(vec / torch.clamp(dist[:, None], min=1e-9))
+
+
+def _irreps_state(h0):
+    """The reference's state.at[:, 0, :].set(h0) on zeros (N, 9, H), out
+    of place."""
+    return torch.cat([h0[:, None, :], h0.new_zeros(
+        h0.shape[0], E3.SH_DIM - 1, h0.shape[-1])], dim=1)
+
+
+def _mace_message(state_j, sh, r, w_msg, g):
+    """The edges' messages R(r) · (Y(r̂) ⊗ h_j), Gaunt-coupled to l ≤ 2,
+    h_j = state_j @ w_msg: (E, 9, H)."""
+    hj = state_j @ w_msg.to(state_j.dtype)
+    sh_c = sh[:, :, None].expand(hj.shape)
+    return E3.tensor_product(sh_c, hj, g) * r[:, None, :]
+
+
+def _mace_update(state, a, g, w_upd, *w_prod):
+    """state + B @ w_upd, B = Σ_ν w_ν · a^(⊗ν) the product basis
+    (iterated Gaunt products of the aggregated a), node by node."""
+    b = torch.zeros_like(a)
+    prod = a
+    for nu, w in enumerate(w_prod):
+        b = b + prod @ w.to(a.dtype)
+        if nu + 1 < len(w_prod):
+            prod = E3.tensor_product(prod, a, g)
+    return state + b @ w_upd.to(b.dtype)
+
+
 def mace_forward(cfg: MACEConfig, params: MACE, batch: Batch):
     """Equivariant message passing with Gaunt tensor products.
 
@@ -506,30 +552,19 @@ def mace_forward(cfg: MACEConfig, params: MACE, batch: Batch):
     n = batch["node_feat"].shape[0]
     src, dst = _edges(batch)
     vec, dist = _edge_vectors(batch, src, dst)
-    unit = vec / torch.clamp(dist[:, None], min=1e-9)
-    sh = E3.real_sph_harm_l2(unit)                           # (E, 9)
+    sh = row_local(_edge_harmonics, (vec, dist))              # (E, 9)
     rbf = bessel_rbf(dist, cfg.n_rbf, cfg.cutoff)
     fcut = (cosine_cutoff(dist, cfg.cutoff) * batch["edge_mask"])[:, None]
 
     h0 = params.embed(batch["node_feat"])                     # (N, H)
-    # the reference's state.at[:, 0, :].set(h0), out of place
-    state = torch.cat([h0[:, None, :],
-                       h0.new_zeros(n, E3.SH_DIM - 1, h0.shape[-1])], dim=1)
+    state = row_local(_irreps_state, (h0,))                   # (N, 9, H)
 
     for blk in params.blocks:
         r = blk.radial(rbf) * fcut                            # (E, H)
-        # message: R(r) · (Y(r̂) ⊗ h_j), Gaunt-coupled to l≤2
-        hj = rows(state, src) @ blk.w_msg.to(state.dtype)     # (E, 9, H)
-        sh_c = sh[:, :, None].expand(hj.shape)
-        msg = E3.tensor_product(sh_c, hj, g) * r[:, None, :]
+        msg = row_local(_mace_message, (rows(state, src), sh, r),
+                        (blk.w_msg, g))                       # (E, 9, H)
         a = seg_sum(msg, dst, n)                              # (N, 9, H)
-        # product basis: B = Σ_ν w_ν · a^(⊗ν) (iterated Gaunt products)
-        b = torch.zeros_like(a)
-        prod = a
-        for nu, w in enumerate(blk.w_prod):
-            b = b + prod @ w.to(a.dtype)
-            if nu + 1 < len(blk.w_prod):
-                prod = E3.tensor_product(prod, a, g)
-        state = state + b @ blk.w_upd.to(b.dtype)
+        state = row_local(_mace_update, (state, a),
+                          (g, blk.w_upd, *blk.w_prod))
     inv = state[:, 0, :]                                  # invariant slice
     return params.readout(inv)[..., 0] * batch["node_mask"]

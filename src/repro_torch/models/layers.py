@@ -33,6 +33,43 @@ def replicated_as(ref: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def row_local(fn, rows, whole=()):
+    """fn(*rows, *whole) for a function that works on each row (dim 0) of
+    `rows` alone; `whole` (weights, constants) it reads in full.
+
+    On DTensors each rank applies fn to its own rows: every tensor of
+    `rows` laid out with dim 0 split over the axes that split the first
+    one's (nothing else split, nothing partial), `whole` replicated, and
+    the result (one tensor or a tuple) a DTensor split alike. A gradient
+    of `whole` is a partial sum over those axes. Written out: torch 2.11's
+    DTensor labels `torch.stack(..., dim=-1)` of 1-D rows split over an
+    axis as split along dim 1 (DimeNet's angular basis, MACE's
+    harmonics), and the ops after it broadcast mismatched shards. Plain
+    tensors take fn itself."""
+    ref = next((t for t in rows if isinstance(t, DTensor)), None)
+    if ref is None:
+        return fn(*rows, *whole)
+    mesh = ref.device_mesh
+    lead = next((t for t in rows if isinstance(t, DTensor) and any(
+        isinstance(p, Shard) and p.dim == 0 for p in t.placements)), ref)
+    split = [isinstance(p, Shard) and p.dim == 0 for p in lead.placements]
+    place = [Shard(0) if s else Replicate() for s in split]
+    every = [Replicate()] * mesh.ndim
+    grad = [Partial() if s else Replicate() for s in split]
+    local = [replicated_as(ref, t).redistribute(mesh, place).to_local()
+             for t in rows]
+    local += [replicated_as(ref, t).redistribute(mesh, every).to_local(
+        grad_placements=grad) for t in whole]
+    out = fn(*local)
+
+    def wrap(t):
+        shape = (ref.shape[0],) + tuple(t.shape[1:])
+        return DTensor.from_local(
+            t.contiguous(), mesh, place, run_check=False, shape=shape,
+            stride=torch.empty(shape, device="meta").stride())
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
 def sharded_lookup(table: DTensor, ids: DTensor) -> DTensor:
     """`table[ids]` (rows of a (V, D) DTensor by a DTensor of ids) on each
     rank's shards: a rank looks its ids up in its own rows, zero where
@@ -245,6 +282,22 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     checkpoint around each block's step, as the reference's flash-style
     backward).
     """
+    acc, _, l_run = blockwise_partial(
+        q, k, v, causal=causal, q_offset=q_offset, window=window,
+        kv_block=kv_block, valid_kv=valid_kv, remat_blocks=remat_blocks)
+    out = acc / l_run.clamp(min=1e-30)[..., None]
+    return out.to(q.dtype).transpose(1, 2)          # (B, Sq, H, D)
+
+
+def blockwise_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, q_offset: int = 0,
+                      window: Optional[int] = None, kv_block: int = 1024,
+                      valid_kv: Optional[torch.Tensor] = None,
+                      remat_blocks: bool = False):
+    """`blockwise_attention`'s carry after the last KV block, before the
+    division: (acc (B, H, Sq, D), running max (B, H, Sq), running sum
+    (B, H, Sq)), float32. Carries over disjoint sets of keys combine
+    exactly: rescale each by exp(max − the maxima's max), then add."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dev = q.device
@@ -288,8 +341,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc, m_run, l_run = step(acc, m_run, l_run,
                                  kt[:, :, lo:lo + kv_block],
                                  vt[:, :, lo:lo + kv_block], mask)
-    out = acc / l_run.clamp(min=1e-30)[..., None]
-    return out.to(q.dtype).transpose(1, 2)          # (B, Sq, H, D)
+    return acc, m_run, l_run
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -364,14 +416,49 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def glu_ffn(x: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
-            w_out: torch.Tensor, act: str = "silu", hint=None) -> torch.Tensor:
+            w_out: torch.Tensor, act: str = "silu", hint=None,
+            mm=torch.matmul) -> torch.Tensor:
     """(act(x @ w_gate) * (x @ w_in)) @ w_out; `hint` (Megatron-TP: the
-    (B, S, F) products sharded on F) applied to both products."""
-    h = x @ w_in.to(x.dtype)
-    g = x @ w_gate.to(x.dtype)
+    (B, S, F) products sharded on F) applied to both products; `mm` the
+    product (`pinned_matmul` in the decode step)."""
+    h = mm(x, w_in.to(x.dtype))
+    g = mm(x, w_gate.to(x.dtype))
     if hint is not None:
         h, g = hint(h), hint(g)
-    return (h * _act(g, act)) @ w_out.to(x.dtype)
+    return mm(h * _act(g, act), w_out.to(x.dtype))
+
+
+def pinned_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w for x (..., K) and w (K, N), with the layout of the product
+    pinned where either is a DTensor, as the reference's rules lay it out
+    (no gradient: the decode step). Over an axis that splits x's dim 0
+    (the batch), each rank takes its own rows and w whole (gathered, as
+    FSDP does at use); over an axis that splits w along N, the output is
+    split along its last dim; along K, x's columns are split alike and the
+    output is a partial sum; otherwise both are whole. Computed on local
+    shards: DTensor's own strategy for operands that an axis holds whole
+    is a tie between keeping them whole and splitting K, which torch
+    versions break differently. Plain tensors: x @ w."""
+    if not (isinstance(x, DTensor) or isinstance(w, DTensor)):
+        return x @ w
+    x, w = replicated_as(w, x), replicated_as(x, w)
+    mesh = x.device_mesh
+    last = x.ndim - 1
+
+    def axis(p, q):            # (x's, w's, the output's) placement
+        if isinstance(p, Shard) and p.dim == 0:
+            return p, Replicate(), p
+        if isinstance(q, Shard) and q.dim == 1:
+            return Replicate(), q, Shard(last)
+        if isinstance(q, Shard) and q.dim == 0:
+            return Shard(last), q, Partial()
+        return Replicate(), Replicate(), Replicate()
+    xp, wp, op = zip(*map(axis, x.placements, w.placements))
+    out = (x.redistribute(mesh, xp).to_local()
+           @ w.redistribute(mesh, wp).to_local())
+    shape = tuple(x.shape[:-1]) + (w.shape[1],)
+    return DTensor.from_local(out, mesh, op, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 class _Dense(torch.autograd.Function):

@@ -238,18 +238,21 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 # Layer body (shared by forward / prefill / decode)
 # ---------------------------------------------------------------------------
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """'bsd,dhk->bshk': x (B, S, D) by w (D, H, k) in x's type."""
+def _proj(x: torch.Tensor, w: torch.Tensor, mm=torch.matmul
+          ) -> torch.Tensor:
+    """'bsd,dhk->bshk': x (B, S, D) by w (D, H, k) in x's type, the
+    product taken by `mm`."""
     b, s, _ = x.shape
     wf = L.sharded_view(w.to(x.dtype), (w.shape[0], -1))
-    return L.sharded_view(x @ wf, (b, s, *w.shape[1:]))
+    return L.sharded_view(mm(x, wf), (b, s, *w.shape[1:]))
 
 
-def _out_proj(a: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+def _out_proj(a: torch.Tensor, wo: torch.Tensor, mm=torch.matmul
+              ) -> torch.Tensor:
     """'bshk,hkd->bsd'."""
     b, s = a.shape[:2]
     wf = L.sharded_view(wo.to(a.dtype), (-1, wo.shape[-1]))
-    return L.sharded_view(a, (b, s, -1)) @ wf
+    return mm(L.sharded_view(a, (b, s, -1)), wf)
 
 
 def rotary_dims(cfg: TransformerConfig) -> int:
@@ -308,13 +311,13 @@ def _hint(cfg: TransformerConfig, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 def _qkv(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
          positions: torch.Tensor, inv_freq: torch.Tensor,
-         hints: bool = True):
+         hints: bool = True, mm=torch.matmul):
     """Normed, projected, qk-normed and rotated q (B, S, H, hd) and k, v
     (B, S, KV, hd) of x (B, S, D) at `positions` (B, S); with `hints`, q
     pinned by the "heads" hint and k, v by "kv" after the projections, as
     the reference's forward (its decode step pins none)."""
     h = L.rms_norm(x, lp.ln_attn, cfg.norm_eps)
-    q, k, v = _proj(h, lp.wq), _proj(h, lp.wk), _proj(h, lp.wv)
+    q, k, v = (_proj(h, w, mm) for w in (lp.wq, lp.wk, lp.wv))
     if hints:
         q = _hint(cfg, q, "heads")
         k, v = _hint(cfg, k, "kv"), _hint(cfg, v, "kv")
@@ -411,7 +414,8 @@ def _local_attention(cfg: TransformerConfig, q: DTensor, k_exp: DTensor,
                               shape=q.shape, stride=q.stride())
 
 
-def _ffn(cfg: TransformerConfig, lp: Layer, x: torch.Tensor):
+def _ffn(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
+         mm=torch.matmul):
     h = L.rms_norm(x, lp.ln_ffn, cfg.norm_eps)
     if cfg.is_moe:
         y, aux = L.moe_ffn(h, lp.router, lp.w_in, lp.w_gate, lp.w_out,
@@ -420,7 +424,7 @@ def _ffn(cfg: TransformerConfig, lp: Layer, x: torch.Tensor):
                            group_size=cfg.moe_group_size, act=cfg.act)
         return _hint(cfg, y, "tokens3d"), aux
     y = L.glu_ffn(h, lp.w_in, lp.w_gate, lp.w_out, cfg.act,
-                  hint=functools.partial(_hint, cfg, kind="ffn"))
+                  hint=functools.partial(_hint, cfg, kind="ffn"), mm=mm)
     return _hint(cfg, y, "tokens3d"), 0.0
 
 
@@ -579,6 +583,68 @@ def init_cache(cfg: TransformerConfig, batch: int, seq_len: int, dtype=None,
                 v=torch.zeros(shape, dtype=dt, device=device), pos=0)
 
 
+def _decode_cache_layout(cache: dict, ref: torch.Tensor) -> dict:
+    """`cache` as the sharded decode step reads it: k, v DTensors on
+    `ref`'s mesh (a plain cache replicated), the batch (dim 1) and the
+    slots (dim 2) split as the caller laid them out (`sharding.lm.
+    cache_spec`), nothing else split or partial."""
+    k = L.replicated_as(ref, cache["k"])
+    mesh = k.device_mesh
+    place = [p if isinstance(p, Shard) and p.dim in (1, 2) else Replicate()
+             for p in k.placements]
+    return dict(cache, k=k.redistribute(mesh, place),
+                v=L.replicated_as(k, cache["v"]).redistribute(mesh, place))
+
+
+def _decode_attention_sharded(cfg: TransformerConfig, q, k, v, cache: dict,
+                              i: int, slot: int, n_filled: int,
+                              kv_block: int) -> DTensor:
+    """Layer i's decode attention on each rank's shards of the cache
+    (`_decode_cache_layout`), the reference's layout: q (B, 1, H, hd) and
+    the new k, v take the cache's batch split, and a rank attends its
+    query rows over its own slots. The new k, v go into the slot's
+    owner's shard in place. Where the slots are split, each rank's
+    `blockwise_partial` carry is rescaled to the maxima's max and summed
+    over those axes (all-reduces of max and sum). Returns (B, 1, H, hd),
+    split as the cache's batch."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    kc, vc = cache["k"], cache["v"]
+    mesh = kc.device_mesh
+    place = [Shard(0) if isinstance(p, Shard) and p.dim == 1
+             else Replicate() for p in kc.placements]
+    q_l, k_l, v_l = (L.replicated_as(kc, t).redistribute(mesh, place)
+                     .to_local() for t in (q, k, v))
+    local, off = compute_local_shape_and_global_offset(kc.shape, mesh,
+                                                       kc.placements)
+    n_slots, first = local[2], off[2]
+    kc_l, vc_l = kc.to_local()[i], vc.to_local()[i]
+    if first <= slot < first + n_slots:
+        kc_l[:, slot - first] = k_l[:, 0].to(kc_l.dtype)
+        vc_l[:, slot - first] = v_l[:, 0].to(vc_l.dtype)
+    valid = first + torch.arange(n_slots, device=q_l.device) < n_filled
+    acc, m, l = L.blockwise_partial(
+        q_l, L.repeat_kv(kc_l, cfg.q_per_kv), L.repeat_kv(vc_l, cfg.q_per_kv),
+        causal=False, valid_kv=valid[None, :].expand(q_l.shape[0], n_slots),
+        kv_block=kv_block)
+    groups = [mesh.get_group(d) for d, p in enumerate(kc.placements)
+              if isinstance(p, Shard) and p.dim == 2]
+    if groups:
+        top = m
+        for g in groups:
+            top = funcol.all_reduce(top, "max", g)
+        w = torch.exp(m - top)
+        acc, l = acc * w[..., None], l * w
+        for g in groups:
+            acc, l = funcol.all_reduce(acc, "sum", g), funcol.all_reduce(
+                l, "sum", g)
+    out = (acc / l.clamp(min=1e-30)[..., None]).to(q_l.dtype).transpose(1, 2)
+    return DTensor.from_local(
+        out.contiguous(), mesh, place, run_check=False, shape=q.shape,
+        stride=torch.empty(q.shape, device="meta").stride())
+
+
 @torch.no_grad()
 def decode_step(cfg: TransformerConfig, params: Transformer, cache: dict,
                 token: torch.Tensor):
@@ -589,12 +655,17 @@ def decode_step(cfg: TransformerConfig, params: Transformer, cache: dict,
     tensors in place (slot `pos`, or `pos % cache_len` for a rolling SWA
     cache; a full non-rolling cache keeps writing its last slot, as the
     reference's clamped update does), then each layer attends over the
-    filled slots with the plain `blockwise_attention`; the returned cache
+    filled slots with the plain `blockwise_attention` (a sharded step on
+    each rank's shards of the cache, `_decode_attention_sharded`, its
+    weight products by `layers.pinned_matmul`); the returned cache
     holds the same tensors and pos + 1."""
     b = token.shape[0]
     c = cache["k"].shape[2]
     pos = int(cache["pos"])
     x = embed_tokens(cfg, params, token)
+    sharded = isinstance(x, DTensor)
+    if sharded:
+        cache = _decode_cache_layout(cache, x)
     dev = x.device
     positions = L.replicated_as(x, torch.full((b, 1), pos, dtype=torch.int32,
                                               device=dev))
@@ -606,25 +677,23 @@ def decode_step(cfg: TransformerConfig, params: Transformer, cache: dict,
     # construction; position masking is handled by validity
     kv_block = 2048 if cfg.sliding_window is None else min(2048, c)
     for i, lp in enumerate(params.layers):
-        q, k, v = _qkv(cfg, lp, x, positions, inv_freq, hints=False)
-        k_l, v_l = cache["k"][i], cache["v"][i]
-        k_l[:, slot] = k[:, 0].to(k_l.dtype)
-        v_l[:, slot] = v[:, 0].to(v_l.dtype)
-        k_exp = L.repeat_kv(k_l, cfg.q_per_kv)
-        v_exp = L.repeat_kv(v_l, cfg.q_per_kv)
-        if isinstance(q, DTensor):
-            # each rank's shards, as the forward's (`_local_attention`):
-            # its query rows against the whole cache
-            out = _local_attention(cfg, q, k_exp, v_exp, cache_kv=(k_l, v_l),
-                                   q_offset=0, valid_kv=valid,
-                                   kv_block=kv_block)
+        q, k, v = _qkv(cfg, lp, x, positions, inv_freq, hints=False,
+                       mm=L.pinned_matmul)
+        if sharded:
+            out = _decode_attention_sharded(cfg, q, k, v, cache, i, slot,
+                                            n_filled, kv_block)
         else:
+            k_l, v_l = cache["k"][i], cache["v"][i]
+            k_l[:, slot] = k[:, 0].to(k_l.dtype)
+            v_l[:, slot] = v[:, 0].to(v_l.dtype)
+            k_exp = L.repeat_kv(k_l, cfg.q_per_kv)
+            v_exp = L.repeat_kv(v_l, cfg.q_per_kv)
             out = L.blockwise_attention(q, k_exp, v_exp, causal=False,
                                         valid_kv=valid.expand(b, c),
                                         kv_block=kv_block)
-        x = x + _out_proj(out, lp.wo)
-        f, _ = _ffn(cfg, lp, x)
+        x = x + _out_proj(out, lp.wo, L.pinned_matmul)
+        f, _ = _ffn(cfg, lp, x, L.pinned_matmul)
         x = x + f
     x = L.rms_norm(x, params.ln_final, cfg.norm_eps)
-    logits = x @ params.head().to(x.dtype)
+    logits = L.pinned_matmul(x, params.head().to(x.dtype))
     return logits.float(), dict(k=cache["k"], v=cache["v"], pos=pos + 1)

@@ -10,14 +10,18 @@ and the repairs the dry run needed, against the reference.
   on 2×16×16 (the twin of the reference's multi-pod entry point test);
   on 16×16, `qwen3-14b` `decode_32k`, `two-tower-retrieval` `serve_p99`
   and `rmce` `web_sparse` come out `ok` with argument bytes equal to the
-  sum of their local shards, and the counted matrix-product flops agree
-  with MODEL_FLOPS (`launch/flops.py`) within the stated ratios.
+  sum of their local shards, the counted matrix-product flops agree
+  with MODEL_FLOPS (`launch/flops.py`) within the stated ratios, and the
+  decode cell's weight products and attention equal the shape count of
+  the reference's layout within 1 %.
 * The repairs, on 4 gloo ranks ((2, 2) mesh) from the reference's
   float32 weights: a MoE layer of 8 experts at 4 × 64 tokens (where
   DTensor's einsum views failed), the sharded prefill and one decode step
-  (plain positions, frequencies and a validity mask beside DTensors), and
-  SchNet's sharded loss and gradients (its radial basis centres), each
-  against the reference at the sharding tests' tolerances.
+  (plain positions, frequencies and a validity mask beside DTensors), 20
+  decode steps into a cache whose slots are split over "model", and the
+  sharded loss and gradients of SchNet (its radial basis centres),
+  DimeNet, MACE and MeshGraphNet (edges and triplets split over "data"),
+  each against the reference at the sharding tests' tolerances.
 """
 import dataclasses
 import json
@@ -44,6 +48,7 @@ from torch_ranks import GLOO, save_trees
 pytest_plugins = ["torch_jax_executables"]
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
+GNN_ARCHS = ("schnet", "dimenet", "mace", "meshgraphnet")
 KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
          "collective-permute", "broadcast")
 
@@ -181,8 +186,13 @@ for arch, cell in (("qwen3-14b", "decode_32k"),
                      flops=rec.flops_per_device, model=rec.model_flops,
                      link=rec.link_bytes_per_device, pos=pos,
                      bottleneck=rec.bottleneck)
-# the weight products (mm, addmm) of one LM train step, by op
+# the decode cell's products by op: weights (mm) and attention (bmm)
 mesh = make_production_mesh(device="cpu")
+by_op = dryrun._measure(build_cell("qwen3-14b", "decode_32k", mesh),
+                        mesh)["by_op"]
+out["qwen3-14b"]["by_op"] = {k: by_op.get(k, [0, 0])[1]
+                             for k in ("mm", "addmm", "bmm")}
+# the weight products (mm, addmm) of one LM train step, by op
 prog = build_cell("chatglm3-6b", "train_4k", mesh)
 by_op = dryrun._measure(prog, mesh)["by_op"]
 out["chatglm3-6b"] = dict(model=prog.model_flops, mm=sum(
@@ -231,6 +241,32 @@ def test_counted_flops_reconcile_with_model_flops(cells_16x16):
     assert 0.95 <= serve["products"] * 16 / serve["model"] <= 1.05
 
 
+def test_decode_products_follow_the_reference_layout(cells_16x16):
+    """qwen3-14b `decode_32k` on 16×16 (batch 128, a 32,768-slot cache;
+    `cache_spec`: batch over the 16 "data" ranks, slots over the 16
+    "model" ranks): a rank's weight products take its 8 batch rows by
+    every weight gathered over "data" and split over "model" where the
+    rules split it (the GLU's d_ff and the head's vocab; qwen3's 40 heads
+    do not divide 16, so its attention projections stay whole), 2 · 8 ·
+    N_rank flops; its attention takes those rows over its own 2,048
+    slots, 4 · 8 · 2,048 · H · d_head a layer. Both within 1 %: a layout
+    that replicates the batch (16x), gathers the slots (16x) or leaves
+    the GLU whole (4.1x) fails on any torch version."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("qwen3-14b").build()
+    assert cfg.n_heads % 16 and not cfg.is_moe and not cfg.tie_embeddings
+    b, c, tp = 128 // 16, 32768 // 16, 16
+    d, hd = cfg.d_model, cfg.d_head
+    per_layer = (d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
+                 + 3 * d * cfg.d_ff // tp)
+    n_rank = cfg.n_layers * per_layer + d * cfg.vocab // tp
+    got = cells_16x16["qwen3-14b"]["by_op"]
+    weights = got["mm"] + got["addmm"]
+    attention = 4 * b * c * cfg.n_heads * hd * cfg.n_layers
+    assert weights == pytest.approx(2 * b * n_rank, rel=0.01), got
+    assert got["bmm"] == pytest.approx(attention, rel=0.01), got
+
+
 # ---------------------------------------------------------------------------
 # the repairs, on 4 gloo ranks against the reference
 # ---------------------------------------------------------------------------
@@ -264,17 +300,32 @@ def four_rank_repairs(tmp_path_factory):
     trees.update(lm_params=params, lm_toks=toks, lm_next=nxt,
                  lm_prefill=np.asarray(last), lm_decode=np.asarray(dec))
 
-    jcfg = ref_arch("schnet").build_smoke()
-    _, init, _, _ = JS.FORWARD["schnet"]
-    params = init(jcfg, jax.random.PRNGKey(0), 8)
-    batch = S.batch_molecules(4, 10, 8, seed=0)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    loss, grads = jax.value_and_grad(
-        lambda p: JS.gnn_loss("schnet", jcfg, p, jb, 4))(params)
-    trees.update(schnet_params=gnn_named(jax.tree.map(np.asarray, params)),
-                 schnet_batch=batch,
-                 schnet_grads=gnn_named(jax.tree.map(np.asarray, grads)),
-                 schnet_loss=np.asarray(loss))
+    # 20 decode steps from an empty 32-slot cache: the tokens cross from
+    # one "model" rank's slots into the other's when the slots are split
+    dec = jax.jit(JL.make_decode_step(rcfg))
+    cache = JT.init_cache(rcfg, 2, 32)
+    steps = np.random.default_rng(3).integers(
+        0, rcfg.vocab, (20, 2, 1)).astype(np.int32)
+    want = []
+    for t in steps:
+        logits, cache = dec(params, cache, jnp.asarray(t))
+        want.append(np.asarray(logits))
+    trees.update(lm_steps=steps, lm_steps_want=np.stack(want))
+
+    for arch in GNN_ARCHS:
+        jcfg = ref_arch(arch).build_smoke()
+        _, init, _, _ = JS.FORWARD[arch]
+        params = init(jcfg, jax.random.PRNGKey(0), 8)
+        batch = S.batch_molecules(4, 10, 8, seed=0,
+                                  with_triplets=arch == "dimenet")
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        loss, grads = jax.jit(jax.value_and_grad(
+            lambda p: JS.gnn_loss(arch, jcfg, p, jb, 4)))(params)
+        trees.update({
+            f"{arch}_params": gnn_named(jax.tree.map(np.asarray, params)),
+            f"{arch}_batch": batch,
+            f"{arch}_grads": gnn_named(jax.tree.map(np.asarray, grads)),
+            f"{arch}_loss": np.asarray(loss)})
     save_trees(tmp / "in.npz", **trees)
     return run_ranks(tmp, 4, f"""
         import dataclasses
@@ -330,29 +381,49 @@ def four_rank_repairs(tmp_path_factory):
         report(tag="lm", prefill=rel(full(last), z["lm_prefill"]),
                decode=rel(full(dec), z["lm_decode"]), pos=cache["pos"])
 
-        cfg = get_arch("schnet").build_smoke()
-        model = S.FORWARD["schnet"][1](cfg, torch.Generator(), 8)
-        model.load_state_dict({{n: torch.from_numpy(v) for n, v in
-                               load_tree(path, "schnet_params").items()}})
-        shard_parameters(model, mesh,
-                         {{n: P() for n, _ in model.named_parameters()}})
-        batch = load_tree(path, "schnet_batch")
-        sh = gnn_sharding(mesh, dict(n_nodes=batch["node_feat"].shape[0],
-                                     n_edges=batch["src"].shape[0]))
-        bd = {{k: distribute(torch.from_numpy(v), mesh, sh.batch_specs[k])
-              for k, v in batch.items()}}
-        loss = S.gnn_loss("schnet", cfg, model, bd, 4)
-        loss.backward()
-        want = load_tree(path, "schnet_grads")
-        bad = []
-        for n, p in model.named_parameters():
-            g, w = full(p.grad), want[n]
-            scale = float(np.abs(w).max())
-            if not np.allclose(g, w, rtol=1e-4, atol=1e-3 * scale):
-                bad.append(n)
-        report(tag="schnet", loss=float(full(loss)),
-               want_loss=float(z["schnet_loss"]), bad=bad,
-               placements=repr(bd["src"].placements))
+        spec = sh.cache_spec(cfg, 2, 32)
+        cache = {{n: distribute(torch.zeros(
+            (cfg.n_layers, 2, 32, cfg.n_kv_heads, cfg.d_head)), mesh, spec[n])
+            for n in ("k", "v")}}
+        cache["pos"] = 0
+        worst = 0.0
+        with torch.no_grad():
+            for t, want in zip(z["lm_steps"], z["lm_steps_want"]):
+                td = distribute(torch.from_numpy(t), mesh, sh.token_spec(2))
+                dec, cache = T.decode_step(cfg, model, cache, td)
+                worst = max(worst, rel(full(dec), want))
+        report(tag="lm_steps", decode=worst, pos=cache["pos"],
+               placements=repr(cache["k"].placements))
+
+        for arch in {GNN_ARCHS!r}:
+            cfg = get_arch(arch).build_smoke()
+            model = S.FORWARD[arch][1](cfg, torch.Generator(), 8)
+            model.load_state_dict({{n: torch.from_numpy(v) for n, v in
+                                   load_tree(path, arch + "_params").items()}})
+            shard_parameters(model, mesh,
+                             {{n: P() for n, _ in model.named_parameters()}})
+            batch = load_tree(path, arch + "_batch")
+            sh = gnn_sharding(mesh, dict(
+                n_nodes=batch["node_feat"].shape[0],
+                n_edges=batch["src"].shape[0],
+                n_triplets=batch["trip_kj"].shape[0] if "trip_kj" in batch
+                else 0))
+            bd = {{k: distribute(torch.from_numpy(v), mesh, sh.batch_specs[k])
+                  for k, v in batch.items()}}
+            loss = S.gnn_loss(arch, cfg, model, bd, 4)
+            loss.backward()
+            want = load_tree(path, arch + "_grads")
+            bad = []
+            for n, p in model.named_parameters():
+                g, w = full(p.grad), want[n]
+                scale = float(np.abs(w).max())
+                if not np.allclose(g, w, rtol=1e-4, atol=1e-3 * scale):
+                    bad.append(n)
+            report(tag=arch, loss=float(full(loss)),
+                   want_loss=float(z[arch + "_loss"]), bad=bad,
+                   placements={{k: repr(bd[k].placements) for k in (
+                       "src", "dst", "edge_mask", "trip_kj", "trip_ji",
+                       "trip_mask") if k in bd}})
     """, prelude=GLOO)
 
 
@@ -379,12 +450,43 @@ def test_sharded_prefill_and_decode_match_reference(four_rank_repairs):
         assert line["pos"] == 17, line
 
 
-def test_schnet_sharded_loss_and_grads_match_reference(four_rank_repairs):
-    """The edges split over "data", the radial basis' centres replicated
-    beside them: the reference's loss at rtol 1e-5 and its gradients at
-    rtol 1e-4 with atol 1e-3 of each tensor's scale."""
-    for line in _line(four_rank_repairs, "schnet"):
+def test_sharded_decode_on_split_slots_matches_reference(four_rank_repairs):
+    """20 decode steps from an empty 32-slot cache laid out by
+    `cache_spec` (batch over "data", slots over "model"), each rank
+    attending over its own slots and the new tokens written into the
+    slots' owner: every step's logits at relative norm 1e-5 from the
+    reference's."""
+    for line in _line(four_rank_repairs, "lm_steps"):
+        assert line["decode"] <= 1e-5 and line["pos"] == 20, line
+        assert line["placements"] == "(Shard(dim=1), Shard(dim=2))", line
+
+
+def _gnn_matches_reference(ranks, arch):
+    """The reference's loss at rtol 1e-5 and its gradients at rtol 1e-4
+    with atol 1e-3 of each tensor's scale, the edges (and DimeNet's
+    triplets) split over "data"."""
+    for line in _line(ranks, arch):
         assert abs(line["loss"] - line["want_loss"]) <= \
             1e-5 * abs(line["want_loss"]), line
         assert line["bad"] == [], line
-        assert "Shard(dim=0)" in line["placements"], line
+        want = {"src", "dst", "edge_mask"} | (
+            {"trip_kj", "trip_ji", "trip_mask"} if arch == "dimenet" else set())
+        assert set(line["placements"]) == want, line
+        for k, p in line["placements"].items():
+            assert p.startswith("(Shard(dim=0)"), (k, line)
+
+
+def test_schnet_sharded_loss_and_grads_match_reference(four_rank_repairs):
+    """The edges split over "data", the radial basis' centres replicated
+    beside them."""
+    _gnn_matches_reference(four_rank_repairs, "schnet")
+
+
+@pytest.mark.parametrize("arch", ["dimenet", "mace", "meshgraphnet"])
+def test_gnn_sharded_loss_and_grads_match_reference(four_rank_repairs,
+                                                    arch):
+    """DimeNet (triplets split as the edges: its angular basis and
+    bilinear step on each rank's triplets), MACE (its harmonics,
+    messages and product basis on each rank's edges and atoms) and
+    MeshGraphNet, as SchNet."""
+    _gnn_matches_reference(four_rank_repairs, arch)
