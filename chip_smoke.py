@@ -3116,9 +3116,12 @@ def gnn_phase(dev, name_power):
 
 SHARDING = dict(n_layers=2, seq=4096, steps=3, lr=3e-4, pp_microbatches=4,
                 pp_seq=1024)
-# the hint variants of the sharded step: heads over "model" (40 % 1 == 0),
-# then the query rows over "model" (context parallelism)
-SHARD_HINTS = {"heads_tp": (("data",), "model", True),
+# the layouts of the sharded step: the rules' own, no hints (the cells'
+# layout: every weight product pinned, `layers.pinned_matmul`); then the
+# hint variants, heads over "model" (40 % 1 == 0) and the query rows over
+# "model" (context parallelism)
+SHARD_HINTS = {"rules": None,
+               "heads_tp": (("data",), "model", True),
                "ctx": (("data",), "model", False, True)}
 H100_BF16_FLOPS = 989e12      # dense bf16 peak (data sheet, SXM, 700 W)
 FLASH = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd",
@@ -3154,14 +3157,14 @@ class GradientTap:
         self.module.adamw_update = self.real
 
 
-def sharded_lm_steps(dev, cfg, mesh, on_grads, hints=None):
+def sharded_lm_steps(dev, cfg, mesh, on_grads, sharded=False, hints=None):
     """SHARDING's steps of `lm_steps.make_train_step` on qwen3-14b at 2
     layers (float32 master weights from seed 0, bf16 compute, remat), one
-    `train_4k` sequence a step from `data.TokenStream`. With `hints`, the
+    `train_4k` sequence a step from `data.TokenStream`. `sharded`: the
     parameters and the AdamW state laid out by `lm_sharding` on `mesh`
-    and the tokens by its token spec, `shard_hints` on. `on_grads(step,
-    grads)` sees each step's gradients. Returns (losses, seconds a step
-    without the tap's, flash launches a step)."""
+    and the tokens by its token spec, with `shard_hints` = `hints`.
+    `on_grads(step, grads)` sees each step's gradients. Returns (losses,
+    seconds a step without the tap's, flash launches a step)."""
     import dataclasses
     import torch
     from torch.distributed.tensor import DTensor
@@ -3181,7 +3184,7 @@ def sharded_lm_steps(dev, cfg, mesh, on_grads, hints=None):
 
     def batch(i):
         return [torch.from_numpy(a).to(dev) for a in stream.batch(i)]
-    if hints is not None:
+    if sharded:
         sh = lm_sharding(cfg, mesh)
         shard_transformer(model, sh)
         opt = shard_opt_state(opt, sh, cfg.n_layers)
@@ -3245,7 +3248,7 @@ def sharding_train(dev, mesh, name_power):
                 if not torch.equal(g, kept[i][n].to(g.device)):
                     unequal.append((i, n))
         losses, secs, launches = sharded_lm_steps(dev, cfg, mesh, compare,
-                                                  hints)
+                                                  True, hints)
         out[name] = dict(
             shard_hints=repr(hints), losses=losses, step_s=secs,
             mfu=[model_flops / t / H100_BF16_FLOPS for t in secs],
@@ -3537,11 +3540,12 @@ def sharding_ctx_offsets(dev, name_power):
 def sharding_phase(dev, name_power):
     """Sharding and the launch tools on a world of one (`make_host_mesh`:
     this process, NCCL, a FileStore): (a) the sharded qwen3-14b train step
-    under both hint variants against the unsharded one, (b) the pipelined
-    step, (c) every runnable cell built on meta, (d) the rmce cell's
-    function, (e) the flash kernels at context parallelism's query
-    offsets. Returns (the bitset kernels' launches, the flash launches of
-    the measured sharded and pipelined steps)."""
+    in the rules' own layout and under both hint variants against the
+    unsharded one, (b) the pipelined step, (c) every runnable cell built
+    on meta, (d) the rmce cell's function, (e) the flash kernels at
+    context parallelism's query offsets. Returns (the bitset kernels'
+    launches, the flash launches of the measured sharded and pipelined
+    steps)."""
     import torch
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.launch.mesh import make_host_mesh
@@ -3597,7 +3601,8 @@ def lint_phase(name_power):
 
 DRYRUN_CELLS = (("qwen3-14b", "decode_32k"), ("schnet", "full_graph_sm"),
                 ("two-tower-retrieval", "serve_p99"), ("rmce", "web_sparse"),
-                ("dimenet", "molecule"), ("mace", "molecule"))
+                ("dimenet", "molecule"), ("mace", "molecule"),
+                ("chatglm3-6b", "train_4k"), ("chatglm3-6b", "prefill_32k"))
 # Per-rank terms on 2x16x16 under torch 2.13 (the CPU sandbox), of
 #   PYTHONPATH=src python -c "from repro_torch.launch import dryrun;
 #   r = dryrun.run_cell(ARCH, CELL, True); print(r.flops_ca,
@@ -3608,6 +3613,8 @@ DRYRUN_CELLS = (("qwen3-14b", "decode_32k"), ("schnet", "full_graph_sm"),
 DRYRUN_EXPECT = {
     ("qwen3-14b", "decode_32k"): (32_580_239_360, 39_385_848_836),
     ("schnet", "full_graph_sm"): (382_787_584, 392_822_978),
+    ("chatglm3-6b", "train_4k"): (122_148_869_898_240, 122_436_629_737_678),
+    ("chatglm3-6b", "prefill_32k"): (57_784_523_292_672, 58_253_642_841_346),
 }
 # One dry-run cell in a process of its own: its record as one JSON line
 DRYRUN_CELL = """
@@ -3624,10 +3631,12 @@ print(json.dumps(out), flush=True)
 
 
 def dryrun_phase(name_power):
-    """One dry-run cell a family, DimeNet's and MACE's too, on a fake world
-    of 512 ranks, each in a process of its own (a fake world is one a
-    process; this one holds a real group), all at once: each must come out
-    `ok`, and the cells of DRYRUN_EXPECT with the sandbox's terms."""
+    """One dry-run cell a family, DimeNet's and MACE's too, and an LM
+    train and prefill cell (their weight products pinned to the rules'
+    layout), on a fake world of 512 ranks, each in a process of its own
+    (a fake world is one a process; this one holds a real group), all at
+    once: each must come out `ok`, and the cells of DRYRUN_EXPECT with the
+    terms torch 2.13 gives on a CPU (`equal`: to the last digit)."""
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = [subprocess.Popen([sys.executable, "-c", DRYRUN_CELL, arch, cell],
@@ -3664,11 +3673,20 @@ def dryrun_phase(name_power):
                 "argument_bytes", "link_bytes_per_device", "model_flops",
                 "flops_ca", "t_compute", "t_memory", "t_collective",
                 "bottleneck", "torch")},
-            expect=DRYRUN_EXPECT.get(key)))
+            expect=DRYRUN_EXPECT.get(key),
+            equal=DRYRUN_EXPECT.get(key) == (rec["flops_ca"],
+                                             rec["flops_per_device"])))
     emit(dict(phase="dryrun", cells=len(recs),
               seconds=time.perf_counter() - t0, name_power=name_power))
 
 
+# The hint-less sharded LM train steps of `gloo_phase` (the cells' own
+# layout): a dense model, then MoEs with their experts over "model" and
+# with 3 experts, which do not divide it, so d_ff splits (as mixtral's 8
+# on 16); token groups of 16 over "data"
+GLOO_TRAIN = (("chatglm3-6b", {}),
+              ("phi3.5-moe-42b-a6.6b", dict(moe_group_size=16)),
+              ("mixtral-8x7b", dict(n_experts=3, moe_group_size=16)))
 # One rank of `gloo_phase`: DimeNet and MACE at smoke widths on
 # `batch_molecules(4, 10, 8)` (edges, triplets and atoms split over "data"
 # of a (2, 2) ("data", "model") mesh), their loss and gradients against the
@@ -3676,9 +3694,13 @@ def dryrun_phase(name_power):
 # layers): a 16-token prefill (its logits and stacked cache), and 20
 # tokens decoded into a 32-slot cache laid out by `cache_spec` (batch over
 # "data", slots over "model": the new tokens cross from one model rank's
-# slots into the other's), against the plain steps.
+# slots into the other's), against the plain steps; then GLOO_TRAIN's
+# models at smoke widths (float32, two layers, batch 2 of 16 tokens): the
+# loss and every gradient of the sharded step, and the parameters after
+# one `make_train_step`, against the unsharded ones.
 GLOO_RANK = """
 import dataclasses, json, os
+GLOO_TRAIN = %r
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -3768,17 +3790,65 @@ print(json.dumps(dict(
     arch="qwen3-14b", decode_rel=worst, pos=dcache["pos"],
     cache_rel=max(rel(full(dcache[n]), cache[n]) for n in ("k", "v")),
     placements={"cache": repr(dcache["k"].placements)})), flush=True)
+
+from repro_torch.models.lm_steps import make_train_step
+from repro_torch.optim import adamw_init
+from repro_torch.sharding.lm import shard_opt_state
+for arch, changes in GLOO_TRAIN:
+    cfg = dataclasses.replace(get_arch(arch).build_smoke(), dtype="float32",
+                              n_layers=2, **changes)
+    build = lambda: T.init_params(cfg, torch.Generator().manual_seed(0),
+                                  dtype=torch.float32)
+    plain = build()
+    sh = lm_sharding(cfg, mesh)
+    model = shard_transformer(build(), sh)
+    toks, tgts = (torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (2, 16)).astype(np.int32)) for seed in (4, 5))
+    dtoks, dtgts = (distribute(t, mesh, sh.token_spec(2))
+                    for t in (toks, tgts))
+    want = T.lm_loss(cfg, plain, toks, tgts)
+    want.backward()
+    loss = T.lm_loss(cfg, model, dtoks, dtgts)
+    loss.backward()
+    grads = dict(plain.named_parameters())
+    worst = max((rel(full(p.grad), grads[n].grad), n)
+                for n, p in model.named_parameters())
+    # the embedding's and the norms' gradients stay partial sums until
+    # AdamW lays them out (`optim.adamw.laid_out_as`)
+    loose = ("embed", "ln_final") + T.NORM_WEIGHTS
+    not_laid_out = [n for n, p in model.named_parameters()
+                    if p.grad.placements != p.placements
+                    and n.split(".")[-1] not in loose]
+    step = make_train_step(cfg)
+    plain, _, _ = step(plain, adamw_init(dict(plain.named_parameters())),
+                       toks, tgts)
+    model, _, _ = step(model, shard_opt_state(adamw_init(dict(
+        model.named_parameters())), sh, cfg.n_layers), dtoks, dtgts)
+    params = dict(plain.named_parameters())
+    print(json.dumps(dict(
+        arch=f"{arch} train", changes=changes,
+        loss_rel=abs(float(full(loss).detach()) - float(want.detach()))
+        / abs(float(want.detach())), grad_rel=worst[0], worst_grad=worst[1],
+        not_laid_out=not_laid_out,
+        step_rel=max(rel(full(p).detach(), params[n].detach())
+                     for n, p in model.named_parameters()),
+        placements={n: repr(p.placements) for n, p in
+                    model.named_parameters() if n.startswith("layers.0.w")})),
+        flush=True)
 dist.destroy_process_group()
 """
 
 
 def gloo_phase(name_power):
-    """The sharded GNN steps and the sharded decode under this machine's
-    torch, on 4 gloo ranks on its CPUs (no card): `GLOO_RANK` in 4
-    processes of one group on a FileStore. Each rank's DimeNet and MACE
-    loss and gradients must match the unsharded step at relative norm
-    1e-5 with the triplets or edges split (`Shard(dim=0)`), and the
-    decode's logits and cache the plain decode's."""
+    """The sharded GNN steps, the sharded decode and the hint-less sharded
+    LM train steps under this machine's torch, on 4 gloo ranks on its
+    CPUs (no card): `GLOO_RANK` in 4 processes of one group on a
+    FileStore. Each rank's DimeNet and MACE loss and gradients must match
+    the unsharded step at relative norm 1e-5 with the triplets or edges
+    split (`Shard(dim=0)`), the decode's logits and cache the plain
+    decode's, and each LM train step's loss and updated parameters the
+    unsharded step's at 1e-5, its gradients at 5e-4 (each matrix's laid
+    out as its parameter)."""
     import tempfile
     t0 = time.perf_counter()
     (ROOT / "build").mkdir(exist_ok=True)
@@ -3786,8 +3856,8 @@ def gloo_phase(name_power):
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                    OMP_NUM_THREADS="1", GLOO_INIT=f"file://{tmp}/store")
         procs = [subprocess.Popen(
-            [sys.executable, "-c", GLOO_RANK], cwd=ROOT, text=True,
-            env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+            [sys.executable, "-c", GLOO_RANK % (GLOO_TRAIN,)], cwd=ROOT,
+            text=True, env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
             stderr=subprocess.PIPE) for r in range(4)]
         outs = []
         try:
@@ -3802,8 +3872,19 @@ def gloo_phase(name_power):
                     p.kill()
                     p.communicate()
     for r, lines in enumerate(outs):
-        check(len(lines) == 4, f"gloo rank {r}: {len(lines)} results")
+        check(len(lines) == 4 + len(GLOO_TRAIN),
+              f"gloo rank {r}: {len(lines)} results")
         for ln in lines:
+            if ln["arch"].endswith(" train"):
+                # gradients: tests/test_torch_train_lm.py's relative norm
+                # (a norm weight's sum over the tokens, added in another
+                # order, reads 1.2e-5)
+                check(ln["loss_rel"] <= 1e-5 and ln["grad_rel"] <= 5e-4
+                      and ln["step_rel"] <= 1e-5 and not ln["not_laid_out"],
+                      f"gloo rank {r}: {ln}")
+                check(any("Shard" in p for p in ln["placements"].values()),
+                      f"gloo rank {r}: {ln['placements']}")
+                continue
             if ln["arch"] == "qwen3-14b prefill":
                 check(ln["prefill_rel"] <= 1e-5 and ln["cache_rel"] <= 1e-5,
                       f"gloo rank {r}: {ln}")
@@ -3825,7 +3906,7 @@ def gloo_phase(name_power):
               worst={k: max(ln[k] for lines in outs for ln in lines
                             if k in ln)
                      for k in ("loss_rel", "grad_rel", "prefill_rel",
-                               "decode_rel", "cache_rel")},
+                               "decode_rel", "cache_rel", "step_rel")},
               seconds=time.perf_counter() - t0, name_power=name_power))
 
 

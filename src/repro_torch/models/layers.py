@@ -33,6 +33,23 @@ def replicated_as(ref: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _local(t: DTensor, place, grad) -> torch.Tensor:
+    """t's local shard once laid out as `place`; its gradient, the local
+    shard of a DTensor laid out as `grad`, which DTensor then reduces to
+    t's own layout (a partial sum onto a Shard: a reduce-scatter)."""
+    return t.redistribute(t.device_mesh, place).to_local(
+        grad_placements=grad)
+
+
+def _from_local(t: torch.Tensor, mesh, place, shape) -> DTensor:
+    """The DTensor of global `shape` (contiguous) whose local shard on
+    each rank is `t`, laid out as `place`."""
+    shape = tuple(shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(t, mesh, place, run_check=False, shape=shape,
+                              stride=stride)
+
+
 def row_local(fn, rows, whole=()):
     """fn(*rows, *whole) for a function that works on each row (dim 0) of
     `rows` alone; `whole` (weights, constants) it reads in full.
@@ -63,10 +80,8 @@ def row_local(fn, rows, whole=()):
     out = fn(*local)
 
     def wrap(t):
-        shape = (ref.shape[0],) + tuple(t.shape[1:])
-        return DTensor.from_local(
-            t.contiguous(), mesh, place, run_check=False, shape=shape,
-            stride=torch.empty(shape, device="meta").stride())
+        return _from_local(t.contiguous(), mesh, place,
+                           (ref.shape[0],) + tuple(t.shape[1:]))
     return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
 
 
@@ -111,9 +126,8 @@ def sharded_lookup(table: DTensor, ids: DTensor) -> DTensor:
             place.append(Shard(ids.ndim))
         else:
             place.append(Replicate())
-    shape = tuple(ids.shape) + tuple(table.shape[1:])
-    out = DTensor.from_local(out, mesh, place, run_check=False, shape=shape,
-                             stride=torch.empty(shape, device="meta").stride())
+    out = _from_local(out, mesh, place,
+                      tuple(ids.shape) + tuple(table.shape[1:]))
     if any(vocab):
         out = out.redistribute(mesh, [Shard(ids.ndim) if v else p
                                       for v, p in zip(vocab, place)])
@@ -364,10 +378,8 @@ def ordered_top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         x, local, place = _row_shards(x)
         vals, idx = ordered_top_k(local, k)
         shape = tuple(x.shape[:-1]) + (vals.shape[-1],)
-        stride = torch.empty(shape, device="meta").stride()
-        return tuple(DTensor.from_local(t, x.device_mesh, place,
-                                        run_check=False, shape=shape,
-                                        stride=stride) for t in (vals, idx))
+        return tuple(_from_local(t, x.device_mesh, place, shape)
+                     for t in (vals, idx))
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
 
@@ -416,82 +428,56 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def glu_ffn(x: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
-            w_out: torch.Tensor, act: str = "silu", hint=None,
-            mm=torch.matmul) -> torch.Tensor:
-    """(act(x @ w_gate) * (x @ w_in)) @ w_out; `hint` (Megatron-TP: the
-    (B, S, F) products sharded on F) applied to both products; `mm` the
-    product (`pinned_matmul` in the decode step)."""
-    h = mm(x, w_in.to(x.dtype))
-    g = mm(x, w_gate.to(x.dtype))
+            w_out: torch.Tensor, act: str = "silu", hint=None
+            ) -> torch.Tensor:
+    """(act(x @ w_gate) * (x @ w_in)) @ w_out, each product by
+    `pinned_matmul`; `hint` (Megatron-TP: the (B, S, F) products sharded
+    on F) applied to both products."""
+    h = pinned_matmul(x, w_in.to(x.dtype))
+    g = pinned_matmul(x, w_gate.to(x.dtype))
     if hint is not None:
         h, g = hint(h), hint(g)
-    return mm(h * _act(g, act), w_out.to(x.dtype))
+    return pinned_matmul(h * _act(g, act), w_out.to(x.dtype))
 
 
 def pinned_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w for x (..., K) and w (K, N), with the layout of the product
-    pinned where either is a DTensor, as the reference's rules lay it out
-    (no gradient: the decode step). Over an axis that splits x's dim 0
-    (the batch), each rank takes its own rows and w whole (gathered, as
-    FSDP does at use); over an axis that splits w along N, the output is
-    split along its last dim; along K, x's columns are split alike and the
-    output is a partial sum; otherwise both are whole. Computed on local
-    shards: DTensor's own strategy for operands that an axis holds whole
-    is a tie between keeping them whole and splitting K, which torch
-    versions break differently. Plain tensors: x @ w."""
+    pinned where either is a DTensor, as the reference's rules lay it out.
+    Over an axis that splits x's dim 0 (the batch), each rank takes its
+    own rows and w whole (gathered, as FSDP does at use); over an axis that
+    splits w along N, the output is split along its last dim; along K,
+    x's columns are split alike and the output is a partial sum;
+    otherwise both are whole. Computed on local shards: DTensor's own
+    strategy for operands that an axis holds whole is a tie between
+    keeping them whole and splitting K, which torch versions break
+    differently.
+
+    The backward is the local one, each local gradient labelled with its
+    layout: dx = dy · wᵀ on x's rows, a partial sum over the axes that
+    split N (each rank holds some of w's columns), split along K where K
+    is; dw = xᵀ · dy, a partial sum over the axes that split the batch,
+    split as w where w is split. DTensor reduces each to its operand's
+    own layout: dw onto w's FSDP shards by a reduce-scatter (never the
+    local chunk of an unreduced sum), dx by an all-reduce or a
+    reduce-scatter. Plain tensors: x @ w."""
     if not (isinstance(x, DTensor) or isinstance(w, DTensor)):
         return x @ w
     x, w = replicated_as(w, x), replicated_as(x, w)
-    mesh = x.device_mesh
     last = x.ndim - 1
 
-    def axis(p, q):            # (x's, w's, the output's) placement
+    def axis(p, q):
+        # x's, w's and the output's placement; x's and w's gradient's
         if isinstance(p, Shard) and p.dim == 0:
-            return p, Replicate(), p
+            return p, Replicate(), p, p, Partial()
         if isinstance(q, Shard) and q.dim == 1:
-            return Replicate(), q, Shard(last)
+            return Replicate(), q, Shard(last), Partial(), q
         if isinstance(q, Shard) and q.dim == 0:
-            return Shard(last), q, Partial()
-        return Replicate(), Replicate(), Replicate()
-    xp, wp, op = zip(*map(axis, x.placements, w.placements))
-    out = (x.redistribute(mesh, xp).to_local()
-           @ w.redistribute(mesh, wp).to_local())
-    shape = tuple(x.shape[:-1]) + (w.shape[1],)
-    return DTensor.from_local(out, mesh, op, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride())
-
-
-class _Dense(torch.autograd.Function):
-    """A copy of a DTensor in the contiguous layout, its gradient too.
-    DTensor decides a view or a copy from the global strides, which an
-    einsum's permuted output (or its gradient) need not share with the
-    local shard; a fresh copy has the same layout on both."""
-
-    @staticmethod
-    def forward(ctx, t):
-        return t.clone(memory_format=torch.contiguous_format)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.clone(memory_format=torch.contiguous_format)
-
-
-def _expert_operand(t: torch.Tensor, like: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
-    """An operand or a product of `moe_ffn`'s expert einsums as DTensor
-    can take it: plain tensors pass as they are, a DTensor is copied
-    densely (`_Dense`). With `like`, it is first laid out as `like`'s
-    groups (split on dim 0 where `like` is, replicated on every other
-    mesh axis): DTensor's own layout for an expert product may split the
-    capacity or the expert dim unevenly (mixtral's 8 experts on a 16-wide
-    axis), which the next einsum's views refuse."""
-    if not isinstance(t, DTensor):
-        return t
-    if like is not None:
-        keep = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
-                for p in like.placements]
-        t = t.redistribute(t.device_mesh, keep)
-    return _Dense.apply(t)
+            return Shard(last), q, Partial(), Shard(last), q
+        return (Replicate(),) * 5
+    xp, wp, op, xg, wg = zip(*map(axis, x.placements, w.placements))
+    out = _local(x, xp, xg) @ _local(w, wp, wg)
+    return _from_local(out, x.device_mesh, op,
+                       tuple(x.shape[:-1]) + (w.shape[1],))
 
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
@@ -512,18 +498,27 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
     g = max(t // group_size, 1)
     gs = t // g
     xg = sharded_view(x, (g, gs, d))
-    logits = torch.einsum("gtd,de->gte", xg, router_w.to(x.dtype)).float()
+    logits = pinned_matmul(xg, router_w.to(x.dtype)).float()
+    capacity = int(np.ceil(gs * top_k * capacity_factor / e))
+    dispatch, combine, aux = row_local(functools.partial(
+        _route, top_k=top_k, capacity=capacity), [logits])
+    y = _experts(dispatch.to(x.dtype), combine.to(x.dtype), xg,
+                 *(w.to(x.dtype) for w in (w_in, w_gate, w_out)), act)
+    return sharded_view(y, (b, s, d)), aux.mean() * e
+
+
+def _route(logits: torch.Tensor, *, top_k: int, capacity: int):
+    """The routing of token groups by their router logits (G, T, E),
+    float32: (dispatch (G, T, E, C), combine (G, T, E, C), each group's
+    load-balance term (G,)), C the experts' capacity."""
+    g, gs, e = logits.shape
     probs = torch.softmax(logits, dim=-1)
     # aux load-balance loss (Switch): E * mean(fraction) . mean(prob)
     me = probs.mean(dim=1)                                    # (G, E)
     gates, top_idx = ordered_top_k(probs, top_k)              # (G, T, K)
     onehot = _one_hot(top_idx, e)                             # (G, T, K, E)
     ce = onehot.sum(dim=2).mean(dim=1)                        # (G, E)
-    aux = (me * ce).sum(dim=-1).mean() * e
-
     gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
-
-    capacity = int(np.ceil(gs * top_k * capacity_factor / e))
     # position of each (token, k) within its expert queue
     flat = onehot.reshape(g, gs * top_k, e)
     pos = (flat.cumsum(dim=1) - flat).reshape(g, gs, top_k, e)
@@ -532,13 +527,51 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_in: torch.Tensor,
                           capacity)                           # (G,T,K,C)
     dispatch = torch.einsum("gtke,gtkc->gtec", keep, pos_onehot)
     combine = torch.einsum("gtke,gtk,gtkc->gtec", keep, gates, pos_onehot)
-    dense = _expert_operand
-    xe = dense(torch.einsum("gtec,gtd->gecd", dense(dispatch.to(x.dtype)),
-                            dense(xg)))
-    hh = dense(torch.einsum("gecd,edf->gecf", xe, w_in.to(x.dtype)))
-    gg = _act(dense(torch.einsum("gecd,edf->gecf", xe,
-                                 w_gate.to(x.dtype))), act)
-    ye = torch.einsum("gecf,efd->gecd", dense(hh * gg), w_out.to(x.dtype))
-    y = dense(torch.einsum("gtec,gecd->gtd", dense(combine.to(x.dtype), xg),
-                           dense(ye, xg)))
-    return sharded_view(y, (b, s, d)), aux
+    return dispatch, combine, (me * ce).sum(dim=-1)
+
+
+def _expert_products(dispatch, combine, xg, w_in, w_gate, w_out, act):
+    """The experts on token groups: dispatch, the GLU of each expert,
+    combine (all plain tensors, in one type)."""
+    xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)
+    hh = torch.einsum("gecd,edf->gecf", xe, w_in)
+    gg = _act(torch.einsum("gecd,edf->gecf", xe, w_gate), act)
+    ye = torch.einsum("gecf,efd->gecd", hh * gg, w_out)
+    return torch.einsum("gtec,gecd->gtd", combine, ye)
+
+
+def _experts(dispatch, combine, xg, w_in, w_gate, w_out, act):
+    """`_expert_products`, on DTensors with each mesh axis in one of the
+    reference's layouts (`sharding.lm`): an axis that splits the token
+    groups (dim 0 of xg) gives each rank its own groups and the expert
+    weights gathered (FSDP); one that splits the experts (dim 0 of w_in:
+    expert parallelism) gives each rank its experts' slice of dispatch
+    and combine, the groups whole; one that splits d_ff (dim 2 of w_in:
+    per-expert tensor parallelism) gives each rank its columns of every
+    expert. Over the last two the output (G, T, D) is a partial sum.
+    Computed on local shards with every gradient's layout stated, as
+    `pinned_matmul`."""
+    if not isinstance(xg, DTensor):
+        return _expert_products(dispatch, combine, xg, w_in, w_gate, w_out,
+                                act)
+    rep, part = Replicate(), Partial()
+    lay = []
+    for p, q in zip(xg.placements, w_in.placements):
+        # placements of the routing, xg, w_in and w_gate, w_out, the
+        # output; then of the routing's, xg's and the weights' gradients
+        if isinstance(p, Shard) and p.dim == 0:       # the token groups
+            lay.append((p, p, rep, rep, p, p, p, part, part))
+        elif isinstance(q, Shard) and q.dim == 0:     # the experts
+            s2 = Shard(2)
+            lay.append((s2, rep, q, q, part, s2, part, q, q))
+        elif isinstance(q, Shard) and q.dim == 2:     # d_ff
+            s1 = Shard(1)
+            lay.append((rep, rep, q, s1, part, part, part, q, s1))
+        else:
+            lay.append((rep,) * 9)
+    route, xp, wp, wop, out, g_route, g_x, g_w, g_wo = zip(*lay)
+    y = _expert_products(
+        _local(dispatch, route, g_route), _local(combine, route, g_route),
+        _local(xg, xp, g_x), _local(w_in, wp, g_w), _local(w_gate, wp, g_w),
+        _local(w_out, wop, g_wo), act)
+    return _from_local(y, xg.device_mesh, out, xg.shape)

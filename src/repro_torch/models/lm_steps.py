@@ -51,7 +51,7 @@ def make_prefill_step(cfg: T.TransformerConfig):
             ks.append(k)
             vs.append(v)
         x = L.rms_norm(x[:, -1], params.ln_final, cfg.norm_eps)
-        logits = x @ params.head().to(x.dtype)
+        logits = L.pinned_matmul(x, params.head().to(x.dtype))
         return logits.float(), dict(k=torch.stack(ks), v=torch.stack(vs),
                                     pos=s)
 

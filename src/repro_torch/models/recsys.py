@@ -37,7 +37,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.models.layers import (dense_init, ordered_top_k,
-                                       replicated_as, row_diagonal)
+                                       replicated_as, row_diagonal,
+                                       row_local)
 from repro_torch.optim import AdamWConfig, apply_gradients
 
 
@@ -204,8 +205,15 @@ def _mlp_params(generator: torch.Generator, dims) -> MLP:
 
 
 def _mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    n = len(p.w)
-    for i, (w, b) in enumerate(zip(p.w, p.b)):
+    """The tower MLP on x's rows; a DTensor's on each rank's rows, the
+    weights whole (`layers.row_local`: their gradients partial sums over
+    the batch's axes, all-reduced), as the reference lays it out."""
+    return row_local(_mlp_rows, [x], [*p.w, *p.b])
+
+
+def _mlp_rows(x: torch.Tensor, *weights: torch.Tensor) -> torch.Tensor:
+    n = len(weights) // 2
+    for i, (w, b) in enumerate(zip(weights[:n], weights[n:])):
         x = x @ w.to(x.dtype) + b.to(x.dtype)
         if i < n - 1:
             x = F.relu(x)
@@ -259,10 +267,13 @@ def item_tower(cfg: TwoTowerConfig, params: TwoTower,
 def retrieval_loss(cfg: TwoTowerConfig, params: TwoTower,
                    batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """In-batch sampled softmax: the positives on the diagonal of
-    U @ I^T / temperature (uniform negatives, no log-Q correction)."""
+    U @ I^T / temperature (uniform negatives, no log-Q correction). On
+    DTensors each rank takes its rows of U against I gathered (the
+    logits' rows split as the batch, `layers.row_local`)."""
     u = user_tower(cfg, params, batch)                       # (B, D)
     v = item_tower(cfg, params, batch)                       # (B, D)
-    logp = torch.log_softmax((u @ v.T) / cfg.temperature, dim=-1)
+    logits = row_local(lambda a, b: a @ b.T, [u], [v])
+    logp = torch.log_softmax(logits / cfg.temperature, dim=-1)
     return -row_diagonal(logp).mean()
 
 

@@ -36,8 +36,12 @@ Sharded runs: lay the weights out as DTensors (`sharding.lm`'s rules,
 plain tensors made inside (positions, RoPE frequencies, masks) taken as
 replicated. `cfg.shard_hints` pins the activations' layout where the
 reference pins it with `with_sharding_constraint` (`_hint`): each hint is
-a DTensor redistribution, and on plain tensors it changes nothing. The
-attention runs on each rank's local shards (`_attention`).
+a DTensor redistribution, and on plain tensors it changes nothing. Every
+weight product (the projections, the GLU, the head; the MoE's router and
+experts in `layers.moe_ffn`) takes the rules' layout on local shards,
+forward and backward (`layers.pinned_matmul`), so a rank's work is shape
+arithmetic under any torch version; a hint redistributes its output
+after. The attention runs on each rank's local shards (`_attention`).
 """
 from __future__ import annotations
 
@@ -238,21 +242,19 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 # Layer body (shared by forward / prefill / decode)
 # ---------------------------------------------------------------------------
 
-def _proj(x: torch.Tensor, w: torch.Tensor, mm=torch.matmul
-          ) -> torch.Tensor:
-    """'bsd,dhk->bshk': x (B, S, D) by w (D, H, k) in x's type, the
-    product taken by `mm`."""
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """'bsd,dhk->bshk': x (B, S, D) by w (D, H, k) in x's type
+    (`layers.pinned_matmul`)."""
     b, s, _ = x.shape
     wf = L.sharded_view(w.to(x.dtype), (w.shape[0], -1))
-    return L.sharded_view(mm(x, wf), (b, s, *w.shape[1:]))
+    return L.sharded_view(L.pinned_matmul(x, wf), (b, s, *w.shape[1:]))
 
 
-def _out_proj(a: torch.Tensor, wo: torch.Tensor, mm=torch.matmul
-              ) -> torch.Tensor:
+def _out_proj(a: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """'bshk,hkd->bsd'."""
     b, s = a.shape[:2]
     wf = L.sharded_view(wo.to(a.dtype), (-1, wo.shape[-1]))
-    return mm(L.sharded_view(a, (b, s, -1)), wf)
+    return L.pinned_matmul(L.sharded_view(a, (b, s, -1)), wf)
 
 
 def rotary_dims(cfg: TransformerConfig) -> int:
@@ -311,13 +313,13 @@ def _hint(cfg: TransformerConfig, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 def _qkv(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
          positions: torch.Tensor, inv_freq: torch.Tensor,
-         hints: bool = True, mm=torch.matmul):
+         hints: bool = True):
     """Normed, projected, qk-normed and rotated q (B, S, H, hd) and k, v
     (B, S, KV, hd) of x (B, S, D) at `positions` (B, S); with `hints`, q
     pinned by the "heads" hint and k, v by "kv" after the projections, as
     the reference's forward (its decode step pins none)."""
     h = L.rms_norm(x, lp.ln_attn, cfg.norm_eps)
-    q, k, v = (_proj(h, w, mm) for w in (lp.wq, lp.wk, lp.wv))
+    q, k, v = (_proj(h, w) for w in (lp.wq, lp.wk, lp.wv))
     if hints:
         q = _hint(cfg, q, "heads")
         k, v = _hint(cfg, k, "kv"), _hint(cfg, v, "kv")
@@ -414,8 +416,7 @@ def _local_attention(cfg: TransformerConfig, q: DTensor, k_exp: DTensor,
                               shape=q.shape, stride=q.stride())
 
 
-def _ffn(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
-         mm=torch.matmul):
+def _ffn(cfg: TransformerConfig, lp: Layer, x: torch.Tensor):
     h = L.rms_norm(x, lp.ln_ffn, cfg.norm_eps)
     if cfg.is_moe:
         y, aux = L.moe_ffn(h, lp.router, lp.w_in, lp.w_gate, lp.w_out,
@@ -424,7 +425,7 @@ def _ffn(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
                            group_size=cfg.moe_group_size, act=cfg.act)
         return _hint(cfg, y, "tokens3d"), aux
     y = L.glu_ffn(h, lp.w_in, lp.w_gate, lp.w_out, cfg.act,
-                  hint=functools.partial(_hint, cfg, kind="ffn"), mm=mm)
+                  hint=functools.partial(_hint, cfg, kind="ffn"))
     return _hint(cfg, y, "tokens3d"), 0.0
 
 
@@ -509,7 +510,8 @@ def forward(cfg: TransformerConfig, params: Transformer, tokens: torch.Tensor):
     """tokens: (B, S) -> (logits (B, S, V) float32, aux_loss)."""
     x, aux = _trunk(cfg, params, tokens)
     x = L.rms_norm(x, params.ln_final, cfg.norm_eps)
-    logits = _hint(cfg, x @ params.head().to(x.dtype), "logits")
+    logits = _hint(cfg, L.pinned_matmul(x, params.head().to(x.dtype)),
+                   "logits")
     return logits.float(), aux / cfg.n_layers
 
 
@@ -553,8 +555,8 @@ def _lm_loss_chunked(cfg: TransformerConfig, params: Transformer,
         targets = torch.nn.functional.pad(targets, (0, pad))
 
     def chunk_nll(xi, ti):
-        return _nll(_hint(cfg, xi @ head.to(xi.dtype), "logits").float(),
-                    ti).sum()
+        return _nll(_hint(cfg, L.pinned_matmul(xi, head.to(xi.dtype)),
+                          "logits").float(), ti).sum()
 
     nll = chunk_nll if not torch.is_grad_enabled() else functools.partial(
         checkpoint, chunk_nll, use_reentrant=False)
@@ -677,8 +679,7 @@ def decode_step(cfg: TransformerConfig, params: Transformer, cache: dict,
     # construction; position masking is handled by validity
     kv_block = 2048 if cfg.sliding_window is None else min(2048, c)
     for i, lp in enumerate(params.layers):
-        q, k, v = _qkv(cfg, lp, x, positions, inv_freq, hints=False,
-                       mm=L.pinned_matmul)
+        q, k, v = _qkv(cfg, lp, x, positions, inv_freq, hints=False)
         if sharded:
             out = _decode_attention_sharded(cfg, q, k, v, cache, i, slot,
                                             n_filled, kv_block)
@@ -691,8 +692,8 @@ def decode_step(cfg: TransformerConfig, params: Transformer, cache: dict,
             out = L.blockwise_attention(q, k_exp, v_exp, causal=False,
                                         valid_kv=valid.expand(b, c),
                                         kv_block=kv_block)
-        x = x + _out_proj(out, lp.wo, L.pinned_matmul)
-        f, _ = _ffn(cfg, lp, x, L.pinned_matmul)
+        x = x + _out_proj(out, lp.wo)
+        f, _ = _ffn(cfg, lp, x)
         x = x + f
     x = L.rms_norm(x, params.ln_final, cfg.norm_eps)
     logits = L.pinned_matmul(x, params.head().to(x.dtype))

@@ -12,8 +12,10 @@ and the repairs the dry run needed, against the reference.
   and `rmce` `web_sparse` come out `ok` with argument bytes equal to the
   sum of their local shards, the counted matrix-product flops agree
   with MODEL_FLOPS (`launch/flops.py`) within the stated ratios, and the
-  decode cell's weight products and attention equal the shape count of
-  the reference's layout within 1 %.
+  weight products and attention of the decode cell, of `chatglm3-6b`'s
+  `train_4k` and `prefill_32k` and the expert products of
+  `mixtral-8x7b`'s `train_4k` equal the shape count of the reference's
+  layout within 1 %. `tools/dryrun_sweep.py --compare` on two summaries.
 * The repairs, on 4 gloo ranks ((2, 2) mesh) from the reference's
   float32 weights: a MoE layer of 8 experts at 4 × 64 tokens (where
   DTensor's einsum views failed), the sharded prefill and one decode step
@@ -192,18 +194,41 @@ by_op = dryrun._measure(build_cell("qwen3-14b", "decode_32k", mesh),
                         mesh)["by_op"]
 out["qwen3-14b"]["by_op"] = {k: by_op.get(k, [0, 0])[1]
                              for k in ("mm", "addmm", "bmm")}
-# the weight products (mm, addmm) of one LM train step, by op
-prog = build_cell("chatglm3-6b", "train_4k", mesh)
-by_op = dryrun._measure(prog, mesh)["by_op"]
-out["chatglm3-6b"] = dict(model=prog.model_flops, mm=sum(
-    by_op.get(k, [0, 0])[1] for k in ("mm", "addmm")))
 print(json.dumps(out))
 """
+# a fake 16×16 world of its own
+WORLD = """
+import json
+from repro_torch.launch import dryrun
+from repro_torch.launch.cells import build_cell
+from repro_torch.launch.mesh import make_production_mesh
+dryrun.join_fake_world(256)
+mesh = make_production_mesh(device="cpu")
+out = {}
+"""
+
+
+def _lm_by_op(code: str, cells) -> str:
+    """`code` (which ends by printing `out`) first adding `out[arch/cell]`,
+    the model flops and the matrix products by op of each LM cell."""
+    head, tail = code.rsplit("print(", 1)
+    return head + f"""
+for arch, cell in {tuple(cells)!r}:
+    prog = build_cell(arch, cell, mesh)
+    by_op = dryrun._measure(prog, mesh)["by_op"]
+    out[arch + "/" + cell] = dict(model=prog.model_flops, **{{
+        k: by_op.get(k, [0, 0])[1] for k in ("mm", "addmm", "bmm")}})
+""" + "print(" + tail
 
 
 @pytest.fixture(scope="module")
 def cells_16x16():
-    return _fake(CELLS)
+    """CELLS with chatglm3-6b `train_4k`'s products, then an LM prefill
+    and a MoE train cell in a second fake world (each process well inside
+    its time limit)."""
+    out = _fake(_lm_by_op(CELLS, [("chatglm3-6b", "train_4k")]))
+    return out | _fake(_lm_by_op(WORLD + "print(json.dumps(out))\n", [
+        ("chatglm3-6b", "prefill_32k"), ("mixtral-8x7b", "train_4k")]))
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "two-tower-retrieval",
@@ -226,17 +251,35 @@ def test_rmce_cell_costs_one_step_and_the_counter_reduce(cells_16x16):
     assert rec["kind"] == "mce" and rec["link"] > 0
 
 
+def _chatglm3_rank_weights(tp=16):
+    """chatglm3-6b's weights a rank multiplies under the rules' layout on
+    a tp-wide "model" axis, each gathered over "data": (one layer's, its
+    GLU output projection's, the head's). Its 32 heads divide 16, so q and
+    the output projection split; its 2 KV heads stay whole."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("chatglm3-6b").build()
+    assert cfg.n_heads % tp == 0 and not cfg.is_moe
+    d, hd, f = cfg.d_model, cfg.d_head, cfg.d_ff
+    layer = (2 * d * cfg.n_heads * hd // tp + 2 * d * cfg.n_kv_heads * hd
+             + 3 * d * f // tp)
+    return cfg, layer, d * f // tp, d * cfg.vocab // tp
+
+
 def test_counted_flops_reconcile_with_model_flops(cells_16x16):
     """Per-rank matrix-product flops (torch's formulas on local shards)
     against MODEL_FLOPS. LM training, `chatglm3-6b` `train_4k`: the
-    weight products summed over the 256 ranks are 1.18x 6·N·D (the K/V
-    projections of its 2 KV heads are replicated over the 16-wide model
-    axis; attention's own products, `bmm`, lie outside 6·N·D). Serving,
-    the two-tower's `serve_p99`: the batch is split over the 16 data ranks
-    and replicated over the model axis, so the data ranks' products sum
-    to the model's figure."""
-    lm = cells_16x16["chatglm3-6b"]
-    assert 1.0 <= lm["mm"] * 256 / lm["model"] <= 1.25
+    weight products of the forward and the backward summed over the 256
+    ranks (the measured ones less the remat's recompute, whose shape
+    count `test_lm_train_products_follow_the_reference_layout` holds)
+    are 1.10x 6·N·D (the K/V projections of its 2 KV heads are replicated
+    over the 16-wide model axis; attention's own products, `bmm`, lie
+    outside 6·N·D). Serving, the two-tower's `serve_p99`: the batch is
+    split over the 16 data ranks and replicated over the model axis, so
+    the data ranks' products sum to the model's figure."""
+    lm = cells_16x16["chatglm3-6b/train_4k"]
+    cfg, layer, w_out, _ = _chatglm3_rank_weights()
+    recompute = 2 * 16 * 4096 * cfg.n_layers * (layer - w_out)
+    assert 1.0 <= (lm["mm"] - recompute) * 256 / lm["model"] <= 1.25
     serve = cells_16x16["two-tower-retrieval"]
     assert 0.95 <= serve["products"] * 16 / serve["model"] <= 1.05
 
@@ -265,6 +308,115 @@ def test_decode_products_follow_the_reference_layout(cells_16x16):
     attention = 4 * b * c * cfg.n_heads * hd * cfg.n_layers
     assert weights == pytest.approx(2 * b * n_rank, rel=0.01), got
     assert got["bmm"] == pytest.approx(attention, rel=0.01), got
+
+
+def test_lm_train_products_follow_the_reference_layout(cells_16x16):
+    """chatglm3-6b `train_4k` on 16×16 (batch 256 of 4,096 tokens: 16
+    sequences, T = 65,536 tokens a rank): the weight products (`mm`) take
+    a rank's rows by every weight gathered over "data" and split over
+    "model" where the rules split it (q and the output projection by
+    heads, the GLU by d_ff, the head by vocab; K and V whole), N_rank
+    weights. Counted: the forward and the backward, 6·T·N_rank, and the
+    remat's recompute of each layer ("nothing_saveable"; the checkpoint
+    stops once the tensors the backward needs exist, before the GLU's
+    output product), 2·T·(N_layers − L·d·d_ff/16): 2.097e14 a rank.
+    Attention (`bmm`, the flash kernel's plain version on meta: every
+    (query, key) pair, no causal skip) takes the rank's rows over its 2
+    heads: two products of 2·B·H_rank·S²·d_head each forward, two again
+    in the recompute and five in the backward (scores, dV, dP, dQ, dK),
+    9 · 2·16·2·4,096²·128 a layer. Both within 1 %: a layout that splits
+    K or V over "model", or leaves the GLU whole, fails on any torch
+    version."""
+    cfg, layer, w_out, head = _chatglm3_rank_weights()
+    got = cells_16x16["chatglm3-6b/train_4k"]
+    b, s, tp, n = 256 // 16, 4096, 16, cfg.n_layers
+    t = b * s
+    weights = 6 * t * (n * layer + head) + 2 * t * n * (layer - w_out)
+    attention = 9 * 2 * b * (cfg.n_heads // tp) * s * s * cfg.d_head * n
+    assert got["mm"] + got["addmm"] == pytest.approx(weights, rel=0.01), got
+    assert got["bmm"] == pytest.approx(attention, rel=0.01), got
+
+
+def test_lm_prefill_products_follow_the_reference_layout(cells_16x16):
+    """chatglm3-6b `prefill_32k` on 16×16 (batch 32 of 32,768 tokens: 2
+    sequences a rank, T = 65,536 tokens): the layers' weight products
+    2·T·N_layers (the rules' layout, as in the train step) and the head
+    on each sequence's last token, 2·2·d·V/16: 5.400e13 a rank.
+    Attention, forward only: 2 · 2·B·H_rank·S²·d_head a layer (2 heads
+    of 32 a rank). Both within 1 %."""
+    cfg, layer, _, head = _chatglm3_rank_weights()
+    got = cells_16x16["chatglm3-6b/prefill_32k"]
+    b, s, n = 32 // 16, 32768, cfg.n_layers
+    weights = 2 * b * s * n * layer + 2 * b * head
+    attention = 2 * 2 * b * (cfg.n_heads // 16) * s * s * cfg.d_head * n
+    assert got["mm"] + got["addmm"] == pytest.approx(weights, rel=0.01), got
+    assert got["bmm"] == pytest.approx(attention, rel=0.01), got
+
+
+def test_moe_expert_products_follow_the_reference_layout(cells_16x16):
+    """mixtral-8x7b `train_4k` on 16×16: its 8 experts do not divide the
+    16-wide "model" axis, so each expert's d_ff splits over it (`P(None,
+    fsdp, tp)`), and a rank's 64 token groups of 1,024 (over "data") go
+    through every expert on its 896 of 14,336 columns; the dispatch and
+    combine products of its groups are whole (C = 320 slots an expert).
+    `bmm`, counted: a group's dispatch and combine, X = 2·1,024·8·320·d
+    each, and its three expert GLU products, H = 2·8·320·d·896 each, in
+    the forward (2X + 3H), the remat's recompute (X + 3H: it stops before
+    the combine) and the backward (X for the dispatch, whose routing has
+    no gradient, 2X for the combine, 6H): 6X + 12H a group; plus the
+    attention as chatglm3-6b's (9 products a layer over the rank's 2 of
+    32 heads; the window of 4,096 holds the whole sequence). The
+    routing's own einsums (under 0.1 %) are not counted. The weight
+    products (`mm`: q, k, v, o, the router, the head; the K/V of 8 heads
+    whole) as the dense count, all recomputed. Both within 1 %."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("mixtral-8x7b").build()
+    tp, b, s, n = 16, 256 // 16, 4096, cfg.n_layers
+    e, d, hd = cfg.n_experts, cfg.d_model, cfg.d_head
+    assert e % tp and cfg.n_heads % tp == 0 and s <= cfg.sliding_window
+    t, gs = b * s, cfg.moe_group_size
+    c = -(-gs * cfg.top_k * cfg.capacity_factor // e)
+    x = 2 * gs * e * c * d
+    h = 2 * e * c * d * cfg.d_ff // tp
+    attention = 9 * 2 * b * (cfg.n_heads // tp) * s * s * hd * n
+    experts = n * (t // gs) * (6 * x + 12 * h)
+    layer = (2 * d * cfg.n_heads * hd // tp + 2 * d * cfg.n_kv_heads * hd
+             + d * e)
+    weights = 6 * t * (n * layer + d * cfg.vocab // tp) + 2 * t * n * layer
+    got = cells_16x16["mixtral-8x7b/train_4k"]
+    assert got["bmm"] == pytest.approx(attention + experts, rel=0.01), got
+    assert got["mm"] + got["addmm"] == pytest.approx(weights, rel=0.01), got
+
+
+def test_sweep_compare_prints_the_cells_that_differ(tmp_path, capsys):
+    """`tools/dryrun_sweep.py --compare A B` on two summaries: one line a
+    cell whose matrix or all flops a rank differ (with B over A) or that
+    one sweep lacks, none for equal cells; exit code 1 when any differ."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "dryrun_sweep", os.path.join(ROOT, "tools", "dryrun_sweep.py"))
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+
+    def line(arch, ca, flops):
+        return dict(arch=arch, cell="train_4k", mesh="16x16", ok=True,
+                    flops_ca=ca, flops_per_device=flops)
+    for name, lines in (("a", [line("x", 2.0, 3.0), line("y", 1.0, 1.0)]),
+                        ("b", [line("x", 5.0, 6.0), line("y", 1.0, 1.0),
+                               line("z", 1.0, 1.0)])):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "summary.jsonl").write_text("".join(
+            json.dumps(ln) + "\n" for ln in lines + [dict(cells=3)]))
+    assert sweep.main(["--compare", str(tmp_path / "a"),
+                       str(tmp_path / "b" / "summary.jsonl")]) == 1
+    out = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [o["arch"] for o in out[:-1]] == ["x"]
+    assert out[0]["flops_ca_ratio"] == 2.5
+    assert out[0]["flops_per_device_ratio"] == 2.0
+    assert out[-1] == dict(cells=2, equal=1, differ=1, only_in_a=[],
+                           only_in_b=["z/train_4k/16x16"])
+    assert sweep.main(["--compare", str(tmp_path / "a"),
+                       str(tmp_path / "a")]) == 0
 
 
 # ---------------------------------------------------------------------------

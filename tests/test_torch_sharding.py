@@ -10,7 +10,9 @@ reference.
   (4, 1). The reference's rules read only `mesh.shape`, so both take the
   same `MeshShape` stand-in: no 512-device process.
 * On a world of one, every LM's sharded forward with each hint variant
-  is bit-equal to the unsharded one.
+  is bit-equal to the unsharded one; under both remat policies a train
+  step's `mm` are those of plain tensors ("dots" saves the pinned
+  products' local `mm`: 6·T·N exactly).
 * On 4 gloo ranks ((2, 2) mesh): each rank holds the slice each spec
   names; the sharded forward with each hint variant, and a MoE config
   with the ffn hint (smoke configs cut to one layer), matches the reference's float32 forward at relative
@@ -22,10 +24,13 @@ reference.
   the reference's within 1e-6 of their scale, the lookups exactly.
 * On 4 gloo ranks, training from the reference's state after one step:
   each hint variant's sharded LM (heads, ctx, seq_res, a MoE with the ffn
-  hint) and the two-tower with row-sharded tables give the reference's
-  gradients (reduced to each parameter's layout) at rtol 1e-4 with atol
-  1e-3 of each tensor's scale, and one step its parameters at rtol 1e-5,
-  atol 3e-6 and its moments.
+  hint), the cells' own hint-less layout (a dense LM, a MoE with its
+  experts over "model" and one whose experts do not divide it) and the
+  two-tower with row-sharded tables give the reference's gradients
+  (reduced to each parameter's layout) at rtol 1e-4 with atol 1e-3 of
+  each tensor's scale, and one step its parameters at rtol 1e-5, atol
+  3e-6 and its moments; `layers.pinned_matmul` alone gives the plain
+  product's gradients, each laid out as its operand.
 * The production meshes on a fake 256- and 512-rank group.
 """
 import dataclasses
@@ -185,6 +190,41 @@ def test_hints_on_a_world_of_one_change_nothing(world_of_one, arch):
                                torch.as_tensor(want_aux).float())
 
 
+@pytest.mark.parametrize("remat", ["dots", "nothing_saveable"])
+def test_remat_sees_the_pinned_products(world_of_one, remat):
+    """A train step's products under each remat policy, counted by the
+    dry run's cost model, on the rules' layout (a world of one) and on
+    plain tensors alike: the pinned products' local `mm` (`layers.
+    pinned_matmul`) are the ops the "dots" policy saves, so its backward
+    recomputes none and the step's weight products are 6·T·N exactly;
+    "nothing_saveable" recomputes them, as on plain tensors."""
+    from repro_torch.launch.cost import StepCost
+    cfg = dataclasses.replace(get_arch("chatglm3-6b").build_smoke(),
+                              remat=remat)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 16)).astype(np.int32))
+
+    def mm(model, t):
+        with StepCost() as cost:
+            T.lm_loss(cfg, model, t, t).backward()
+        return cost.by_op["mm"][:2]
+    plain = mm(T.init_params(cfg, torch.Generator().manual_seed(0),
+                             dtype=torch.float32), toks)
+    model = T.init_params(cfg, torch.Generator().manual_seed(0),
+                          dtype=torch.float32)
+    sh = lm_sharding(cfg, world_of_one)
+    shard_transformer(model, sh)
+    assert mm(model, distribute(toks, world_of_one, sh.token_spec(2))) \
+        == plain
+    d, hd, f = cfg.d_model, cfg.d_head, cfg.d_ff
+    n = cfg.n_layers * (2 * d * (cfg.n_heads + cfg.n_kv_heads) * hd
+                        + 3 * d * f) + d * cfg.vocab
+    if remat == "dots":
+        assert plain[1] == 6 * toks.numel() * n
+    else:
+        assert plain[1] > 6 * toks.numel() * n
+
+
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
     """One run of 4 gloo ranks on a (2, 2) mesh; its RESULT lines by
@@ -332,16 +372,30 @@ def test_row_sharded_bags_match_reference(four_ranks):
         assert bags["hist"]["placements"] == "(Shard(dim=0), Replicate())"
 
 
-# (arch, shard_hints) of the 4-rank train steps: heads over "model", the
-# query rows over "model" (context parallelism), Megatron sequence
-# parallelism with heads, and the MoE FFN's F over "model"
+# (arch, shard_hints, config changes) of the 4-rank train steps: heads
+# over "model", the query rows over "model" (context parallelism), Megatron
+# sequence parallelism with heads, and the MoE FFN's F over "model"; then
+# no hints, the cells' own layout (every weight product pinned by
+# `layers.pinned_matmul` and `moe_ffn`'s experts): a dense model, a MoE
+# whose 8 experts split over "model" (expert parallelism), and one whose 3
+# experts do not divide it, so d_ff splits (as mixtral's 8 on 16). The
+# MoE groups of 16 tokens split over "data".
 STEPS = [
-    ("chatglm3-6b", (("data",), "model", True)),                   # heads
-    ("qwen3-14b", (("data",), "model", False, True)),              # ctx
+    ("chatglm3-6b", (("data",), "model", True), {}),               # heads
+    ("qwen3-14b", (("data",), "model", False, True), {}),          # ctx
     ("command-r-plus-104b",
-     (("data",), "model", True, False, True, True)),               # seq_res
-    ("phi3.5-moe-42b-a6.6b", (("data",), "model", False, False, True)),
+     (("data",), "model", True, False, True, True), {}),           # seq_res
+    ("phi3.5-moe-42b-a6.6b", (("data",), "model", False, False, True), {}),
+    ("chatglm3-6b", None, {}),
+    ("phi3.5-moe-42b-a6.6b", None, dict(moe_group_size=16)),
+    ("mixtral-8x7b", None, dict(n_experts=3, moe_group_size=16)),
 ]
+
+
+def _step_id(arch, hints, changes):
+    if hints is not None:
+        return f"{arch}-{len(hints)}-{hints[2]}"
+    return "-".join([arch, "rules"] + [f"{k}={v}" for k, v in changes.items()])
 
 
 @pytest.fixture(scope="module")
@@ -363,9 +417,9 @@ def four_rank_steps(tmp_path_factory):
                       f"{prefix}g": grads, f"{prefix}w": new,
                       f"{prefix}m": dict(mu=new_opt["mu"],
                                          nu=new_opt["nu"])})
-    for i, (arch, _) in enumerate(STEPS):
+    for i, (arch, _, changes) in enumerate(STEPS):
         rcfg = dataclasses.replace(ref_arch(arch).build_smoke(),
-                                   dtype="float32", n_layers=1)
+                                   dtype="float32", n_layers=1, **changes)
         step = jax.jit(JS.make_train_step(rcfg))
         toks = rng.integers(0, rcfg.vocab, (2, 2, 16)).astype(np.int32)
         tgts = rng.integers(0, rcfg.vocab, (2, 2, 16)).astype(np.int32)
@@ -466,10 +520,10 @@ def four_rank_steps(tmp_path_factory):
                    moment_bad=moment_bad, step=int(full(state["step"])),
                    placements=sorted(placements))
 
-        for i, (arch, hints) in enumerate({STEPS!r}):
+        for i, (arch, hints, changes) in enumerate({STEPS!r}):
             cfg = dataclasses.replace(get_arch(arch).build_smoke(),
                                       dtype="float32", n_layers=1,
-                                      shard_hints=hints)
+                                      shard_hints=hints, **changes)
             sh = lm_sharding(cfg, mesh)
             model = sharded_transformer_from_reference(
                 load_tree(path, f"lm{{i}}p"), cfg, sh, torch.float32)
@@ -499,17 +553,37 @@ def four_rank_steps(tmp_path_factory):
                  for k, v in load_tree(path, "ttbatch").items()}}
         compare("tt", model, lambda m, b: R.retrieval_loss(cfg, m, b), state,
                 R.make_train_step(cfg), two_tower_named, batch)
+
+        from repro_torch.models.layers import pinned_matmul
+        from repro_torch.sharding.spec import P
+        gen = torch.Generator().manual_seed(7)
+        x, w1, w2, dy = (torch.randn(*shape, generator=gen) for shape in (
+            (8, 6, 12), (12, 10), (10, 4), (8, 6, 4)))
+        plain = [t.clone().requires_grad_() for t in (x, w1, w2)]
+        ((plain[0] @ plain[1]) @ plain[2]).backward(dy)
+        specs = (P("data", None, None), P("data", "model"), P("model", "data"))
+        leaves = [distribute(t, mesh, sp).requires_grad_()
+                  for t, sp in zip((x, w1, w2), specs)]
+        mid = pinned_matmul(leaves[0], leaves[1])
+        y = pinned_matmul(mid, leaves[2])
+        (y.full_tensor() * dy).sum().backward()
+        report(tag="pinned", mid=repr(mid.placements), y=repr(y.placements),
+               out=off(y, ((x @ w1) @ w2).numpy())[0],
+               grads=[[repr(t.placements), repr(t.grad.placements),
+                       off(t.grad, p.grad.numpy())[0]]
+                      for t, p in zip(leaves, plain)])
     """, prelude=GLOO)
 
 
 @pytest.mark.parametrize("i", range(len(STEPS)),
-                         ids=[f"{a}-{len(h)}-{h[2]}" for a, h in STEPS])
+                         ids=[_step_id(*s) for s in STEPS])
 def test_sharded_train_step_on_four_ranks_matches_reference(
         four_rank_steps, i):
-    """Each hint variant's sharded LM step on the (2, 2) mesh, from the
-    reference's state after one step: every gradient (partial sums over
-    the ranks that split the batch or the query rows, reduced to the
-    parameter's layout) at tests/test_torch_train_lm.py's tolerance
+    """Each hint variant's sharded LM step, and the cells' own layout of a
+    dense and two MoE models, on the (2, 2) mesh, from the reference's
+    state after one step: every gradient (partial sums over the ranks
+    that split the batch or the query rows, reduced to the parameter's
+    layout) at tests/test_torch_train_lm.py's tolerance
     (rtol 1e-4 with atol 1e-3 of each tensor's scale, relative norm
     5e-4); the loss at 1e-5; then one `make_train_step`: the parameters
     at rtol 1e-5 and atol 3e-6 with each update at relative norm 1e-3,
@@ -538,6 +612,25 @@ def test_row_sharded_two_tower_train_step_on_four_ranks(four_rank_steps):
         assert abs(line["loss"] - line["want_loss"]) <= 1e-5 * abs(
             line["want_loss"]), line
         assert "(Replicate(), Shard(dim=0))" in line["placements"], line
+
+
+def test_pinned_matmul_gradients_on_four_ranks(four_rank_steps):
+    """`layers.pinned_matmul` alone on the (2, 2) mesh: x (8, 6, 12) with
+    its rows over "data", w1 (12, 10) laid out P("data", "model") (K over
+    "data" as FSDP stores it, N over "model") and w2 (10, 4) P("model",
+    "data") (K over "model": the output a partial sum). x @ w1 @ w2 and
+    the gradients of x, w1 and w2 equal the plain products' within 1e-5
+    of each one's largest magnitude, each gradient laid out as its
+    operand: w1's reduced over the batch's ranks and scattered onto its
+    "data" shards, where the local chunk of an unreduced sum would
+    differ."""
+    for res in four_rank_steps:
+        line = [r for r in res if r["tag"] == "pinned"][0]
+        assert line["mid"] == "(Shard(dim=0), Shard(dim=2))", line
+        assert line["y"] == "(Shard(dim=0), Partial(sum))", line
+        assert line["out"] <= 1e-5, line
+        for place, grad_place, err in line["grads"]:
+            assert grad_place == place and err <= 1e-5, line
 
 
 FAKE = """

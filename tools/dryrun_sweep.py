@@ -5,6 +5,7 @@ cells at once, one process a cell, and print one summary line a cell.
     PYTHONPATH=src python3 tools/dryrun_sweep.py --jobs 6 --out DIR
     PYTHONPATH=src python3 tools/dryrun_sweep.py --cells qwen3-14b/decode_32k \\
         schnet/full_graph_sm --multi-pod on
+    python3 tools/dryrun_sweep.py --compare DIR_A DIR_B
 
 Without `--cells` it takes every runnable cell of `launch/cells.all_cells()`.
 Each cell runs in a process of its own (a fake world is one per process)
@@ -12,6 +13,12 @@ with a time limit; its record goes to DIR as the CLI writes it, and a line
 `{"arch", "cell", "mesh", "ok", "wall_s", "run_s", "error", ...}` to
 standard output and to DIR/summary.jsonl. The last line counts the cells
 that are not `ok`. Needs no card.
+
+`--compare A B` runs nothing: it reads two sweeps' summary.jsonl (say,
+one under each of two torch versions) and prints one line for each cell
+whose matrix-product flops or all flops a rank differ between them, or
+that is not `ok` in one, with B's figure over A's; the last line counts
+the cells that are equal, that differ and that only one sweep has.
 """
 from __future__ import annotations
 
@@ -63,6 +70,42 @@ def _one(arch, cell, pod, out, timeout):
     return line
 
 
+def _summary(path: str) -> dict:
+    path = Path(path)
+    if path.is_dir():
+        path = path / "summary.jsonl"
+    lines = [json.loads(ln) for ln in path.read_text().splitlines()
+             if ln.strip()]
+    return {(ln["arch"], ln["cell"], ln["mesh"]): ln for ln in lines
+            if "arch" in ln}
+
+
+def compare(a_path: str, b_path: str) -> int:
+    """The cells of two sweeps whose per-rank terms differ; 1 if any."""
+    a, b = _summary(a_path), _summary(b_path)
+    equal = differ = 0
+    for key in sorted(a.keys() & b.keys()):
+        ra, rb = a[key], b[key]
+        line = dict(zip(("arch", "cell", "mesh"), key), ok=[ra["ok"],
+                                                            rb["ok"]])
+        same = ra["ok"] and rb["ok"]
+        for k in ("flops_ca", "flops_per_device"):
+            x, y = ra.get(k), rb.get(k)
+            line[k] = [x, y]
+            line[k + "_ratio"] = y / x if x and y is not None else None
+            same = same and x == y
+        if same:
+            equal += 1
+        else:
+            differ += 1
+            print(json.dumps(line), flush=True)
+    only = dict(only_in_a=sorted("/".join(k) for k in a.keys() - b.keys()),
+                only_in_b=sorted("/".join(k) for k in b.keys() - a.keys()))
+    print(json.dumps(dict(cells=equal + differ, equal=equal, differ=differ,
+                          **only)))
+    return 1 if differ or only["only_in_a"] or only["only_in_b"] else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--cells", nargs="*", default=None,
@@ -72,7 +115,12 @@ def main(argv=None) -> int:
     ap.add_argument("--jobs", type=int, default=4)
     ap.add_argument("--timeout", type=float, default=1800.0)
     ap.add_argument("--out", default="build/dryrun")
+    ap.add_argument("--compare", nargs=2, metavar=("A", "B"),
+                    help="two sweeps' folders or summary.jsonl files: "
+                         "print the cells whose terms differ, run nothing")
     args = ap.parse_args(argv)
+    if args.compare:
+        return compare(*args.compare)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     pods = {"on": ["on"], "off": ["off"], "both": ["off", "on"]}[
